@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+  python3 chip_smoke.py [--profile]
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+sm_90a), then runs four phases, any failure of which exits non-zero:
+
+  1. kernels — each hand-written kernel against its plain PyTorch
+     version on the card, at full llama3.2-3b head shapes (H=24, Kh=8,
+     Dh=128, bs=16, B=8) and the serve run's table widths, prefix depths
+     and suffix buckets: |kernel - plain| <= tol * (1 + |plain|). The
+     plain version always runs in fp32 on the inputs upcast, its result
+     cast to the kernel's type, so tol is 1e-3 in fp32 (summation order)
+     and 2**-7 in bf16 (one bf16 ulp of the output: the kernel computes
+     in fp32 and rounds once). In bf16 at most 1 % of the outputs may
+     differ at all: a rounding flip needs the two fp32 results to
+     straddle a bf16 rounding point, which summation order alone rarely
+     does, while a wrong conversion moves about half of them;
+  2. serve — full-width, full-depth llama3.2-3b (bf16, seeded random
+     weights) through ``ServeEngine(cache="paged", sched="phased",
+     prefix_cache=True)`` with NVML power: 16 requests, half behind a
+     shared 256-token system prompt; every request must finish, both
+     kernels must have launched (decode once per layer and step), and
+     the pool must drain clean (``--profile`` serves the set once more
+     under ``torch.profiler`` and prints the device-busy share and the
+     device time by kernel);
+  3. agreement — a reduced fp32 llama3.2-3b served on the card (kernels)
+     and on the CPU (plain versions) from the same weights must give the
+     same greedy streams (LCP agreement >= 0.95);
+  4. times — each kernel at serve shapes beside its plain version, the
+     one PyTorch call that computes the same function
+     (``scaled_dot_product_attention`` on the gathered dense K/V, never
+     used by the port) and the least time the card could take.
+
+The line before the last is a JSON object with one entry per kernel;
+the last line is ``{"ok": true, "device": {...}}``. Without a card, or
+without the repository around it, the script fails and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-3}
+MAX_BF16_MISMATCH_SHARE = 1e-2
+H, KH, DH, BS, B = 24, 8, 128, 16, 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# inputs at main-path shapes
+# ---------------------------------------------------------------------------
+
+
+def decode_case(rng, lengths, dtype, dev, nb=64, width=64):
+    """Decode inputs whose tables are the first ``nb`` columns of a
+    ``(B, width)`` table, as the engine slices its device tables to the
+    power-of-two bucket of the longest live slot."""
+    b = len(lengths)
+    n_blocks = 1 + b * nb
+    perm = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((b, width), np.int32)         # unowned -> trash 0
+    for i, ln in enumerate(lengths):
+        need = -(-int(ln) // BS)
+        tables[i, :need] = perm[i * nb:i * nb + need]
+    t = lambda *s: torch.randn(*s, device=dev, dtype=torch.float32).to(dtype)
+    return (t(b, H, DH), t(n_blocks, BS, KH, DH), t(n_blocks, BS, KH, DH),
+            torch.from_numpy(tables).to(dev)[:, :nb],
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(dev))
+
+
+def prefill_case(rng, npre, sq, dtype, dev):
+    """Prefix-hit prefill inputs; the last row is a batch pad row whose
+    table names only the trash block 0, as the engine pads its groups."""
+    n_blocks = 1 + B * npre + 4
+    tables = rng.permutation(np.arange(1, n_blocks))[:B * npre]
+    tables = tables.reshape(B, npre).astype(np.int32)
+    tables[-1] = 0
+    t = lambda *s: torch.randn(*s, device=dev, dtype=torch.float32).to(dtype)
+    return (t(B, sq, H, DH), t(B, sq, KH, DH), t(B, sq, KH, DH),
+            t(n_blocks, BS, KH, DH), t(n_blocks, BS, KH, DH),
+            torch.from_numpy(tables).to(dev))
+
+
+def plain_fp32(fn, *args, **kw) -> torch.Tensor:
+    """The plain version on the inputs upcast to fp32, its result cast
+    back to the inputs' type: what the kernels compute, rounded once."""
+    up = [a.float() if a.is_floating_point() else a for a in args]
+    return fn(*up, **kw).to(args[0].dtype)
+
+
+def check_close(got: torch.Tensor, want: torch.Tensor, dtype):
+    """Fail unless |got - want| <= tol * (1 + |want|) everywhere (the
+    reference's kernel gate, rtol = atol) and, in bf16, unless at most
+    ``MAX_BF16_MISMATCH_SHARE`` of the elements differ. Returns the max
+    abs error, the largest |got - want| / (1 + |want|) (the number held
+    to tol) and the share of elements that differ."""
+    diff = (got.float() - want.float()).abs()
+    ratio = (diff / (1 + want.float().abs())).max().item()
+    share = (diff > 0).float().mean().item()
+    assert ratio <= TOL[dtype], (
+        f"max |err| / (1 + |want|) = {ratio:.3e} > tol {TOL[dtype]:.3e}")
+    assert dtype != torch.bfloat16 or share <= MAX_BF16_MISMATCH_SHARE, (
+        f"{share:.3e} of the bf16 outputs differ")
+    return diff.max().item(), ratio, share
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def check_kernel(name: str, worst: dict, got, want, dtype, what: str):
+    """check_close, logged; keeps the largest bf16 abs error per kernel
+    (the serve path's working type)."""
+    torch.cuda.synchronize()
+    err, ratio, share = check_close(got, want, dtype)
+    log(f"[kernels] {name} {str(dtype)[6:]} {what} max_err={err:.3e} "
+        f"max_err_ratio={ratio:.3e} (rtol=atol={TOL[dtype]:.3e}) "
+        f"mismatch_share={share:.3e}")
+    if dtype == torch.bfloat16:
+        worst[name] = max(worst[name], err)
+
+
+def phase_kernels(dev) -> dict:
+    """Kernel vs plain version at main-path shapes: decode over column
+    slices of a 64-wide table (nb 8, 32, 64), prefill at the serve run's
+    prefix depths (1, 4, 16 blocks) and suffix buckets (16, 128, 256).
+    Returns the largest bf16 error per kernel."""
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(0)
+    worst = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for nb in (8, 32, 64):
+            for window in (None, 256):
+                lengths = rng.integers(1, nb * BS + 1, size=B)
+                lengths[0], lengths[1] = 1, nb * BS
+                args = decode_case(rng, lengths, dtype, dev, nb=nb)
+                check_kernel(
+                    "paged_decode_attention", worst,
+                    ops.paged_decode_attention(*args, window=window),
+                    plain_fp32(ref.paged_decode_attention_ref, *args,
+                               window=window), dtype,
+                    f"nb={nb}/64 window={window} lengths={lengths.tolist()}")
+        for npre in (1, 4, 16):
+            for sq in (16, 128, 256):
+                args = prefill_case(rng, npre, sq, dtype, dev)
+                check_kernel(
+                    "paged_prefill_attention", worst,
+                    ops.paged_prefill_attention(*args),
+                    plain_fp32(ref.paged_prefill_attention_ref, *args),
+                    dtype, f"npre={npre} sq={sq}")
+    return worst
+
+
+def serve_requests(vocab: int, n: int = 16, seed: int = 0):
+    from repro_torch.serve.requests import Request, exponential_arrivals
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, size=256)
+    arrivals = exponential_arrivals(rng, n, 20.0)
+    reqs = []
+    for rid in range(n):
+        if rid % 2 == 0:       # shared system prompt + own question
+            prompt = np.concatenate(
+                [system, rng.integers(0, vocab, size=int(rng.integers(16, 257)))])
+        else:
+            prompt = rng.integers(0, vocab, size=int(rng.integers(64, 513)))
+        reqs.append(Request(rid=rid, prompt=prompt.astype(np.int32),
+                            max_new_tokens=int(rng.integers(32, 65)),
+                            arrival_s=float(arrivals[rid])))
+    return reqs
+
+
+def phase_serve(dev, profile: bool = False) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core.metrics import percentile
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.power.methods import NvmlPower
+    from repro_torch.serve.engine import ServeEngine
+
+    c = get_config("llama3.2-3b")
+    t0 = time.perf_counter()
+    params = lm.init(c, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] {c.name}: {c.n_layers} layers, d_model {c.d_model}, "
+        f"{n_params / 1e9:.3f}B params ({c.param_dtype}) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    power = NvmlPower(dev.index or 0)
+    engine = ServeEngine(c, params, n_slots=8, max_len=1024, block_size=16,
+                         prefix_cache=True, device=dev,
+                         power_methods=[power])
+    reqs = serve_requests(c.vocab)
+    t0 = time.perf_counter()
+    engine.warmup(requests=reqs[:2], repeat=2)   # also crosses a prefix hit
+    log(f"[serve] warmup {time.perf_counter() - t0:.1f} s")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.serve(reqs, policy="continuous")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    assert len(out.results) == len(reqs)
+    for r, req in zip(sorted(out.results, key=lambda r: r.rid), reqs):
+        assert r.finish_reason == "length", (r.rid, r.finish_reason)
+        assert len(r.tokens) == req.max_new_tokens, r.rid
+        assert all(0 <= t < c.vocab for t in r.tokens), r.rid
+    micro = sum(s.n_steps for s in out.steps if s.kind == "decode")
+    assert counts["paged_decode_attention"] == micro * c.n_layers, (
+        counts, micro)
+    assert counts["paged_prefill_attention"] > 0, counts
+    hits = engine.prefix_stats["hit_requests"]
+    assert hits > 0, engine.prefix_stats
+    paged = engine._paged
+    assert all(len(o) == 0 for o in paged._owned)
+    assert paged.free_blocks + paged.reclaimable_blocks == paged.n_blocks - 1
+    engine.reset_prefix_cache()
+    assert paged.free_blocks == paged.n_blocks - 1
+
+    s = out.summary
+    ttfts = [r.ttft_s for r in out.results]
+    decode_tokens = sum(st.n_tokens for st in out.steps if st.kind == "decode")
+    log(f"[serve] {s.n_requests} requests, "
+        f"{sum(r.prompt_len for r in out.results)} prompt tokens, "
+        f"{s.n_tokens} generated in {wall:.2f} s; prefix hits "
+        f"{hits}/{s.n_requests}, "
+        f"launches {counts}, decode micro-steps {micro}")
+    log(f"[serve] decode_tok_s={decode_tokens / s.decode_s:.1f} "
+        f"(decode windows only) useful_tok_s={s.decode_tok_s:.1f} "
+        f"ttft_p50_ms={percentile(ttfts, 50) * 1e3:.1f} "
+        f"ttft_p99_ms={percentile(ttfts, 99) * 1e3:.1f} "
+        f"tpot_p50_ms={percentile([r.tpot_s for r in out.results], 50) * 1e3:.2f} "
+        f"occupancy={s.mean_occupancy:.3f} wh_per_token={s.wh_per_token:.3e} "
+        f"power_source={power.name} mean_w="
+        f"{np.mean(out.sample_ws):.1f}")
+    if profile:
+        profile_serve(engine, reqs)
+    power.close()
+    del engine, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_serve(engine, reqs) -> None:
+    """Serve the request set again under ``torch.profiler`` and print
+    where the time goes: the device-busy share of the wall time and the
+    device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    engine.reset_prefix_cache()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = engine.serve(reqs, policy="continuous")
+        wall = time.perf_counter() - t0
+    engine.reset_prefix_cache()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    decode_s = sum(s.duration_s for s in out.steps if s.kind == "decode")
+    prefill_s = sum(s.duration_s for s in out.steps if s.kind == "prefill")
+    log(f"[profile] wall {wall:.3f} s (decode windows {decode_s:.3f} s, "
+        f"prefill windows {prefill_s:.3f} s), device busy "
+        f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.3f} of wall")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:12]:
+        log(f"[profile] {e.self_device_time_total / 1e3:10.2f} ms "
+            f"{e.count:7d}x  {e.key[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_agreement(dev) -> None:
+    """Reduced fp32 model on the card (kernels) vs on the CPU (plain
+    versions), same weights and requests, prefix cache on."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.requests import Request
+
+    c = get_config("llama3.2-3b").reduced(dtype="float32",
+                                          param_dtype="float32")
+    cpu_params = lm.init(c, torch.Generator().manual_seed(1), "cpu")
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, c.vocab, size=32)
+    reqs = [Request(rid=i, prompt=np.concatenate(
+                [shared, rng.integers(0, c.vocab, size=int(rng.integers(
+                    3, 20)))]).astype(np.int32) if i % 2 == 0 else
+                rng.integers(0, c.vocab, size=int(rng.integers(
+                    8, 40))).astype(np.int32),
+                max_new_tokens=int(rng.integers(8, 24)))
+            for i in range(12)]
+    streams = {}
+    for where, params in (("cpu", cpu_params),
+                          ("cuda", _to(cpu_params, dev))):
+        eng = ServeEngine(c, params, n_slots=4, max_len=128, block_size=16,
+                          prefix_cache=True, device=where)
+        out = eng.serve(reqs)
+        assert eng.prefix_stats["hit_requests"] > 0
+        streams[where] = {r.rid: list(r.tokens) for r in out.results}
+    fracs = []
+    for rid, a in streams["cpu"].items():
+        b = streams["cuda"][rid]
+        lcp = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+        fracs.append(lcp / max(len(a), len(b), 1))
+    agreement = sum(fracs) / len(fracs)
+    log(f"[agreement] reduced fp32 {c.name}: card (kernels) vs CPU (plain) "
+        f"stream agreement {agreement:.4f} over {len(fracs)} requests")
+    assert agreement >= 0.95, agreement
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_times(dev, counts: dict, errs: dict) -> list:
+    """Each kernel at serve shapes: its time, its plain version's, the
+    SDPA yardstick's, and the bound from the bytes and flops it needs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(2)
+    dtype = torch.bfloat16
+    esize = 2
+    rows = []
+
+    # decode: B=8 slots of a serve mix (prompt 64-512 + up to 64 tokens)
+    lengths = rng.integers(64, 577, size=B)
+    q, kp, vp, tables, lens = decode_case(rng, lengths, dtype, dev)
+    check_kernel("paged_decode_attention", errs,
+                 ops.paged_decode_attention(q, kp, vp, tables, lens),
+                 plain_fp32(ref.paged_decode_attention_ref, q, kp, vp,
+                            tables, lens), dtype, "at the timed shapes")
+    ms = time_ms(lambda: ops.paged_decode_attention(q, kp, vp, tables, lens))
+    plain = time_ms(lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, tables, lens), iters=10)
+    nb = tables.shape[1]
+    kd = kp[tables.long()].reshape(B, nb * BS, KH, DH).transpose(1, 2)
+    vd = vp[tables.long()].reshape(B, nb * BS, KH, DH).transpose(1, 2)
+    mask = (torch.arange(nb * BS, device=dev)[None, :]
+            < lens[:, None]).reshape(B, 1, 1, nb * BS)
+    qd = q.reshape(B, H, 1, DH)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    tok = int(lengths.sum())
+    nbytes = (2 * B * H * DH * esize + 2 * tok * KH * DH * esize
+              + sum(-(-int(n) // BS) for n in lengths) * 4 + B * 4)
+    flops = 4 * tok * H * DH
+    rows.append(_row("paged_decode_attention", "decode_attention", counts,
+                     errs, ms, plain, lib, nbytes, flops, dtype,
+                     f"B={B} H={H} Kh={KH} Dh={DH} bs={BS} nb={nb} "
+                     f"lengths={lengths.tolist()}"))
+
+    # prefill: a prefix-cache hit of the serve mix, 16 shared blocks +
+    # a 128-token suffix bucket, batch padded to 8 slots (one pad row)
+    npre, sq = 16, 128
+    args = prefill_case(rng, npre, sq, dtype, dev)
+    check_kernel("paged_prefill_attention", errs,
+                 ops.paged_prefill_attention(*args),
+                 plain_fp32(ref.paged_prefill_attention_ref, *args), dtype,
+                 "at the timed shapes")
+    ms = time_ms(lambda: ops.paged_prefill_attention(*args))
+    plain = time_ms(lambda: ref.paged_prefill_attention_ref(*args), iters=10)
+    q, ks, vs, kp, vp, tables = args
+    pre = npre * BS
+    kd = torch.cat([kp[tables.long()].reshape(B, pre, KH, DH), ks],
+                   1).transpose(1, 2).contiguous()
+    vd = torch.cat([vp[tables.long()].reshape(B, pre, KH, DH), vs],
+                   1).transpose(1, 2).contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(pre + sq, device=dev)[None, :]
+            <= torch.arange(sq, device=dev)[:, None] + pre)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    n_read = torch.unique(tables).numel()      # the pad row reads block 0
+    nbytes = (2 * B * sq * H * DH * esize + 2 * B * sq * KH * DH * esize
+              + 2 * n_read * BS * KH * DH * esize + B * npre * 4)
+    flops = 4 * H * DH * B * sum(pre + i + 1 for i in range(sq))
+    rows.append(_row("paged_prefill_attention", "prefill_attention", counts,
+                     errs, ms, plain, lib, nbytes, flops, dtype,
+                     f"B={B} Sq={sq} npre={npre} H={H} Kh={KH} Dh={DH} "
+                     f"bs={BS}"))
+    return rows
+
+
+REPLACES = {
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:155",
+    "paged_prefill_attention": "src/repro/kernels/prefill_attention.py:217",
+}
+
+
+def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops, dtype,
+         shape):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/csrc/{name}.cu",
+           "replaces": REPLACES[name], "launches": counts[name],
+           "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": lib}
+    log(f"[times] {name} ({module}.py) at {shape}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return row
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"[build] nvcc sm_90a build + load {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "bytes stack" in line or "Compiling" in line:
+            log(f"[build] {line.strip()}")
+
+    errs = phase_kernels(dev)
+    counts = phase_serve(dev, profile="--profile" in sys.argv[1:])
+    phase_agreement(dev)
+    rows = phase_times(dev, counts, errs)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the port and their plain versions.
+
+  ref.py               plain PyTorch versions — what each kernel computes
+  decode_attention.py  wrapper of csrc/paged_decode_attention.cu
+  prefill_attention.py wrapper of csrc/paged_prefill_attention.cu
+  ops.py               dispatch by device: CPU -> plain, CUDA -> kernel
+  _build.py            nvcc build (sm_90a) + ctypes loading, on first use
+"""

@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``src/repro_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) — one ``nvcc`` process per source, all started together —
+and linked into one shared library with a plain C interface under
+``build/repro_torch/`` at the repository root, named by a hash of the
+sources and flags (an edited source rebuilds, an unchanged one loads).
+The library is loaded with ``ctypes``; each C function returns the
+``cudaGetLastError()`` of its launch, which the Python wrappers turn
+into an exception.
+
+Nothing is built at import time: :func:`load_library` builds on first
+use. A file lock serialises concurrent builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C signatures: pointers and the stream as void*, sizes as int
+SIGNATURES = {
+    # q, k_pool, v_pool, tables, lengths, out,
+    # batch, kv_heads, group, d_head, block_size, n_table_cols,
+    # table_stride, window, scale, dtype, stream
+    "repro_paged_decode_attention":
+        [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    # q, k_suffix, v_suffix, k_pool, v_pool, tables, out,
+    # batch, sq, kv_heads, group, d_head, block_size, npre,
+    # table_stride, window, scale, dtype, stream
+    "repro_paged_prefill_attention":
+        [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+    "repro_cuda_error_string": [_I],
+}
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(SRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand) / "bin" / "nvcc"
+        if cand and path.is_file():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH)")
+    return found
+
+
+def build() -> Path:
+    """Compile and link the library unless this source hash is built."""
+    digest = _digest()
+    so = BUILD_DIR / f"librepro_torch_{digest}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return so
+        nvcc = find_nvcc()
+        jobs = []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}_{digest}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, _obj, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"== nvcc {src.name} (rc {proc.returncode})\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        (BUILD_DIR / "build.log").write_text("".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(log))
+        tmp = so.with_name(so.name + ".tmp")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp, so)
+    return so
+
+
+def build_log() -> str:
+    path = BUILD_DIR / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "repro_cuda_error_string" \
+            else ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err:
+        msg = load_library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,489 @@
+"""Serving engine: continuous and fixed-batch policies over the paged KV
+cache, with energy-per-token accounting.
+
+Port of ``src/repro/serve/engine.py`` (``ServeEngine``) for
+``cache="paged"``, ``sched="phased"``, ``kv_dtype="fp32"``, with the
+prefix cache off or on. The decode hot path keeps the reference's
+mechanisms:
+
+  * **paged KV** — ``serve.cache.PagedKVCache``: fixed-size blocks in a
+    shared pool addressed by per-slot block tables; decode attention
+    walks only the first ``nb`` table columns (``nb`` bucketed to the
+    longest live slot) through ``kernels.ops.paged_decode_attention``;
+  * **batched admission prefill** — newly admitted requests prefill as
+    one batch per (prompt bucket, prefix depth) group, padded to
+    ``n_slots`` rows like the reference, so both packages run the same
+    shapes; a prefix-cache hit prefills only its suffix, attending over
+    the shared prefix blocks in the pool through
+    ``kernels.ops.paged_prefill_attention``;
+  * **fused decode windows** — when the scheduler can prove no slot can
+    finish or be admitted within ``k`` steps, ``k`` decode steps run
+    back to back with the tokens chained on the device, and all ``k``
+    outputs come back in one ``.cpu()``.
+
+The reference's JIT programs become eager calls and its donated buffers
+become in-place updates of the pool. Energy: every step window is
+bracketed by synchronous ``PowerMethod`` samples and
+``core.metrics.attribute_energy`` integrates over it (Wh/token,
+Wh/request).
+
+Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
+item: the slotted cache, ``sched="chunked"`` (with preemption and decode
+replay), ``kv_dtype="int8"``, deadlines and shedding, slot faults, the
+scripted (callable-driven) mode, and ``generate``/``BatchedServer``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.metrics import (
+    ServeSummary, attribute_energy, serve_summary,
+)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import lm
+from repro_torch.models.blocks import check_family
+from repro_torch.serve.cache import (
+    PagedKVCache, copy_blocks, insert_paged_prefill,
+)
+from repro_torch.serve.requests import Request, RequestResult
+from repro_torch.serve.scheduler import Scheduler, StepRecord
+
+Params = Any
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+@dataclass
+class ServeRunResult:
+    """Outcome of one ``ServeEngine.serve`` run."""
+
+    results: list                 # RequestResult, completion order
+    steps: list                   # StepRecord log (energy attribution)
+    sample_ts: list               # synchronous power sample times
+    sample_ws: list               # total watts at each sample
+    summary: ServeSummary
+
+
+class ServeEngine:
+    """Serving engine over the paged KV cache (see module docstring).
+
+    ``params`` is the model's parameter tree (``lm.init`` or
+    ``bridge.params_from_numpy``) on ``device`` — the CUDA card unless
+    the caller passes ``device="cpu"``. ``max_len`` is the total
+    per-slot capacity (prompt + generated tokens); ``decode_window`` caps
+    how many decode steps a fused run keeps in flight (1 syncs every
+    token).
+    """
+
+    def __init__(self, c: ModelConfig, params: Params, *,
+                 n_slots: int = 4, max_len: int = 256,
+                 cache: str = "paged", block_size: int = 16,
+                 n_blocks: Optional[int] = None,
+                 prefix_cache: bool = False, kv_dtype: str = "fp32",
+                 decode_window: int = 8, sched: str = "phased",
+                 device: DeviceLike = None,
+                 prefill_fn: Optional[Callable] = None,
+                 decode_fn: Optional[Callable] = None,
+                 power_methods: Sequence = ()):
+        if cache != "paged":
+            raise _todo(f"cache={cache!r}", "Queue 1 item 6 (slotted cache)")
+        if sched != "phased":
+            raise _todo(f"sched={sched!r}", "Queue 1 item 7.3 (chunked "
+                        "prefill, preemption and decode replay)")
+        if kv_dtype != "fp32":
+            raise _todo(f"kv_dtype={kv_dtype!r}", "Queue 1 item 7.5")
+        if prefill_fn is not None or decode_fn is not None:
+            raise _todo("scripted mode (prefill_fn/decode_fn)",
+                        "Queue 1 item 7")
+        check_family(c)
+        self.device = resolve_device(device)
+        leaf = params["embed"]["tok"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params on {leaf.device}, engine on "
+                             f"{self.device}")
+        self.c, self.params = c, params
+        self.n_slots, self.max_len = n_slots, max_len
+        self.block_size = block_size
+        self._n_blocks = n_blocks
+        self.prefix_cache = prefix_cache
+        self.decode_window = max(int(decode_window), 1)
+        self.clock = time.monotonic
+        self.power_methods = list(power_methods)
+        self.prefix_stats: dict = self._blank_prefix_stats()
+        self._paged: Optional[PagedKVCache] = None
+        #: admission-control ledger: slot -> worst-case block demand
+        #: (prompt + full token budget)
+        self._slot_cap: dict[int, int] = {}
+        #: available-block count snapshotted when admission last deferred
+        #: the queue head; admission retries only once it changes
+        self._defer_free_blocks: Optional[int] = None
+        self.caches: Params = None   # the pool tree, allocated on first use
+
+    # ------------------------------------------------------------------
+    # Cache + bucketing
+    # ------------------------------------------------------------------
+
+    def _ensure_cache(self):
+        if self.caches is not None:
+            return
+        self._paged = PagedKVCache(self.c, self.n_slots, self.max_len,
+                                   block_size=self.block_size,
+                                   n_blocks=self._n_blocks,
+                                   device=self.device)
+        if self.prefix_cache:
+            self._paged.enable_prefix_cache()
+        self.caches = self._paged.caches
+
+    @staticmethod
+    def _blank_prefix_stats() -> dict:
+        return {"hit_requests": 0, "miss_requests": 0,
+                "reused_blocks": 0, "registered_blocks": 0}
+
+    def _nb_bucket(self, n: int) -> int:
+        """Table columns decode reads for ``n`` live blocks: the next
+        power of two, capped at ``max_blocks`` (the reference's static
+        gather width, kept so both packages run the same shapes)."""
+        cap = self._paged.max_blocks
+        b = 1
+        while b < n and b < cap:
+            b *= 2
+        return min(b, cap)
+
+    def _prompt_bucket(self, n: int) -> int:
+        """Prompt-length bucket for batched prefill: the next
+        ``block_size`` multiple (causal masking hides the pad tokens'
+        K/V until decode overwrites it)."""
+        b = -(-n // self.block_size) * self.block_size
+        return min(max(b, self.block_size), self.max_len)
+
+    # ------------------------------------------------------------------
+    # Paged admission control (pool shortfall -> deferral, not a crash)
+    # ------------------------------------------------------------------
+
+    def _free_paged_slot(self, slot_index: int) -> None:
+        self._paged.free(slot_index)
+        self._slot_cap.pop(slot_index, None)
+
+    def _paged_headroom(self) -> int:
+        """Available blocks not yet spoken for by active slots'
+        worst-case growth."""
+        reserved = sum(max(0, cap - self._paged.owned(s))
+                       for s, cap in self._slot_cap.items())
+        return self._paged.available_blocks - reserved
+
+    def _admit_paged(self, sched: Scheduler, admitted: list) -> list:
+        """Reserve each admission's worst-case block demand; when the
+        pool cannot cover the next request, it and everything behind it
+        go back to the queue front (FIFO kept) until blocks free up."""
+        ok = []
+        for i, slot in enumerate(admitted):
+            req = slot.request
+            cap = -(-(req.prompt_len + req.max_new_tokens) // self.block_size)
+            if cap > self._paged_headroom():
+                for later in reversed(admitted[i:]):
+                    sched.unadmit(later)
+                self._defer_free_blocks = self._paged.available_blocks
+                break
+            self._slot_cap[slot.index] = cap
+            ok.append(slot)
+        return ok
+
+    def _admission_blocked(self) -> bool:
+        """True while a deferred queue head cannot possibly admit."""
+        snap = self._defer_free_blocks
+        return (snap is not None and self._paged is not None
+                and self._paged.available_blocks == snap)
+
+    # ------------------------------------------------------------------
+    # Model phases
+    # ------------------------------------------------------------------
+
+    def _tensor(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
+                                                            dtype)
+
+    def _prefill(self, tokens: np.ndarray, last: np.ndarray, npre: int,
+                 pre_blocks: np.ndarray):
+        """One batched prefill: cold (``npre == 0``) or a prefix-cache
+        hit whose suffix attends over ``npre`` shared pool blocks.
+        Returns (first tokens on the device, suffix cache rows)."""
+        kw = {}
+        if npre:
+            kw = dict(paged_prefix=self.caches,
+                      paged_tables=self._tensor(pre_blocks, torch.int32),
+                      pos_offset=npre * self.block_size)
+        logits, rows = lm.prefill(self.c, self.params, self._tensor(tokens),
+                                  last_pos=self._tensor(last), **kw)
+        return logits[:, -1].argmax(-1), rows
+
+    def _model_prefill_admitted(self, sched: Scheduler, admitted, results,
+                                steps, ts, ws):
+        """Prefill newly admitted slots as one padded batch per
+        (suffix-bucket, prefix-depth) group; one host fetch returns the
+        group's first tokens. With the prefix cache on, each prompt is
+        matched against the index first: a hit of ``npre`` full blocks
+        adopts them (shared, refcounted) and prefills only the suffix.
+        Every prompt then registers its own full blocks."""
+        bs = self.block_size
+        groups: dict[tuple, list] = {}
+        for slot in admitted:
+            pre: list = []
+            if self.prefix_cache:
+                pre = self._paged.prefix_match(
+                    [int(t) for t in slot.request.prompt])
+            npre = len(pre)
+            bucket = self._prompt_bucket(slot.request.prompt_len - npre * bs)
+            groups.setdefault((bucket, npre), []).append((slot, pre))
+        for (bucket, npre), entries in sorted(groups.items()):
+            kp = self.n_slots       # fixed batch, as the reference's programs
+            pre_len = npre * bs
+            t0 = self.clock()
+            self._sample_power(ts, ws)   # bracket the prefill window
+            tokens = np.zeros((kp, bucket), np.int64)
+            last = np.zeros((kp,), np.int64)
+            # pad rows read the trash block — harmless, never read back
+            pre_blocks = np.zeros((kp, npre), np.int32)
+            for i, (slot, pre) in enumerate(entries):
+                plen = slot.request.prompt_len
+                prompt = np.asarray(slot.request.prompt, np.int64)
+                tokens[i, :plen - pre_len] = prompt[pre_len:]
+                last[i] = plen - pre_len - 1
+                if npre:
+                    pre_blocks[i] = pre
+            first, rows = self._prefill(tokens, last, npre, pre_blocks)
+            blocks = np.full((kp, -(-bucket // bs)), self._paged.n_blocks,
+                             np.int64)                       # pad: dropped
+            for i, (slot, pre) in enumerate(entries):
+                plen = slot.request.prompt_len
+                if npre:
+                    self._paged.adopt(slot.index, pre)
+                self._paged.ensure(slot.index, plen)
+                own = self._paged.block_ids(slot.index, plen)[npre:]
+                blocks[i, :len(own)] = own
+            insert_paged_prefill(self.caches, rows, blocks, block_size=bs)
+            if self.prefix_cache:
+                st = self.prefix_stats
+                st["hit_requests" if npre else "miss_requests"] += len(entries)
+                st["reused_blocks"] += npre * len(entries)
+                for slot, _pre in entries:
+                    st["registered_blocks"] += self._paged.prefix_register(
+                        slot.index, [int(t) for t in slot.request.prompt])
+            first_np = first.cpu().numpy()      # one batched device fetch
+            t1 = self.clock()
+            self._sample_power(ts, ws)
+            rids = tuple(s.request.rid for s, _pre in entries)
+            steps.append(StepRecord("prefill", t0, t1, rids, len(rids)))
+            for i, (slot, _pre) in enumerate(entries):
+                res = results[slot.request.rid]
+                res.slot = slot.index
+                res.admitted_s, res.first_token_s = t0, t1
+                tok = int(first_np[i])
+                res.tokens.append(tok)
+                slot_index = slot.index
+                reason = sched.record_token(slot, tok)
+                if reason is not None:
+                    res.finish_s, res.finish_reason = t1, reason
+                    self._free_paged_slot(slot_index)
+
+    def _decode_plan(self, sched: Scheduler, active,
+                     admission_blocked: bool = False) -> int:
+        """How many decode steps can run before the host must look: fused
+        only when no active request can hit EOS, each has at least ``k``
+        budget left, and no admission could happen meanwhile (a
+        headroom-deferred head cannot admit until a slot finishes, and
+        finishes land on window edges)."""
+        if self.decode_window <= 1:
+            return 1
+        if (len(active) < self.n_slots and sched.n_pending
+                and not admission_blocked and sched.policy != "fixed"):
+            return 1
+        if any(s.request.eos_id is not None for s in active):
+            return 1
+        k = min(s.request.max_new_tokens - s.generated for s in active)
+        k = min(k, min(self.max_len - s.pos for s in active))
+        return max(1, min(k, self.decode_window))
+
+    def _model_decode_run(self, sched: Scheduler, active, k: int, results,
+                          steps, ts, ws):
+        """Run ``k`` decode steps with the token stream chained on the
+        device, then drain all outputs in one ``.cpu()``."""
+        for s in active:
+            self._paged.ensure(s.index, s.pos + k)
+        if self.prefix_cache:
+            # copy-on-write net: decode writes land past every shared
+            # (full, block-aligned) prefix block, so this stays a no-op
+            # unless a shared block ever ends up under a write cursor
+            srcs: list = []
+            dsts: list = []
+            for s in active:
+                sc, dc = self._paged.make_writable(s.index, s.pos, k)
+                srcs += sc
+                dsts += dc
+            if srcs:
+                copy_blocks(self.caches, srcs, dsts)
+        tables = self._paged.device_tables()
+        nb = self._nb_bucket(self._paged.max_owned())
+        tok = self._tensor(sched.input_tokens())
+        pos0 = self._tensor(sched.positions(), torch.int32)
+        adv = self._tensor(sched.active_mask(), torch.int32)  # idle rows park
+        rids = tuple(s.request.rid for s in active)
+        t0 = self.clock()
+        self._sample_power(ts, ws)   # bracket the decode window
+        outs = []
+        for i in range(k):
+            logits, _ = lm.decode_step(self.c, self.params, tok[:, None],
+                                       self.caches, pos0 + i * adv,
+                                       block_tables=tables, n_kv_blocks=nb)
+            tok = logits[:, -1].argmax(-1)
+            outs.append(tok)
+        outs_np = torch.stack(outs).cpu().numpy()   # pipeline drain: one sync
+        t1 = self.clock()
+        self._sample_power(ts, ws)
+        emitted = 0
+        for out in outs_np:
+            for s in active:
+                if s.request is None:     # finished at an earlier micro-step
+                    continue
+                res = results[s.request.rid]
+                tok_i = int(out[s.index])
+                emitted += 1
+                res.tokens.append(tok_i)
+                slot_index = s.index
+                reason = sched.record_token(s, tok_i)
+                if reason is not None:
+                    res.finish_s, res.finish_reason = t1, reason
+                    self._free_paged_slot(slot_index)
+        steps.append(StepRecord("decode", t0, t1, rids * k, emitted,
+                                n_steps=k))
+
+    # ------------------------------------------------------------------
+    # Warmup + prefix-cache reset
+    # ------------------------------------------------------------------
+
+    def warmup(self, prompt_len: int = 8,
+               requests: Optional[Sequence[Request]] = None,
+               repeat: int = 1):
+        """Serve a throwaway request set with power sampling detached, so
+        first-call set-up (CUDA context, library handles, allocator)
+        stays outside measured runs; the prefix index is cleared after."""
+        if requests is None:
+            budget = max(self.max_len - prompt_len, 1)
+            requests = [Request(rid=-(i + 1),
+                                prompt=np.zeros(prompt_len, np.int32),
+                                max_new_tokens=budget, arrival_s=0.0)
+                        for i in range(self.n_slots)]
+        saved = self.power_methods
+        self.power_methods = []
+        try:
+            for _ in range(max(int(repeat), 1)):
+                self.serve(requests, policy="continuous")
+        finally:
+            self.power_methods = saved
+            self.reset_prefix_cache()
+
+    def reset_prefix_cache(self):
+        """Drop every prefix-index entry and zero the hit counters."""
+        if self._paged is not None and self.prefix_cache:
+            self._paged.clear_prefix()
+        self.prefix_stats = self._blank_prefix_stats()
+
+    # ------------------------------------------------------------------
+    # Run loop
+    # ------------------------------------------------------------------
+
+    def _sample_power(self, ts: list, ws: list):
+        if not self.power_methods:
+            return
+        w = sum(sum(m.read().values()) for m in self.power_methods)
+        ts.append(self.clock())
+        ws.append(w)
+
+    def serve(self, requests: Sequence[Request], *,
+              policy: str = "continuous", poll_s: float = 0.002,
+              sched: Optional[str] = None, faults=None) -> ServeRunResult:
+        """Run a request set to completion under ``policy``
+        (``continuous`` or ``fixed``). ``arrival_s`` is relative to the
+        run start; the engine sleeps while the queue is empty and slots
+        are idle."""
+        if sched not in (None, "phased"):
+            raise _todo(f"sched={sched!r}", "Queue 1 item 7.3")
+        if faults is not None:
+            raise _todo("fault schedules (overload shedding, slot faults)",
+                        "Queue 1 item 7.6")
+        if any(r.deadline_s is not None for r in requests):
+            raise _todo("deadlines and shedding", "Queue 1 item 7.6")
+        with torch.no_grad():
+            return self._serve(requests, policy, poll_s)
+
+    def _serve(self, requests, policy: str, poll_s: float) -> ServeRunResult:
+        self._ensure_cache()
+        sched = Scheduler(self.n_slots, self.max_len, policy=policy)
+        t_start = self.clock()
+        results: dict[int, RequestResult] = {}
+        for r in requests:
+            sched.submit(r)
+            results[r.rid] = RequestResult(
+                rid=r.rid, prompt_len=r.prompt_len,
+                arrival_s=t_start + r.arrival_s, tenant=r.tenant)
+        steps: list[StepRecord] = []
+        ts: list[float] = []
+        ws: list[float] = []
+        self._defer_free_blocks = None
+        self.prefix_stats = self._blank_prefix_stats()
+        self._sample_power(ts, ws)
+
+        while sched.has_work:
+            now_rel = self.clock() - t_start
+            # a headroom-deferred head retries only once blocks moved
+            if self._admission_blocked():
+                admitted = []
+            else:
+                self._defer_free_blocks = None
+                admitted = sched.refill(now_rel)
+                if admitted:
+                    admitted = self._admit_paged(sched, admitted)
+            if admitted:
+                self._model_prefill_admitted(sched, admitted, results,
+                                             steps, ts, ws)
+            active = sched.decode_slots()
+            if active:
+                k = self._decode_plan(
+                    sched, active,
+                    admission_blocked=self._admission_blocked())
+                self._model_decode_run(sched, active, k, results,
+                                       steps, ts, ws)
+            elif sched.n_pending:
+                # idle: nothing admitted yet — wait for the next arrival
+                nxt = sched.next_arrival_s()
+                wait = (t_start + nxt) - self.clock() if nxt is not None \
+                    else poll_s
+                if wait > 0:
+                    time.sleep(min(wait, 0.05))
+
+        self._sample_power(ts, ws)
+        out_results = sorted(results.values(), key=lambda r: r.finish_s)
+        for rid, wh in attribute_energy(steps, ts, ws).items():
+            results[rid].energy_wh = wh
+        return ServeRunResult(
+            results=out_results, steps=steps, sample_ts=ts, sample_ws=ws,
+            summary=serve_summary(out_results, steps, ts, ws,
+                                  n_slots=self.n_slots))
+
+    def generate(self, *args, **kwargs):
+        raise _todo("fixed-batch generate()", "Queue 1 item 7")
+
+
+class BatchedServer:
+    """Fixed-batch greedy decoding front end of the reference (not
+    ported)."""
+
+    def __init__(self, *args, **kwargs):
+        raise _todo("BatchedServer", "Queue 1 item 7")

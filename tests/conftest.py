@@ -16,6 +16,9 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (deselected by default; run with "
         "--runslow or an explicit -m expression)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel on the card (skips where there is none)")
 
 
 def pytest_collection_modifyitems(config, items):
