@@ -4,12 +4,15 @@
   python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-sm_90a), then runs four phases, any failure of which exits non-zero:
+sm_90a), then runs five phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
-     version on the card, at full llama3.2-3b head shapes (H=24, Kh=8,
-     Dh=128, bs=16, B=8) and the serve run's table widths, prefix depths
-     and suffix buckets: |kernel - plain| <= tol * (1 + |plain|). The
+     version on the card: paged decode and paged prefill (fp and int8
+     pools) at full llama3.2-3b head shapes (H=24, Kh=8, Dh=128, bs=16,
+     B=8) and the serve run's table widths, prefix depths and suffix
+     buckets; flash attention over the reference's SWEEP and a
+     2048-token llama3.2-3b prefill; RMSNorm over the reference's sweep
+     and (4096, 3072): |kernel - plain| <= tol * (1 + |plain|). The
      plain version always runs in fp32 on the inputs upcast, its result
      cast to the kernel's type, so tol is 1e-3 in fp32 (summation order)
      and 2**-7 in bf16 (one bf16 ulp of the output: the kernel computes
@@ -28,20 +31,30 @@ sm_90a), then runs four phases, any failure of which exits non-zero:
   3. agreement — a reduced fp32 llama3.2-3b served on the card (kernels)
      and on the CPU (plain versions) from the same weights must give the
      same greedy streams (LCP agreement >= 0.95);
-  4. times — each kernel at serve shapes beside its plain version, the
-     one PyTorch call that computes the same function
-     (``scaled_dot_product_attention`` on the gathered dense K/V, never
-     used by the port) and the least time the card could take.
+  4. bench — the port's ``kernels`` benchmark entry point,
+     ``python -m repro_torch.bench run --suite kernels`` (in process, no
+     power), on its full Space: the reference's five cases and four at
+     llama3.2-3b width, each kernel beside its plain version; every
+     record must be ``ok``, every ``cuda`` row within the gate above, the
+     results must read back, and flash attention, RMSNorm and the int8
+     prefill path must have launched;
+  5. times — each kernel at main-path shapes beside its plain version,
+     the one PyTorch call that computes the same function
+     (``scaled_dot_product_attention``, ``rms_norm``; never used by the
+     port) and the least time the card could take. The decode and
+     prefill rows count their launches in phase 2, the others in phase 4.
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``. Without a card, or
-without the repository around it, the script fails and prints no result.
+The output ends with three lines: a JSON object with one entry per
+kernel, the card's name and power limit as ``nvidia-smi`` gives them,
+and ``{"ok": true, "device": {...}}``. Without a card, or without the
+repository around it, the script fails and prints no result.
 """
 from __future__ import annotations
 
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -56,6 +69,23 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-3}
 MAX_BF16_MISMATCH_SHARE = 1e-2
 H, KH, DH, BS, B = 24, 8, 128, 16, 8
+#: the reference's flash SWEEP (tests/test_kernels.py:11-21) plus a
+#: 2048-token llama3.2-3b prefill: b, sq, skv, h, kh, dh, causal, window
+FLASH_SWEEP = [
+    (1, 128, 128, 1, 1, 64, True, None),
+    (2, 256, 256, 4, 2, 64, True, None),
+    (1, 256, 256, 8, 8, 128, True, None),
+    (2, 128, 256, 4, 4, 64, True, None),
+    (1, 256, 256, 6, 2, 64, True, 128),
+    (1, 512, 512, 2, 1, 128, True, 256),
+    (2, 256, 256, 4, 2, 64, False, None),
+    (1, 384, 384, 3, 3, 64, True, None),
+    (2, 2048, 2048, H, KH, DH, True, None),
+]
+#: the reference's rmsnorm sweep (tests/test_kernels.py:79-82) plus 4096
+#: tokens at llama3.2-3b width
+RMSNORM_SWEEP = [(8, 64), (37, 512), (300, 128), (1, 1024), (4096, 3072)]
+INT8 = "paged_prefill_attention[int8]"
 
 
 def log(msg: str) -> None:
@@ -106,24 +136,24 @@ def decode_case(rng, lengths, dtype, dev, nb=64, width=64):
             torch.from_numpy(np.asarray(lengths, np.int32)).to(dev))
 
 
-def prefill_case(rng, npre, sq, dtype, dev):
+def prefill_case(rng, npre, sq, dtype, dev, int8=False):
     """Prefix-hit prefill inputs; the last row is a batch pad row whose
-    table names only the trash block 0, as the engine pads its groups."""
+    table names only the trash block 0, as the engine pads its groups.
+    With ``int8`` the pools are int8 codes and the kwargs carry their
+    (n_blocks, Kh) scales, quantized as the ``kernels`` workload does."""
+    from repro_torch.bench.workloads.kernels import quantize
     n_blocks = 1 + B * npre + 4
     tables = rng.permutation(np.arange(1, n_blocks))[:B * npre]
     tables = tables.reshape(B, npre).astype(np.int32)
     tables[-1] = 0
     t = lambda *s: torch.randn(*s, device=dev, dtype=torch.float32).to(dtype)
-    return (t(B, sq, H, DH), t(B, sq, KH, DH), t(B, sq, KH, DH),
-            t(n_blocks, BS, KH, DH), t(n_blocks, BS, KH, DH),
-            torch.from_numpy(tables).to(dev))
-
-
-def plain_fp32(fn, *args, **kw) -> torch.Tensor:
-    """The plain version on the inputs upcast to fp32, its result cast
-    back to the inputs' type: what the kernels compute, rounded once."""
-    up = [a.float() if a.is_floating_point() else a for a in args]
-    return fn(*up, **kw).to(args[0].dtype)
+    kp, vp = t(n_blocks, BS, KH, DH), t(n_blocks, BS, KH, DH)
+    kw = {}
+    if int8:
+        kp, kw["k_scale"] = quantize(kp.float())
+        vp, kw["v_scale"] = quantize(vp.float())
+    return (t(B, sq, H, DH), t(B, sq, KH, DH), t(B, sq, KH, DH), kp, vp,
+            torch.from_numpy(tables).to(dev)), kw
 
 
 def check_close(got: torch.Tensor, want: torch.Tensor, dtype):
@@ -131,15 +161,17 @@ def check_close(got: torch.Tensor, want: torch.Tensor, dtype):
     reference's kernel gate, rtol = atol) and, in bf16, unless at most
     ``MAX_BF16_MISMATCH_SHARE`` of the elements differ. Returns the max
     abs error, the largest |got - want| / (1 + |want|) (the number held
-    to tol) and the share of elements that differ."""
-    diff = (got.float() - want.float()).abs()
-    ratio = (diff / (1 + want.float().abs())).max().item()
-    share = (diff > 0).float().mean().item()
+    to tol) and the share of elements that differ. ``want`` is the plain
+    version run by ``kernels.plain_fp32`` (the ``kernels`` workload's):
+    in fp32 on the floating-point inputs upcast, cast back once."""
+    from repro_torch.bench.workloads.kernels import error_metrics
+    m = error_metrics(got, want)
+    ratio, share = m["max_err_ratio"], m["mismatch_share"]
     assert ratio <= TOL[dtype], (
         f"max |err| / (1 + |want|) = {ratio:.3e} > tol {TOL[dtype]:.3e}")
     assert dtype != torch.bfloat16 or share <= MAX_BF16_MISMATCH_SHARE, (
         f"{share:.3e} of the bf16 outputs differ")
-    return diff.max().item(), ratio, share
+    return m["max_err"], ratio, share
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +193,16 @@ def check_kernel(name: str, worst: dict, got, want, dtype, what: str):
 
 def phase_kernels(dev) -> dict:
     """Kernel vs plain version at main-path shapes: decode over column
-    slices of a 64-wide table (nb 8, 32, 64), prefill at the serve run's
-    prefix depths (1, 4, 16 blocks) and suffix buckets (16, 128, 256).
-    Returns the largest bf16 error per kernel."""
+    slices of a 64-wide table (nb 8, 32, 64), prefill on fp and int8
+    pools at the serve run's prefix depths (1, 4, 16 blocks) and suffix
+    buckets (16, 128, 256), flash attention over ``FLASH_SWEEP`` and
+    RMSNorm over ``RMSNORM_SWEEP``. Returns the largest bf16 error per
+    kernel."""
+    from repro_torch.bench.workloads.kernels import plain_fp32
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(0)
-    worst = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0}
+    worst = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0,
+             "flash_attention": 0.0, "rmsnorm": 0.0, INT8: 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for nb in (8, 32, 64):
             for window in (None, 256):
@@ -181,12 +217,28 @@ def phase_kernels(dev) -> dict:
                     f"nb={nb}/64 window={window} lengths={lengths.tolist()}")
         for npre in (1, 4, 16):
             for sq in (16, 128, 256):
-                args = prefill_case(rng, npre, sq, dtype, dev)
-                check_kernel(
-                    "paged_prefill_attention", worst,
-                    ops.paged_prefill_attention(*args),
-                    plain_fp32(ref.paged_prefill_attention_ref, *args),
-                    dtype, f"npre={npre} sq={sq}")
+                for name, int8 in (("paged_prefill_attention", False),
+                                   (INT8, True)):
+                    args, kw = prefill_case(rng, npre, sq, dtype, dev, int8)
+                    check_kernel(
+                        name, worst, ops.paged_prefill_attention(*args, **kw),
+                        plain_fp32(ref.paged_prefill_attention_ref, *args,
+                                   **kw), dtype, f"npre={npre} sq={sq}")
+        for b, sq, skv, h, kh, dh, causal, window in FLASH_SWEEP:
+            t = lambda *s: torch.randn(*s, device=dev).to(dtype)
+            q, k, v = t(b, sq, h, dh), t(b, skv, kh, dh), t(b, skv, kh, dh)
+            kw = dict(causal=causal, window=window)
+            check_kernel("flash_attention", worst,
+                         ops.flash_attention(q, k, v, **kw),
+                         plain_fp32(ref.flash_attention_ref, q, k, v, **kw),
+                         dtype, f"b={b} sq={sq} skv={skv} h={h} kh={kh} "
+                         f"dh={dh} causal={causal} window={window}")
+        for rows, d in RMSNORM_SWEEP:
+            x = (torch.randn(rows, d, device=dev) * 3).to(dtype)
+            s = torch.randn(d, device=dev).to(dtype)
+            check_kernel("rmsnorm", worst, ops.rmsnorm(x, s),
+                         plain_fp32(ref.rmsnorm_ref, x, s), dtype,
+                         f"rows={rows} d={d}")
     return worst
 
 
@@ -361,10 +413,56 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def phase_times(dev, counts: dict, errs: dict) -> list:
-    """Each kernel at serve shapes: its time, its plain version's, the
-    SDPA yardstick's, and the bound from the bytes and flops it needs."""
+def phase_bench() -> dict:
+    """The ``kernels`` workload through the port's benchmark CLI on the
+    card, full Space (the reference's cases and the llama3.2-3b ones).
+    Returns the launches counted in this run, per kernel."""
+    from repro_torch.bench import cli
+    from repro_torch.bench.records import load_records
+    from repro_torch.bench.workloads.kernels import CASES
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.prefill_attention import paged_prefill_attention
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["run", "--suite", "kernels", "--device", "cuda",
+                       "--power", "none", "--out", out, "--quiet"])
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts())
+        counts[INT8] = paged_prefill_attention.launches_int8
+        records = load_records(f"{out}/kernels/results.json")
+    assert rc == 0, rc
+    assert [(r.point["case"], r.point["impl"]) for r in records] == [
+        (c, i) for c in CASES for i in ("plain", "cuda")], records
+    for r in records:
+        assert r.status == "ok", (r.point, r.error)
+        m = r.metrics
+        line = (f"[bench] {r.point['case']:27s} {r.point['impl']:5s} "
+                f"{m['dtype']:8s} us={m['us']:.3f}")
+        if r.point["impl"] == "cuda":
+            dtype = getattr(torch, m["dtype"])
+            line += (f" max_err={m['max_err']:.3e} max_err_ratio="
+                     f"{m['max_err_ratio']:.3e} mismatch_share="
+                     f"{m['mismatch_share']:.3e}")
+            assert m["max_err_ratio"] <= TOL[dtype], line
+            assert (dtype != torch.bfloat16
+                    or m["mismatch_share"] <= MAX_BF16_MISMATCH_SHARE), line
+        log(line)
+    log(f"[bench] {len(records)} records ok in {wall:.1f} s; launches "
+        f"{counts}")
+    for name in ("flash_attention", "rmsnorm", "paged_prefill_attention",
+                 INT8):
+        assert counts[name] > 0, (name, counts)
+    return counts
+
+
+def phase_times(dev, counts: dict, bench_counts: dict, errs: dict) -> list:
+    """Each kernel at main-path shapes: its time, its plain version's,
+    the library yardstick's, and the bound from the bytes and flops it
+    needs. ``counts`` are the serve run's launches, ``bench_counts`` the
+    bench run's."""
     import torch.nn.functional as F
+    from repro_torch.bench.workloads.kernels import plain_fp32
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(2)
     dtype = torch.bfloat16
@@ -401,7 +499,7 @@ def phase_times(dev, counts: dict, errs: dict) -> list:
     # prefill: a prefix-cache hit of the serve mix, 16 shared blocks +
     # a 128-token suffix bucket, batch padded to 8 slots (one pad row)
     npre, sq = 16, 128
-    args = prefill_case(rng, npre, sq, dtype, dev)
+    args, _ = prefill_case(rng, npre, sq, dtype, dev)
     check_kernel("paged_prefill_attention", errs,
                  ops.paged_prefill_attention(*args),
                  plain_fp32(ref.paged_prefill_attention_ref, *args), dtype,
@@ -427,30 +525,101 @@ def phase_times(dev, counts: dict, errs: dict) -> list:
                      errs, ms, plain, lib, nbytes, flops, dtype,
                      f"B={B} Sq={sq} npre={npre} H={H} Kh={KH} Dh={DH} "
                      f"bs={BS}"))
+
+    # the same prefix hit on an int8 pool; SDPA runs on the view
+    # dequantized and gathered beforehand (not timed)
+    args, kw = prefill_case(rng, npre, sq, dtype, dev, int8=True)
+    check_kernel(INT8, errs, ops.paged_prefill_attention(*args, **kw),
+                 plain_fp32(ref.paged_prefill_attention_ref, *args, **kw),
+                 dtype, "at the timed shapes")
+    ms = time_ms(lambda: ops.paged_prefill_attention(*args, **kw))
+    plain = time_ms(lambda: ref.paged_prefill_attention_ref(*args, **kw),
+                    iters=10)
+    q, ks, vs, kp, vp, tables = args
+    deq = lambda p, s: ref.dequantize_pool(p, tables, s).reshape(
+        B, pre, KH, DH).to(dtype)
+    kd = torch.cat([deq(kp, kw["k_scale"]), ks], 1).transpose(1, 2) \
+        .contiguous()
+    vd = torch.cat([deq(vp, kw["v_scale"]), vs], 1).transpose(1, 2) \
+        .contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    n_read = torch.unique(tables).numel()
+    nbytes = (2 * B * sq * H * DH * esize + 2 * B * sq * KH * DH * esize
+              + 2 * n_read * BS * KH * DH + 2 * n_read * KH * 4
+              + B * npre * 4)
+    rows.append(_row(INT8, "prefill_attention", bench_counts, errs, ms,
+                     plain, lib, nbytes, flops, dtype,
+                     f"B={B} Sq={sq} npre={npre} H={H} Kh={KH} Dh={DH} "
+                     f"bs={BS}, int8 pool",
+                     source="src/repro_torch/csrc/paged_prefill_attention.cu"))
+
+    # flash: a 2048-token causal prefill at llama3.2-3b width; SDPA runs
+    # on (B, H, S, Dh) views of the same tensors
+    fb, s = 2, 2048
+    q = torch.randn(fb, s, H, DH, device=dev).to(dtype)
+    k = torch.randn(fb, s, KH, DH, device=dev).to(dtype)
+    v = torch.randn(fb, s, KH, DH, device=dev).to(dtype)
+    check_kernel("flash_attention", errs, ops.flash_attention(q, k, v),
+                 plain_fp32(ref.flash_attention_ref, q, k, v), dtype,
+                 "at the timed shapes")
+    ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    nbytes = (2 * fb * s * H * DH + 2 * fb * s * KH * DH) * esize
+    flops = 4 * fb * H * DH * s * (s + 1) // 2
+    rows.append(_row("flash_attention", "flash_attention", bench_counts,
+                     errs, ms, plain, lib, nbytes, flops, dtype,
+                     f"B={fb} S={s} H={H} Kh={KH} Dh={DH} causal"))
+
+    # rmsnorm: 4096 tokens at d_model 3072, bf16 weight; its few
+    # operations per element run in fp32 on the CUDA cores
+    rn, d = 4096, 3072
+    x = torch.randn(rn, d, device=dev).to(dtype)
+    w = torch.randn(d, device=dev).to(dtype)
+    check_kernel("rmsnorm", errs, ops.rmsnorm(x, w),
+                 plain_fp32(ref.rmsnorm_ref, x, w), dtype,
+                 "at the timed shapes")
+    ms = time_ms(lambda: ops.rmsnorm(x, w))
+    plain = time_ms(lambda: ref.rmsnorm_ref(x, w), iters=10)
+    lib = time_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=1e-5))
+    nbytes = 2 * rn * d * esize + d * esize
+    rows.append(_row("rmsnorm", "rmsnorm", bench_counts, errs, ms, plain,
+                     lib, nbytes, 4 * rn * d, torch.float32,
+                     f"rows={rn} d={d}"))
     return rows
 
 
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:155",
     "paged_prefill_attention": "src/repro/kernels/prefill_attention.py:217",
+    INT8: "src/repro/kernels/prefill_attention.py:217",
+    "flash_attention": "src/repro/kernels/flash_attention.py:106",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:40",
 }
 
 
-def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops, dtype,
-         shape):
+def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
+         peak_dtype, shape, source=None):
+    """One JSON row; the bound is the larger of the bytes over HBM rate
+    and the operations over the peak rate of ``peak_dtype``."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = flops / PEAK_FLOPS[peak_dtype] * 1e3
     row = {"name": name, "route": "cuda",
-           "source": f"src/repro_torch/csrc/{name}.cu",
+           "source": source or f"src/repro_torch/csrc/{name}.cu",
            "replaces": REPLACES[name], "launches": counts[name],
            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": lib}
     log(f"[times] {name} ({module}.py) at {shape}: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"plain {plain:.4f} ms, library {lib:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); launches "
+        f"{counts[name]}")
     return row
 
 
@@ -475,7 +644,8 @@ def main() -> int:
     errs = phase_kernels(dev)
     counts = phase_serve(dev, profile="--profile" in sys.argv[1:])
     phase_agreement(dev)
-    rows = phase_times(dev, counts, errs)
+    bench_counts = phase_bench()
+    rows = phase_times(dev, counts, bench_counts, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

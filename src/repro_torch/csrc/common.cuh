@@ -2,6 +2,7 @@
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -11,6 +12,7 @@ namespace repro {
 // dtype codes shared with the Python wrappers (kernels/_build.py)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) {
@@ -19,6 +21,9 @@ template <> __device__ __forceinline__ float to_f32<float>(float x) {
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
     __nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return (float)x;  // an int8 KV code, exact in fp32
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);

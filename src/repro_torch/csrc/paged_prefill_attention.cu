@@ -21,6 +21,14 @@
 // Pallas kernel, Sq needs no divisor walk-down: the ragged last query
 // tile and the ragged last suffix tile are masked.
 //
+// int8 pools. The pool's element type is a template parameter apart from
+// q's: with an int8 pool each prefix block's (block, kv_head) scale is
+// looked up through the same table entry as the block (the trash block 0
+// has a scale row too, which a pad row reads) and the codes dequantize as
+// code * scale in fp32 while the tile is staged, so no fp copy of the
+// prefix exists anywhere; the suffix K/V stay in q's type. An int8 pool
+// halves (bf16) or quarters (fp32) the prefix bytes.
+//
 // Bound on the H100: at serve shapes (npre = 16 blocks, Sq = 128, B = 8)
 // the call moves ~25 MB and does ~4 GFLOP, so against bf16 tensor-core
 // peak it is memory-bound (~8 us of bytes vs ~4 us of flops). This first
@@ -37,13 +45,15 @@ using namespace repro;
 constexpr int kThreads = 256;
 constexpr int kTileQ = 16;
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const T* __restrict__ q,         // (B, Sq, H, Dh)
     const T* __restrict__ k_suf,     // (B, Sq, Kh, Dh)
     const T* __restrict__ v_suf,     // (B, Sq, Kh, Dh)
-    const T* __restrict__ k_pool,    // (n_blocks, bs, Kh, Dh)
-    const T* __restrict__ v_pool,    // (n_blocks, bs, Kh, Dh)
+    const P* __restrict__ k_pool,    // (n_blocks, bs, Kh, Dh)
+    const P* __restrict__ v_pool,    // (n_blocks, bs, Kh, Dh)
+    const float* __restrict__ k_scale,  // (n_blocks, Kh), or null
+    const float* __restrict__ v_scale,  // (n_blocks, Kh), or null
     const int* __restrict__ tables,  // (B, >= npre), row stride table_stride
     T* __restrict__ out,             // (B, Sq, H, Dh)
     int sq, int n_kv_heads, int group, int dh, int bs, int npre,
@@ -95,32 +105,40 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   __syncthreads();
 
   for (int step = 0; step < npre + n_suf; ++step) {
-    const T* kb;
-    const T* vb;
+    const bool prefix = step < npre;
+    size_t base;
     int kpos0, ntok;
-    if (step < npre) {
+    float ks = 1.f, vs = 1.f;
+    if (prefix) {
       kpos0 = step * bs;
       ntok = bs;
       if (window > 0 && kpos0 + bs - 1 <= first_q - window) continue;
-      const size_t base = ((size_t)tab[step] * bs * n_kv_heads + kh) * dh;
-      kb = k_pool + base;
-      vb = v_pool + base;
+      const size_t blk = tab[step];
+      base = (blk * bs * n_kv_heads + kh) * dh;
+      if (k_scale != nullptr) {
+        ks = k_scale[blk * n_kv_heads + kh];
+        vs = v_scale[blk * n_kv_heads + kh];
+      }
     } else {
       const int s0 = (step - npre) * bs;
       kpos0 = pos_offset + s0;
       if (kpos0 > last_q) break;                // past the causal diagonal
       ntok = min(bs, sq - s0);
       if (window > 0 && kpos0 + ntok - 1 <= first_q - window) continue;
-      const size_t base = (((size_t)b * sq + s0) * n_kv_heads + kh) * dh;
-      kb = k_suf + base;
-      vb = v_suf + base;
+      base = (((size_t)b * sq + s0) * n_kv_heads + kh) * dh;
     }
     for (int idx = tid; idx < bs * dh; idx += kThreads) {
       const int t = idx / dh, d = idx - t * dh;
       float kv = 0.f, vv = 0.f;
       if (t < ntok) {
-        kv = to_f32(kb[t * tok_stride + d]);
-        vv = to_f32(vb[t * tok_stride + d]);
+        const size_t off = base + t * tok_stride + d;
+        if (prefix) {
+          kv = to_f32(k_pool[off]) * ks;
+          vv = to_f32(v_pool[off]) * vs;
+        } else {
+          kv = to_f32(k_suf[off]);
+          vv = to_f32(v_suf[off]);
+        }
       }
       k_s[t * k_stride + d] = kv;
       v_s[t * dh + d] = vv;
@@ -168,17 +186,17 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* k_suf, const void* v_suf,
-           const void* k_pool, const void* v_pool, const int* tables,
-           void* out, int batch, int sq, int n_kv_heads, int group, int dh,
-           int bs, int npre, int table_stride, int window, float scale,
-           cudaStream_t stream) {
+           const void* k_pool, const void* v_pool, const float* k_scale,
+           const float* v_scale, const int* tables, void* out, int batch,
+           int sq, int n_kv_heads, int group, int dh, int bs, int npre,
+           int table_stride, int window, float scale, cudaStream_t stream) {
   const size_t rows = (size_t)kTileQ * group;
   const size_t smem = sizeof(float) *
       (2 * rows * dh + (size_t)bs * (dh + 1) + (size_t)bs * dh + rows * bs +
        3 * rows);
-  auto kernel = paged_prefill_kernel<T>;
+  auto kernel = paged_prefill_kernel<T, P>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -187,28 +205,56 @@ int launch(const void* q, const void* k_suf, const void* v_suf,
   dim3 grid((sq + kTileQ - 1) / kTileQ, n_kv_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_suf),
-      static_cast<const T*>(v_suf), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, static_cast<T*>(out), sq,
-      n_kv_heads, group, dh, bs, npre, table_stride, window, scale);
+      static_cast<const T*>(v_suf), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), k_scale, v_scale, tables,
+      static_cast<T*>(out), sq, n_kv_heads, group, dh, bs, npre,
+      table_stride, window, scale);
   return (int)cudaGetLastError();
+}
+
+// q's type T with a pool of T, or of int8 codes
+template <typename T>
+int launch_pool(const void* q, const void* k_suf, const void* v_suf,
+                const void* k_pool, const void* v_pool, const float* k_scale,
+                const float* v_scale, const int* tables, void* out,
+                int batch, int sq, int n_kv_heads, int group, int dh, int bs,
+                int npre, int table_stride, int window, float scale,
+                int pool_dtype, int dtype, cudaStream_t stream) {
+  if (pool_dtype == dtype)
+    return launch<T, T>(q, k_suf, v_suf, k_pool, v_pool, k_scale, v_scale,
+                        tables, out, batch, sq, n_kv_heads, group, dh, bs,
+                        npre, table_stride, window, scale, stream);
+  if (pool_dtype == repro::kInt8)
+    return launch<T, int8_t>(q, k_suf, v_suf, k_pool, v_pool, k_scale,
+                             v_scale, tables, out, batch, sq, n_kv_heads,
+                             group, dh, bs, npre, table_stride, window, scale,
+                             stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// k_scale / v_scale: (n_blocks, Kh) fp32 scales of an int8 pool, or null
+// for a pool of q's type.
 extern "C" int repro_paged_prefill_attention(
     const void* q, const void* k_suf, const void* v_suf, const void* k_pool,
-    const void* v_pool, const void* tables, void* out, int batch, int sq,
-    int n_kv_heads, int group, int dh, int bs, int npre, int table_stride,
-    int window, float scale, int dtype, void* stream) {
+    const void* v_pool, const void* tables, void* out, const void* k_scale,
+    const void* v_scale, int batch, int sq, int n_kv_heads, int group, int dh,
+    int bs, int npre, int table_stride, int window, float scale, int dtype,
+    int pool_dtype, void* stream) {
   const int* tab = static_cast<const int*>(tables);
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return launch<float>(q, k_suf, v_suf, k_pool, v_pool, tab, out, batch, sq,
-                         n_kv_heads, group, dh, bs, npre, table_stride, window,
-                         scale, s);
+    return launch_pool<float>(q, k_suf, v_suf, k_pool, v_pool, ksc, vsc, tab,
+                              out, batch, sq, n_kv_heads, group, dh, bs, npre,
+                              table_stride, window, scale, pool_dtype, dtype,
+                              s);
   if (dtype == repro::kBFloat16)
-    return launch<__nv_bfloat16>(q, k_suf, v_suf, k_pool, v_pool, tab, out,
-                                 batch, sq, n_kv_heads, group, dh, bs, npre,
-                                 table_stride, window, scale, s);
+    return launch_pool<__nv_bfloat16>(q, k_suf, v_suf, k_pool, v_pool, ksc,
+                                      vsc, tab, out, batch, sq, n_kv_heads,
+                                      group, dh, bs, npre, table_stride,
+                                      window, scale, pool_dtype, dtype, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,6 +3,8 @@
   ref.py               plain PyTorch versions — what each kernel computes
   decode_attention.py  wrapper of csrc/paged_decode_attention.cu
   prefill_attention.py wrapper of csrc/paged_prefill_attention.cu
+  flash_attention.py   wrapper of csrc/flash_attention.cu
+  rmsnorm.py           wrapper of csrc/rmsnorm.cu
   ops.py               dispatch by device: CPU -> plain, CUDA -> kernel
   _build.py            nvcc build (sm_90a) + ctypes loading, on first use
 """

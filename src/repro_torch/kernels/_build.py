@@ -23,24 +23,40 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: C signatures: pointers and the stream as void*, sizes as int
+#: element-type codes of the C interface (``csrc/common.cuh``): the
+#: kernels take fp32 and bf16 tensors, and int8 KV pool codes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT8_CODE = 2
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+#: C signatures: pointers and the stream as void*, sizes as int, strides
+#: as long long
 SIGNATURES = {
     # q, k_pool, v_pool, tables, lengths, out,
     # batch, kv_heads, group, d_head, block_size, n_table_cols,
     # table_stride, window, scale, dtype, stream
     "repro_paged_decode_attention":
         [_P] * 6 + [_I] * 8 + [_F, _I, _P],
-    # q, k_suffix, v_suffix, k_pool, v_pool, tables, out,
-    # batch, sq, kv_heads, group, d_head, block_size, npre,
-    # table_stride, window, scale, dtype, stream
+    # q, k_suffix, v_suffix, k_pool, v_pool, tables, out, k_scale,
+    # v_scale, batch, sq, kv_heads, group, d_head, block_size, npre,
+    # table_stride, window, scale, dtype, pool_dtype, stream
     "repro_paged_prefill_attention":
-        [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+        [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
+    # q, k, v, out, batch, sq, skv, heads, kv_heads, d_head,
+    # q/k/v strides over (batch, seq, head), causal, window, scale,
+    # dtype, stream
+    "repro_flash_attention":
+        [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _I, _P],
+    # x, scale, out, rows, d, eps, dtype, scale_dtype, stream
+    "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [_F, _I, _I, _P],
     "repro_cuda_error_string": [_I],
 }
 

@@ -15,8 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.kernels._build import DTYPE_CODES
 
 
 def check_kv_inputs(q: torch.Tensor, pools, index_tensors) -> None:

@@ -2,11 +2,12 @@
 ``csrc/paged_prefill_attention.cu``.
 
 Counterpart of ``src/repro/kernels/prefill_attention.py::
-paged_prefill_attention`` (Pallas kernel ``_prefill_kernel``); the source
-file's note says how the design maps the TPU kernel onto Hopper and what
-bounds it. The plain version is
+paged_prefill_attention`` (Pallas kernel ``_prefill_kernel``), fp and
+int8 pools; the source file's note says how the design maps the TPU
+kernel onto Hopper and what bounds it. The plain version is
 ``kernels.ref.paged_prefill_attention_ref``.
-``paged_prefill_attention.launches`` counts the kernel's launches.
+``paged_prefill_attention.launches`` counts the kernel's launches and
+``paged_prefill_attention.launches_int8`` those of them on an int8 pool.
 """
 from __future__ import annotations
 
@@ -16,20 +17,53 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import DTYPE_CODES, check_kv_inputs
+from repro_torch.kernels._build import DTYPE_CODES, INT8_CODE
+from repro_torch.kernels.decode_attention import check_kv_inputs
+
+
+def _check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor]) -> int:
+    """A pool of q's type without scales, or a pool with (n_blocks, Kh)
+    fp32 scales (int8 codes, or q's type as the reference allows).
+    Returns the pool's type code."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale are given both or neither")
+    if k_scale is None:
+        check_kv_inputs(q, (k_pool, v_pool), ())
+        return DTYPE_CODES[q.dtype]
+    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in (q.dtype,
+                                                            torch.int8):
+        raise TypeError(f"pools {k_pool.dtype} / {v_pool.dtype} with scales:"
+                        f" need int8 or q's {q.dtype}")
+    want = (k_pool.shape[0], k_pool.shape[2])
+    for t in (k_pool, v_pool, k_scale, v_scale):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"pools and scales must be contiguous on "
+                             f"{q.device}, got {t.device}")
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise TypeError(f"scales must be fp32 of shape {want}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    return INT8_CODE if k_pool.dtype == torch.int8 else DTYPE_CODES[q.dtype]
 
 
 def paged_prefill_attention(q: torch.Tensor, k_suffix: torch.Tensor,
                             v_suffix: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, tables: torch.Tensor, *,
-                            window: Optional[int] = None) -> torch.Tensor:
+                            window: Optional[int] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k/v_suffix: (B, Sq, Kh, Dh); k/v_pool:
-    (n_blocks, bs, Kh, Dh); tables: (B, npre) int32 prefix block ids,
-    npre >= 1. Queries sit at global positions ``npre * bs + i``.
-    Returns (B, Sq, H, Dh) in q.dtype."""
+    (n_blocks, bs, Kh, Dh), int8 when k/v_scale (n_blocks, Kh) fp32 are
+    given; tables: (B, npre) int32 prefix block ids, npre >= 1. Queries
+    sit at global positions ``npre * bs + i``. Returns (B, Sq, H, Dh) in
+    q.dtype."""
     q = q.contiguous()
     k_suffix, v_suffix = k_suffix.contiguous(), v_suffix.contiguous()
-    check_kv_inputs(q, (k_suffix, v_suffix, k_pool, v_pool), (tables,))
+    check_kv_inputs(q, (k_suffix, v_suffix), (tables,))
+    pool_code = _check_pools(q, k_pool, v_pool, k_scale, v_scale)
     b, sq, h, dh = q.shape
     n_blocks, bs, kh, dh_kv = k_pool.shape
     if (v_pool.shape != k_pool.shape or dh_kv != dh or h % kh
@@ -46,13 +80,18 @@ def paged_prefill_attention(q: torch.Tensor, k_suffix: torch.Tensor,
     err = lib.repro_paged_prefill_attention(
         q.data_ptr(), k_suffix.data_ptr(), v_suffix.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        out.data_ptr(), b, sq, kh, h // kh, dh, bs, tables.shape[1],
-        tables.stride(0), -1 if window is None else int(window),
-        1.0 / math.sqrt(dh), DTYPE_CODES[q.dtype],
+        out.data_ptr(), None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(), b, sq, kh, h // kh,
+        dh, bs, tables.shape[1], tables.stride(0),
+        -1 if window is None else int(window), 1.0 / math.sqrt(dh),
+        DTYPE_CODES[q.dtype], pool_code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
+    if pool_code == INT8_CODE:
+        paged_prefill_attention.launches_int8 += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.launches_int8 = 0

@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the paged attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Port of ``src/repro/kernels/ref.py`` (fp pools; the int8 scale path is
-not ported yet). These define what the CUDA kernels compute: the CPU
-path of ``kernels.ops`` runs them, and the card-side checks compare each
-kernel with them on the same inputs.
+Port of ``src/repro/kernels/ref.py``: ``flash_attention_ref``,
+``rmsnorm_ref``, ``dequantize_pool`` (with the int8 pool's scales) and
+the two paged attention oracles. The int8 pool path is ported for paged
+prefill; paged decode takes fp pools only so far (its int8 path is
+ROADMAP Queue 2 item 1). These define what the CUDA kernels compute: the
+CPU path of ``kernels.ops`` runs them, and the card-side checks compare
+each kernel with them on the same inputs.
 """
 from __future__ import annotations
 
@@ -15,9 +18,50 @@ import torch
 NEG_INF = torch.finfo(torch.float32).min
 
 
-def dequantize_pool(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """Gather ``pool[tables]`` -> (B, nb, bs, Kh, Dh) fp32."""
-    return pool[tables.long()].float()
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k/v: (B, Skv, Kh, Dh), H % Kh == 0 (GQA). The
+    queries are the last Sq of the Skv positions; ``window`` applies only
+    when ``causal``. fp32 softmax; returns (B, Sq, H, Dh) in q.dtype."""
+    b, sq, h, dh = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = q.float() * (1.0 / dh ** 0.5)
+    qg = qf.reshape(b, sq, kh, g, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm over the last dim in fp32, ``x * rsqrt(mean(x**2) +
+    eps) * scale``, cast to x.dtype."""
+    xf = x.float()
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def dequantize_pool(pool: torch.Tensor, tables: torch.Tensor,
+                    pool_scale: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Gather ``pool[tables]`` -> (B, nb, bs, Kh, Dh) fp32, applying the
+    per-block-per-head symmetric scales ``(n_blocks, Kh)`` when the pool
+    is int8-quantized (``pool_scale`` given)."""
+    idx = tables.long()
+    g = pool[idx].float()
+    if pool_scale is not None:
+        g = g * pool_scale[idx][:, :, None, :, None].float()
+    return g
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -55,14 +99,19 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 def paged_prefill_attention_ref(q: torch.Tensor, k_suffix: torch.Tensor,
                                 v_suffix: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, tables: torch.Tensor, *,
-                                window: Optional[int] = None) -> torch.Tensor:
+                                window: Optional[int] = None,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """Chunk-of-queries causal GQA attention over [paged prefix ++ own
     suffix K/V].
 
     q: (B, Sq, H, Dh) at global positions ``npre * bs + i``; k/v_suffix:
-    (B, Sq, Kh, Dh); k/v_pool: (n_blocks, bs, Kh, Dh); tables: (B, npre)
-    int32 prefix block ids in position order (whole blocks of real
-    tokens). Returns (B, Sq, H, Dh) in q.dtype.
+    (B, Sq, Kh, Dh); k/v_pool: (n_blocks, bs, Kh, Dh), int8 when
+    ``k_scale``/``v_scale`` (n_blocks, Kh) fp32 are given (dequantized
+    right after the gather, then rounded to the suffix's type); tables:
+    (B, npre) int32 prefix block ids in position order (whole blocks of
+    real tokens). Returns (B, Sq, H, Dh) in q.dtype.
 
     The arithmetic REPLICATES ``models.attention.sdpa`` on the concatenated dense view, cast for
     cast, so that a prefix-cache hit yields the same token stream as a
@@ -73,8 +122,10 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_suffix: torch.Tensor,
     bs, kh = k_pool.shape[1], k_pool.shape[2]
     pos_offset = npre * bs
     native = k_suffix.dtype
-    pk = dequantize_pool(k_pool, tables).reshape(b, pos_offset, kh, dh)
-    pv = dequantize_pool(v_pool, tables).reshape(b, pos_offset, kh, dh)
+    pk = dequantize_pool(k_pool, tables, k_scale).reshape(
+        b, pos_offset, kh, dh)
+    pv = dequantize_pool(v_pool, tables, v_scale).reshape(
+        b, pos_offset, kh, dh)
     k = torch.cat([pk.to(native), k_suffix], dim=1)
     v = torch.cat([pv.to(native), v_suffix], dim=1)
     t = pos_offset + sq

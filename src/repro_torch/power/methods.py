@@ -8,16 +8,20 @@ Port of ``src/repro/power/methods.py``. Each method exposes
                software, called via ``ctypes``): the counterpart of
                jpwr's pynvml method and the port's replacement for the
                reference's analytic TPU model;
-  synthetic  — deterministic waveform, for tests.
+  synthetic  — deterministic waveform, for tests; used only when asked
+               for, and labelled ``synthetic``.
 
 A measured backend that cannot be opened raises; it never falls back to
-a synthetic reading.
+a synthetic reading. The reference's RAPL and analytic TPU backends have
+no port (the TPU model is TPU-specific).
 """
 from __future__ import annotations
 
 import ctypes
 import time
 from typing import Callable
+
+import torch
 
 
 class PowerMethod:
@@ -101,3 +105,34 @@ class NvmlPower(PowerMethod):
 
     def close(self) -> None:
         self._check(self._lib.nvmlShutdown(), "nvmlShutdown")
+
+
+#: the ``--power`` choices of the port's bench CLI
+POWER_CHOICES = ("auto", "synthetic", "none")
+
+
+def select_power_methods(prefer: str, device: torch.device, *,
+                         n_devices: int = 1,
+                         ) -> tuple[list[PowerMethod], str]:
+    """The measurement backend for a run on ``device``, as
+    ``(methods, source_label)``; the label is stamped into every result
+    record as ``power_source``.
+
+    Port of ``select_power_methods`` (``src/repro/power/methods.py``):
+    ``"auto"`` reads the card's board power through NVML (labelled
+    ``nvml``) and raises when the run is not on a card or NVML cannot be
+    opened; ``"synthetic"`` is the labelled waveform; ``"none"`` measures
+    nothing. Nothing is substituted silently.
+    """
+    if prefer == "none":
+        return [], "none"
+    if prefer == "synthetic":
+        return [SyntheticPower(n_devices=n_devices)], "synthetic"
+    if prefer == "auto":
+        if device.type != "cuda":
+            raise RuntimeError(
+                f"--power auto measures a card's board power, but the run "
+                f"is on {device}; pass --power none (or synthetic)")
+        return [NvmlPower(device.index or 0)], "nvml"
+    raise KeyError(f"unknown power method {prefer!r}; known: "
+                   f"{list(POWER_CHOICES)}")

@@ -1,5 +1,13 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
+Paged decode and paged prefill (fp and int8 pools) over block sizes,
+GQA groups, prefix depths and windows; flash attention over the
+reference's SWEEP (``tests/test_kernels.py``) in both types, strided
+inputs and the llama3.2-3b prefill width; RMSNorm over the reference's
+sweep, mixed scale types, leading dims and the (4096, 3072) width; and
+no fallback: a kernel missing from the library, or a type a kernel does
+not take, raises.
+
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
 that has only PyTorch and the CUDA toolkit:
@@ -19,8 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.bench.workloads.kernels import plain_fp32 as _plain_fp32
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.prefill_attention import paged_prefill_attention
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.requests import Request
@@ -32,6 +42,20 @@ DTYPES = [torch.float32, torch.bfloat16]
 DECODE = list(itertools.product([8, 16], [1, 2, 3], [None, 24]))
 PREFILL = list(itertools.product([8, 16], [1, 2, 3], [1, 3], [None, 24]))
 KH, DH = 4, 128
+FLASH_SWEEP = [
+    # b, sq, skv, h, kh, dh, causal, window (tests/test_kernels.py:11-21)
+    (1, 128, 128, 1, 1, 64, True, None),
+    (2, 256, 256, 4, 2, 64, True, None),
+    (1, 256, 256, 8, 8, 128, True, None),
+    (2, 128, 256, 4, 4, 64, True, None),      # suffix queries
+    (1, 256, 256, 6, 2, 64, True, 128),       # windowed
+    (1, 512, 512, 2, 1, 128, True, 256),
+    (2, 256, 256, 4, 2, 64, False, None),     # bidirectional
+    (1, 384, 384, 3, 3, 64, True, None),      # odd heads
+    (1, 200, 333, 6, 2, 128, True, 100),      # ragged tiles
+    (2, 2048, 2048, 24, 8, 128, True, None),  # llama3.2-3b prefill
+]
+RMSNORM_SWEEP = [(8, 64), (37, 512), (300, 128), (1, 1024), (4096, 3072)]
 
 
 @pytest.fixture
@@ -90,6 +114,121 @@ def test_prefill_kernel_matches_plain(card, dtype, bs, g, npre, window):
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs,g,npre,window", PREFILL)
+def test_prefill_kernel_int8_pool_matches_plain(card, dtype, bs, g, npre,
+                                                window):
+    """int8 pool codes and (n_blocks, Kh) scales, the same through both
+    sides; the last row is a pad row on the trash block 0."""
+    rng = np.random.default_rng(bs * 100 + g * 10 + npre + 7)
+    b, sq = 3, 40
+    n_blocks = 2 + b * npre
+    tables = rng.permutation(np.arange(1, n_blocks))[:b * npre]
+    tables = tables.reshape(b, npre).astype(np.int32)
+    tables[-1] = 0
+    arrays = (rng.normal(size=(b, sq, KH * g, DH)).astype(np.float32),
+              rng.normal(size=(b, sq, KH, DH)).astype(np.float32),
+              rng.normal(size=(b, sq, KH, DH)).astype(np.float32))
+    q, ks, vs = _on(card, dtype, *arrays)
+    pools, scales = [], []
+    for _ in range(2):
+        codes = rng.integers(-127, 128, size=(n_blocks, bs, KH, DH))
+        pools.append(torch.from_numpy(codes.astype(np.int8)).to(card))
+        scales.append(torch.from_numpy(rng.uniform(
+            0.001, 0.05, size=(n_blocks, KH)).astype(np.float32)).to(card))
+    tab = torch.from_numpy(tables).to(card)
+    ops.reset_launch_counts()
+    got = ops.paged_prefill_attention(q, ks, vs, *pools, tab, window=window,
+                                      k_scale=scales[0], v_scale=scales[1])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_prefill_attention"] == 1
+    assert paged_prefill_attention.launches_int8 == 1
+    want = _plain_fp32(ref.paged_prefill_attention_ref, q, ks, vs, *pools,
+                       tab, window=window, k_scale=scales[0],
+                       v_scale=scales[1])
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,skv,h,kh,dh,causal,window", FLASH_SWEEP)
+def test_flash_kernel_matches_plain(card, dtype, b, sq, skv, h, kh, dh,
+                                    causal, window):
+    rng = np.random.default_rng(sq + skv + h)
+    q, k, v = _on(card, dtype, rng.normal(size=(b, sq, h, dh)).astype(
+        np.float32), *(rng.normal(size=(b, skv, kh, dh)).astype(np.float32)
+                       for _ in range(2)))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = _plain_fp32(ref.flash_attention_ref, q, k, v, causal=causal,
+                       window=window)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_reads_strided_inputs(card, dtype):
+    """(B, H, S, Dh) storage seen as (B, S, H, Dh): no copy needed."""
+    rng = np.random.default_rng(5)
+    q, k, v = (t.transpose(1, 2) for t in _on(card, dtype, *(
+        rng.normal(size=(2, n, 300, 64)).astype(np.float32)
+        for n in (6, 2, 2))))
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, window=77)
+    want = _plain_fp32(ref.flash_attention_ref, q, k, v, window=77)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", RMSNORM_SWEEP)
+def test_rmsnorm_kernel_matches_plain(card, dtype, rows, d):
+    rng = np.random.default_rng(rows + d)
+    x, s = _on(card, dtype, (rng.normal(size=(rows, d)) * 3).astype(
+        np.float32), rng.normal(size=(d,)).astype(np.float32))
+    ops.reset_launch_counts()
+    got = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == 1
+    _assert_close(got, _plain_fp32(ref.rmsnorm_ref, x, s), dtype)
+
+
+def test_rmsnorm_kernel_mixed_scale_type_and_leading_dims(card):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(3, 5, 7, 384)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    s = torch.from_numpy(rng.normal(size=(384,)).astype(np.float32)).to(card)
+    got = ops.rmsnorm(x, s, eps=1e-6)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    want = ref.rmsnorm_ref(x.float(), s, eps=1e-6).to(torch.bfloat16)
+    _assert_close(got, want, torch.bfloat16)
+
+
+def test_kernels_raise_on_types_they_do_not_take(card):
+    x = torch.ones(4, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.rmsnorm(x, torch.ones(64, device=card, dtype=torch.float16))
+    q = torch.ones(1, 8, 2, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q, q)
+    q = torch.ones(1, 8, 2, 48, device=card)      # no Dh=48 instance
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)
+
+
+def test_missing_kernel_raises_without_fallback(card, monkeypatch):
+    """A library without the kernel's symbol raises; nothing falls back
+    to the plain version."""
+    class Lib:
+        repro_cuda_error_string = None
+    monkeypatch.setattr(_build, "load_library", lambda: Lib())
+    x = torch.ones(4, 64, device=card)
+    with pytest.raises(AttributeError):
+        ops.rmsnorm(x, torch.ones(64, device=card))
+    q = torch.ones(1, 8, 2, 64, device=card)
+    with pytest.raises(AttributeError):
+        ops.flash_attention(q, q, q)
+
+
 def test_engine_on_card_matches_cpu(card):
     """Reduced fp32 model: the card (kernels) and the CPU (plain
     versions) serve the same greedy streams, prefix hits included (LCP
@@ -122,11 +261,6 @@ def test_engine_on_card_matches_cpu(card):
                    len(a))
         fracs.append(lcp / len(a))
     assert sum(fracs) / len(fracs) >= 0.95
-
-
-def _plain_fp32(fn, *args, **kw):
-    up = [a.float() if a.is_floating_point() else a for a in args]
-    return fn(*up, **kw).to(args[0].dtype)
 
 
 def _assert_close(got, want, dtype):

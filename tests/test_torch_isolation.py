@@ -112,4 +112,5 @@ def test_ops_on_cpu_run_the_plain_version_and_count_no_launch():
         ref.paged_prefill_attention_ref(qs, ks, ks, pool, pool, tables),
         rtol=0, atol=0)
     assert ops.launch_counts() == {"paged_decode_attention": 0,
-                                   "paged_prefill_attention": 0}
+                                   "paged_prefill_attention": 0,
+                                   "flash_attention": 0, "rmsnorm": 0}
