@@ -4,13 +4,13 @@
   python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-sm_90a), then runs five phases, any failure of which exits non-zero:
+sm_90a), then runs six phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
-     version on the card: paged decode and paged prefill (fp and int8
-     pools) at full llama3.2-3b head shapes (H=24, Kh=8, Dh=128, bs=16,
-     B=8) and the serve run's table widths, prefix depths and suffix
-     buckets; flash attention over the reference's SWEEP and a
+     version on the card: paged decode and paged prefill (each on fp and
+     int8 pools) at full llama3.2-3b head shapes (H=24, Kh=8, Dh=128,
+     bs=16, B=8) and the serve run's table widths, prefix depths and
+     suffix buckets; flash attention over the reference's SWEEP and a
      2048-token llama3.2-3b prefill; RMSNorm over the reference's sweep
      and (4096, 3072): |kernel - plain| <= tol * (1 + |plain|). The
      plain version always runs in fp32 on the inputs upcast, its result
@@ -27,10 +27,27 @@ sm_90a), then runs five phases, any failure of which exits non-zero:
      kernels must have launched (decode once per layer and step), and
      the pool must drain clean (``--profile`` serves the set once more
      under ``torch.profiler`` and prints the device-busy share and the
-     device time by kernel);
+     device time by kernel, here and for phase 2b's int8 run; several
+     minutes more);
+  2b. int8 chunked serve — the same model and requests, all arriving at
+     once (so the schedule, and with it the preemption count, does not
+     depend on the card's speed), through ``ServeEngine(cache="paged",
+     sched="chunked", kv_dtype="int8", prefix_cache=True,
+     chunk_tokens=32)`` on an oversubscribed pool of ``INT8_POOL_BLOCKS``
+     blocks (two full slots plus the trash block), with NVML power:
+     every request must finish its budget, the scheduler must preempt at
+     least once and replay at least one token,
+     every decode micro-step must launch the decode kernel's int8 path
+     once per layer, every prefill over pool blocks (chunks after the
+     first, prefix hits) the prefill kernel's int8 path once per layer,
+     and the pool must drain clean; then the same on a bf16 pool of as
+     many blocks, which must take the same schedule (its TPOT beside the
+     int8 run's is the int8 path's cost);
   3. agreement — a reduced fp32 llama3.2-3b served on the card (kernels)
      and on the CPU (plain versions) from the same weights must give the
-     same greedy streams (LCP agreement >= 0.95);
+     same greedy streams (LCP agreement >= 0.95), and so must the card
+     against the CPU on int8 pools (chunked), and the card's chunked
+     scheduler on a pool that makes it preempt against its phased one;
   4. bench — the port's ``kernels`` benchmark entry point,
      ``python -m repro_torch.bench run --suite kernels`` (in process, no
      power), on its full Space: the reference's five cases and four at
@@ -41,8 +58,9 @@ sm_90a), then runs five phases, any failure of which exits non-zero:
   5. times — each kernel at main-path shapes beside its plain version,
      the one PyTorch call that computes the same function
      (``scaled_dot_product_attention``, ``rms_norm``; never used by the
-     port) and the least time the card could take. The decode and
-     prefill rows count their launches in phase 2, the others in phase 4.
+     port) and the least time the card could take. The fp decode and
+     prefill rows count their launches in phase 2, the int8 decode row in
+     phase 2b, the others in phase 4.
 
 The output ends with three lines: a JSON object with one entry per
 kernel, the card's name and power limit as ``nvidia-smi`` gives them,
@@ -51,6 +69,7 @@ repository around it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -86,6 +105,14 @@ FLASH_SWEEP = [
 #: tokens at llama3.2-3b width
 RMSNORM_SWEEP = [(8, 64), (37, 512), (300, 128), (1, 1024), (4096, 3072)]
 INT8 = "paged_prefill_attention[int8]"
+DECODE_INT8 = "paged_decode_attention[int8]"
+#: the int8 chunked serve's pool: two full slots of 64 blocks plus the
+#: trash block, for 8 slots (28 layers x 129 blocks x 16 x 8 x 128 x 2 B
+#: of codes = 118 MB); with the serve requests arriving at once the
+#: scheduler preempts there (the count depends on the pool's size, not
+#: monotonically: run the phase on the CPU with a reduced model to
+#: check another size)
+INT8_POOL_BLOCKS = 129
 
 
 def log(msg: str) -> None:
@@ -119,10 +146,13 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 
-def decode_case(rng, lengths, dtype, dev, nb=64, width=64):
+def decode_case(rng, lengths, dtype, dev, nb=64, width=64, int8=False):
     """Decode inputs whose tables are the first ``nb`` columns of a
     ``(B, width)`` table, as the engine slices its device tables to the
-    power-of-two bucket of the longest live slot."""
+    power-of-two bucket of the longest live slot. With ``int8`` the pools
+    are int8 codes and the returned kwargs carry their (n_blocks, Kh)
+    scales."""
+    from repro_torch.bench.workloads.kernels import quantize
     b = len(lengths)
     n_blocks = 1 + b * nb
     perm = rng.permutation(np.arange(1, n_blocks))
@@ -131,9 +161,13 @@ def decode_case(rng, lengths, dtype, dev, nb=64, width=64):
         need = -(-int(ln) // BS)
         tables[i, :need] = perm[i * nb:i * nb + need]
     t = lambda *s: torch.randn(*s, device=dev, dtype=torch.float32).to(dtype)
-    return (t(b, H, DH), t(n_blocks, BS, KH, DH), t(n_blocks, BS, KH, DH),
-            torch.from_numpy(tables).to(dev)[:, :nb],
-            torch.from_numpy(np.asarray(lengths, np.int32)).to(dev))
+    kp, vp = t(n_blocks, BS, KH, DH), t(n_blocks, BS, KH, DH)
+    kw = {}
+    if int8:
+        kp, kw["k_scale"] = quantize(kp.float())
+        vp, kw["v_scale"] = quantize(vp.float())
+    return (t(b, H, DH), kp, vp, torch.from_numpy(tables).to(dev)[:, :nb],
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)), kw
 
 
 def prefill_case(rng, npre, sq, dtype, dev, int8=False):
@@ -192,8 +226,9 @@ def check_kernel(name: str, worst: dict, got, want, dtype, what: str):
 
 
 def phase_kernels(dev) -> dict:
-    """Kernel vs plain version at main-path shapes: decode over column
-    slices of a 64-wide table (nb 8, 32, 64), prefill on fp and int8
+    """Kernel vs plain version at main-path shapes: decode on fp and int8
+    pools over column slices of a 64-wide table (nb 8, 32, 64), prefill
+    on fp and int8
     pools at the serve run's prefix depths (1, 4, 16 blocks) and suffix
     buckets (16, 128, 256), flash attention over ``FLASH_SWEEP`` and
     RMSNorm over ``RMSNORM_SWEEP``. Returns the largest bf16 error per
@@ -202,19 +237,25 @@ def phase_kernels(dev) -> dict:
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(0)
     worst = {"paged_decode_attention": 0.0, "paged_prefill_attention": 0.0,
-             "flash_attention": 0.0, "rmsnorm": 0.0, INT8: 0.0}
+             "flash_attention": 0.0, "rmsnorm": 0.0, INT8: 0.0,
+             DECODE_INT8: 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for nb in (8, 32, 64):
             for window in (None, 256):
-                lengths = rng.integers(1, nb * BS + 1, size=B)
-                lengths[0], lengths[1] = 1, nb * BS
-                args = decode_case(rng, lengths, dtype, dev, nb=nb)
-                check_kernel(
-                    "paged_decode_attention", worst,
-                    ops.paged_decode_attention(*args, window=window),
-                    plain_fp32(ref.paged_decode_attention_ref, *args,
-                               window=window), dtype,
-                    f"nb={nb}/64 window={window} lengths={lengths.tolist()}")
+                for name, int8 in (("paged_decode_attention", False),
+                                   (DECODE_INT8, True)):
+                    lengths = rng.integers(1, nb * BS + 1, size=B)
+                    lengths[0], lengths[1] = 1, nb * BS
+                    args, kw = decode_case(rng, lengths, dtype, dev, nb=nb,
+                                           int8=int8)
+                    check_kernel(
+                        name, worst,
+                        ops.paged_decode_attention(*args, window=window,
+                                                   **kw),
+                        plain_fp32(ref.paged_decode_attention_ref, *args,
+                                   window=window, **kw), dtype,
+                        f"nb={nb}/64 window={window} "
+                        f"lengths={lengths.tolist()}")
         for npre in (1, 4, 16):
             for sq in (16, 128, 256):
                 for name, int8 in (("paged_prefill_attention", False),
@@ -260,14 +301,11 @@ def serve_requests(vocab: int, n: int = 16, seed: int = 0):
     return reqs
 
 
-def phase_serve(dev, profile: bool = False) -> dict:
+def full_model(dev):
+    """Full-width, full-depth llama3.2-3b with seeded random bf16
+    weights on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.core.metrics import percentile
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
-    from repro_torch.power.methods import NvmlPower
-    from repro_torch.serve.engine import ServeEngine
-
     c = get_config("llama3.2-3b")
     t0 = time.perf_counter()
     params = lm.init(c, torch.Generator(device=dev).manual_seed(0), dev)
@@ -276,6 +314,48 @@ def phase_serve(dev, profile: bool = False) -> dict:
     log(f"[serve] {c.name}: {c.n_layers} layers, d_model {c.d_model}, "
         f"{n_params / 1e9:.3f}B params ({c.param_dtype}) initialised in "
         f"{time.perf_counter() - t0:.1f} s")
+    return c, params
+
+
+def check_served(c, engine, out, reqs) -> None:
+    """Every request finished its full budget with in-vocab tokens, and
+    the pool drains clean."""
+    assert len(out.results) == len(reqs)
+    for r, req in zip(sorted(out.results, key=lambda r: r.rid), reqs):
+        assert r.finish_reason == "length", (r.rid, r.finish_reason)
+        assert len(r.tokens) == req.max_new_tokens, r.rid
+        assert all(0 <= t < c.vocab for t in r.tokens), r.rid
+    paged = engine._paged
+    assert all(len(o) == 0 for o in paged._owned)
+    assert paged.free_blocks + paged.reclaimable_blocks == paged.n_blocks - 1
+    engine.reset_prefix_cache()
+    assert paged.free_blocks == paged.n_blocks - 1
+
+
+def log_serve(tag: str, out, wall: float, power) -> None:
+    from repro_torch.core.metrics import percentile
+    s = out.summary
+    ttfts = [r.ttft_s for r in out.results]
+    decode = [st for st in out.steps if st.kind == "decode"]
+    decode_tokens = sum(st.n_tokens for st in decode)
+    step_ms = sum(st.duration_s for st in decode) * 1e3 / sum(
+        st.n_steps for st in decode)
+    log(f"[{tag}] decode_tok_s={decode_tokens / s.decode_s:.1f} "
+        f"(decode windows only) decode_step_ms={step_ms:.2f} "
+        f"useful_tok_s={s.decode_tok_s:.1f} "
+        f"ttft_p50_ms={percentile(ttfts, 50) * 1e3:.1f} "
+        f"ttft_p99_ms={percentile(ttfts, 99) * 1e3:.1f} "
+        f"tpot_p50_ms={percentile([r.tpot_s for r in out.results], 50) * 1e3:.2f} "
+        f"occupancy={s.mean_occupancy:.3f} wh_per_token={s.wh_per_token:.3e} "
+        f"power_source={power.name} mean_w={np.mean(out.sample_ws):.1f} "
+        f"wall_s={wall:.2f}")
+
+
+def phase_serve(dev, c, params, profile: bool = False) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.power.methods import NvmlPower
+    from repro_torch.serve.engine import ServeEngine
+
     power = NvmlPower(dev.index or 0)
     engine = ServeEngine(c, params, n_slots=8, max_len=1024, block_size=16,
                          prefix_cache=True, device=dev,
@@ -291,48 +371,106 @@ def phase_serve(dev, profile: bool = False) -> dict:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
 
-    assert len(out.results) == len(reqs)
-    for r, req in zip(sorted(out.results, key=lambda r: r.rid), reqs):
-        assert r.finish_reason == "length", (r.rid, r.finish_reason)
-        assert len(r.tokens) == req.max_new_tokens, r.rid
-        assert all(0 <= t < c.vocab for t in r.tokens), r.rid
+    hits = engine.prefix_stats["hit_requests"]
+    check_served(c, engine, out, reqs)
     micro = sum(s.n_steps for s in out.steps if s.kind == "decode")
     assert counts["paged_decode_attention"] == micro * c.n_layers, (
         counts, micro)
     assert counts["paged_prefill_attention"] > 0, counts
-    hits = engine.prefix_stats["hit_requests"]
     assert hits > 0, engine.prefix_stats
-    paged = engine._paged
-    assert all(len(o) == 0 for o in paged._owned)
-    assert paged.free_blocks + paged.reclaimable_blocks == paged.n_blocks - 1
-    engine.reset_prefix_cache()
-    assert paged.free_blocks == paged.n_blocks - 1
 
     s = out.summary
-    ttfts = [r.ttft_s for r in out.results]
-    decode_tokens = sum(st.n_tokens for st in out.steps if st.kind == "decode")
     log(f"[serve] {s.n_requests} requests, "
         f"{sum(r.prompt_len for r in out.results)} prompt tokens, "
         f"{s.n_tokens} generated in {wall:.2f} s; prefix hits "
         f"{hits}/{s.n_requests}, "
         f"launches {counts}, decode micro-steps {micro}")
-    log(f"[serve] decode_tok_s={decode_tokens / s.decode_s:.1f} "
-        f"(decode windows only) useful_tok_s={s.decode_tok_s:.1f} "
-        f"ttft_p50_ms={percentile(ttfts, 50) * 1e3:.1f} "
-        f"ttft_p99_ms={percentile(ttfts, 99) * 1e3:.1f} "
-        f"tpot_p50_ms={percentile([r.tpot_s for r in out.results], 50) * 1e3:.2f} "
-        f"occupancy={s.mean_occupancy:.3f} wh_per_token={s.wh_per_token:.3e} "
-        f"power_source={power.name} mean_w="
-        f"{np.mean(out.sample_ws):.1f}")
+    log_serve("serve", out, wall, power)
     if profile:
-        profile_serve(engine, reqs)
+        profile_serve(engine, reqs, "serve")
     power.close()
-    del engine, params
+    del engine
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_serve(engine, reqs) -> None:
+def phase_serve_int8(dev, c, params, profile: bool = False) -> dict:
+    """The serve requests, all arriving at once, through the chunked
+    scheduler on an oversubscribed int8 pool: preemption, decode replay,
+    and both kernels' int8 paths on every paged call. Then the same run
+    on a bf16 pool of as many blocks, which takes the same schedule (so
+    the TPOT difference is the int8 path's); the int8-vs-bf16 stream
+    agreement is printed, not gated."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.prefill_attention import paged_prefill_attention
+    from repro_torch.power.methods import NvmlPower
+    from repro_torch.serve.engine import ServeEngine
+
+    reqs = [dataclasses.replace(r, arrival_s=0.0)
+            for r in serve_requests(c.vocab)]
+    runs = {}
+    for kv, tag in (("int8", "int8"), ("fp32", "bf16-twin")):
+        power = NvmlPower(dev.index or 0)
+        engine = ServeEngine(c, params, n_slots=8, max_len=1024,
+                             block_size=16, n_blocks=INT8_POOL_BLOCKS,
+                             prefix_cache=True, kv_dtype=kv,
+                             sched="chunked", chunk_tokens=32, device=dev,
+                             power_methods=[power])
+        t0 = time.perf_counter()
+        engine.warmup(requests=reqs[:2], repeat=2)
+        log(f"[{tag}] warmup {time.perf_counter() - t0:.1f} s; pool "
+            f"{engine._paged.n_blocks} blocks, "
+            f"{engine._paged.pool_bytes / 1e6:.1f} MB")
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.serve(reqs, policy="continuous")
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts())
+        counts[DECODE_INT8] = paged_decode_attention.launches_int8
+        counts[INT8] = paged_prefill_attention.launches_int8
+
+        hits = engine.prefix_stats["hit_requests"]
+        check_served(c, engine, out, reqs)
+        micro = sum(s.n_steps for s in out.steps if s.kind == "decode")
+        sched = (micro, engine.preemptions, engine.replayed_tokens,
+                 engine.paged_prefills)
+        s = out.summary
+        log(f"[{tag}] {s.n_requests} requests, "
+            f"{sum(r.prompt_len for r in out.results)} prompt tokens, "
+            f"{s.n_tokens} generated in {wall:.2f} s; preemptions "
+            f"{engine.preemptions}, replayed tokens "
+            f"{engine.replayed_tokens}, prefix hits {hits}, prefill windows "
+            f"{sum(1 for st in out.steps if st.kind == 'prefill')} of which "
+            f"{engine.paged_prefills} over pool blocks; launches {counts}, "
+            f"decode micro-steps {micro}")
+        log_serve(tag, out, wall, power)
+        if profile and kv == "int8":
+            # one trace only: reading ~800k launches back takes minutes
+            profile_serve(engine, reqs, tag)
+        power.close()
+        del engine
+        torch.cuda.empty_cache()
+        runs[kv] = (sched, counts, {r.rid: list(r.tokens)
+                                    for r in out.results})
+
+    (micro, preempts, replayed, paged_calls), counts, streams = runs["int8"]
+    assert preempts >= 1 and replayed >= 1, (preempts, replayed)
+    assert counts[DECODE_INT8] == counts["paged_decode_attention"] \
+        == micro * c.n_layers, (counts, micro)
+    assert paged_calls >= 1, paged_calls
+    assert counts[INT8] == counts["paged_prefill_attention"] \
+        == paged_calls * c.n_layers, (counts, paged_calls)
+    assert runs["fp32"][0] == runs["int8"][0], (runs["fp32"][0],
+                                                runs["int8"][0])
+    assert runs["fp32"][1][DECODE_INT8] == runs["fp32"][1][INT8] == 0
+    log(f"[int8] int8 vs bf16 pool stream agreement (recorded, not gated) "
+        f"{agreement(streams, runs['fp32'][2]):.4f}")
+    return counts
+
+
+def profile_serve(engine, reqs, tag: str) -> None:
     """Serve the request set again under ``torch.profiler`` and print
     where the time goes: the device-busy share of the wall time and the
     device time by kernel."""
@@ -350,12 +488,13 @@ def profile_serve(engine, reqs) -> None:
     busy_us = sum(e.self_device_time_total for e in rows)
     decode_s = sum(s.duration_s for s in out.steps if s.kind == "decode")
     prefill_s = sum(s.duration_s for s in out.steps if s.kind == "prefill")
-    log(f"[profile] wall {wall:.3f} s (decode windows {decode_s:.3f} s, "
-        f"prefill windows {prefill_s:.3f} s), device busy "
-        f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.3f} of wall")
+    log(f"[profile {tag}] wall {wall:.3f} s (decode windows {decode_s:.3f} "
+        f"s, prefill windows {prefill_s:.3f} s), device busy "
+        f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.3f} of wall, "
+        f"{sum(e.count for e in rows)} device launches")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
-        log(f"[profile] {e.self_device_time_total / 1e3:10.2f} ms "
+        log(f"[profile {tag}] {e.self_device_time_total / 1e3:10.2f} ms "
             f"{e.count:7d}x  {e.key[:90]}")
 
 
@@ -367,9 +506,24 @@ def _leaves(tree):
         yield tree
 
 
+def agreement(a: dict, b: dict) -> float:
+    """Mean longest-common-prefix share of two rid -> stream maps."""
+    fracs = []
+    for rid, x in a.items():
+        y = b[rid]
+        lcp = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                   min(len(x), len(y)))
+        fracs.append(lcp / max(len(x), len(y), 1))
+    return sum(fracs) / len(fracs)
+
+
 def phase_agreement(dev) -> None:
-    """Reduced fp32 model on the card (kernels) vs on the CPU (plain
-    versions), same weights and requests, prefix cache on."""
+    """Reduced fp32 model, same weights and requests, prefix cache on:
+    the card (kernels) vs the CPU (plain versions) on fp pools and on
+    int8 pools (chunked), and the card's chunked scheduler on a pool of
+    one full slot plus the trash block (it preempts: the requests arrive
+    at once, so the schedule is the same on any device) vs its phased
+    one."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
@@ -378,6 +532,7 @@ def phase_agreement(dev) -> None:
     c = get_config("llama3.2-3b").reduced(dtype="float32",
                                           param_dtype="float32")
     cpu_params = lm.init(c, torch.Generator().manual_seed(1), "cpu")
+    params = {"cpu": cpu_params, "cuda": _to(cpu_params, dev)}
     rng = np.random.default_rng(1)
     shared = rng.integers(0, c.vocab, size=32)
     reqs = [Request(rid=i, prompt=np.concatenate(
@@ -387,24 +542,35 @@ def phase_agreement(dev) -> None:
                     8, 40))).astype(np.int32),
                 max_new_tokens=int(rng.integers(8, 24)))
             for i in range(12)]
+    runs = {
+        # name: (device, engine options, sched)
+        "fp32 cpu": ("cpu", {}, "phased"),
+        "fp32 card": ("cuda", {}, "phased"),
+        "int8 cpu": ("cpu", {"kv_dtype": "int8"}, "chunked"),
+        "int8 card": ("cuda", {"kv_dtype": "int8"}, "chunked"),
+        "chunked card": ("cuda", {"n_blocks": 9}, "chunked"),
+    }
     streams = {}
-    for where, params in (("cpu", cpu_params),
-                          ("cuda", _to(cpu_params, dev))):
-        eng = ServeEngine(c, params, n_slots=4, max_len=128, block_size=16,
-                          prefix_cache=True, device=where)
-        out = eng.serve(reqs)
-        assert eng.prefix_stats["hit_requests"] > 0
-        streams[where] = {r.rid: list(r.tokens) for r in out.results}
-    fracs = []
-    for rid, a in streams["cpu"].items():
-        b = streams["cuda"][rid]
-        lcp = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                   min(len(a), len(b)))
-        fracs.append(lcp / max(len(a), len(b), 1))
-    agreement = sum(fracs) / len(fracs)
-    log(f"[agreement] reduced fp32 {c.name}: card (kernels) vs CPU (plain) "
-        f"stream agreement {agreement:.4f} over {len(fracs)} requests")
-    assert agreement >= 0.95, agreement
+    for name, (where, kw, sched) in runs.items():
+        eng = ServeEngine(c, params[where], n_slots=4, max_len=128,
+                          block_size=16, prefix_cache=True, device=where,
+                          **kw)
+        out = eng.serve(reqs, sched=sched)
+        assert eng.prefix_stats["hit_requests"] > 0, name
+        assert all(r.n_tokens == q.max_new_tokens for r, q in zip(
+            sorted(out.results, key=lambda r: r.rid), reqs)), name
+        streams[name] = {r.rid: list(r.tokens) for r in out.results}
+        log(f"[agreement] {name}: {sched}, preemptions {eng.preemptions}, "
+            f"replayed tokens {eng.replayed_tokens}, prefills over pool "
+            f"blocks {eng.paged_prefills}")
+        if "n_blocks" in kw:
+            assert eng.preemptions >= 1 and eng.replayed_tokens >= 1, name
+    for a, b in (("fp32 cpu", "fp32 card"), ("int8 cpu", "int8 card"),
+                 ("fp32 card", "chunked card")):
+        agree = agreement(streams[a], streams[b])
+        log(f"[agreement] reduced fp32 {c.name}: {b} vs {a} stream "
+            f"agreement {agree:.4f} over {len(reqs)} requests")
+        assert agree >= 0.95, (a, b, agree)
 
 
 def _to(tree, dev):
@@ -456,11 +622,12 @@ def phase_bench() -> dict:
     return counts
 
 
-def phase_times(dev, counts: dict, bench_counts: dict, errs: dict) -> list:
+def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
+                errs: dict) -> list:
     """Each kernel at main-path shapes: its time, its plain version's,
     the library yardstick's, and the bound from the bytes and flops it
-    needs. ``counts`` are the serve run's launches, ``bench_counts`` the
-    bench run's."""
+    needs. ``counts`` are the fp serve run's launches, ``int8_counts``
+    the int8 chunked serve run's, ``bench_counts`` the bench run's."""
     import torch.nn.functional as F
     from repro_torch.bench.workloads.kernels import plain_fp32
     from repro_torch.kernels import ops, ref
@@ -471,7 +638,7 @@ def phase_times(dev, counts: dict, bench_counts: dict, errs: dict) -> list:
 
     # decode: B=8 slots of a serve mix (prompt 64-512 + up to 64 tokens)
     lengths = rng.integers(64, 577, size=B)
-    q, kp, vp, tables, lens = decode_case(rng, lengths, dtype, dev)
+    (q, kp, vp, tables, lens), _ = decode_case(rng, lengths, dtype, dev)
     check_kernel("paged_decode_attention", errs,
                  ops.paged_decode_attention(q, kp, vp, tables, lens),
                  plain_fp32(ref.paged_decode_attention_ref, q, kp, vp,
@@ -495,6 +662,30 @@ def phase_times(dev, counts: dict, bench_counts: dict, errs: dict) -> list:
                      errs, ms, plain, lib, nbytes, flops, dtype,
                      f"B={B} H={H} Kh={KH} Dh={DH} bs={BS} nb={nb} "
                      f"lengths={lengths.tolist()}"))
+
+    # the same decode on an int8 pool; SDPA runs on K/V gathered and
+    # dequantized beforehand (not timed)
+    args, kw = decode_case(rng, lengths, dtype, dev, int8=True)
+    check_kernel(DECODE_INT8, errs, ops.paged_decode_attention(*args, **kw),
+                 plain_fp32(ref.paged_decode_attention_ref, *args, **kw),
+                 dtype, "at the timed shapes")
+    ms = time_ms(lambda: ops.paged_decode_attention(*args, **kw))
+    plain = time_ms(lambda: ref.paged_decode_attention_ref(*args, **kw),
+                    iters=10)
+    q, kp, vp, tables, lens = args
+    deq = lambda p, s: ref.dequantize_pool(p, tables, s).reshape(
+        B, nb * BS, KH, DH).transpose(1, 2).to(dtype)
+    kd, vd = deq(kp, kw["k_scale"]), deq(vp, kw["v_scale"])
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(B, H, 1, DH), kd, vd, attn_mask=mask, enable_gqa=True))
+    n_read = sum(-(-int(n) // BS) for n in lengths)
+    nbytes = (2 * B * H * DH * esize + 2 * tok * KH * DH
+              + 2 * n_read * KH * 4 + n_read * 4 + B * 4)
+    rows.append(_row(DECODE_INT8, "decode_attention", int8_counts, errs, ms,
+                     plain, lib, nbytes, flops, dtype,
+                     f"B={B} H={H} Kh={KH} Dh={DH} bs={BS} nb={nb} "
+                     f"lengths={lengths.tolist()}, int8 pool",
+                     source="src/repro_torch/csrc/paged_decode_attention.cu"))
 
     # prefill: a prefix-cache hit of the serve mix, 16 shared blocks +
     # a 128-token suffix bucket, batch padded to 8 slots (one pad row)
@@ -597,6 +788,7 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:155",
     "paged_prefill_attention": "src/repro/kernels/prefill_attention.py:217",
     INT8: "src/repro/kernels/prefill_attention.py:217",
+    DECODE_INT8: "src/repro/kernels/decode_attention.py:155",
     "flash_attention": "src/repro/kernels/flash_attention.py:106",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:40",
 }
@@ -642,10 +834,15 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     errs = phase_kernels(dev)
-    counts = phase_serve(dev, profile="--profile" in sys.argv[1:])
+    c, params = full_model(dev)
+    counts = phase_serve(dev, c, params, profile="--profile" in sys.argv[1:])
+    int8_counts = phase_serve_int8(dev, c, params,
+                                   profile="--profile" in sys.argv[1:])
+    del params
+    torch.cuda.empty_cache()
     phase_agreement(dev)
     bench_counts = phase_bench()
-    rows = phase_times(dev, counts, bench_counts, errs)
+    rows = phase_times(dev, counts, int8_counts, bench_counts, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,24 @@
 // loop is free of bank conflicts); m, l and the accumulator stay in
 // shared memory across the walk.
 //
+// int8 pools. The pool's element type is a template parameter apart from
+// q's: with an int8 pool each block's (block, kv_head) scale is looked up
+// through the same tables[b, j] entry that addresses the block (the trash
+// block 0 has a scale row too: idle slots, whose rows are discarded, read
+// it, and a live slot reaches block 0 only past its length, where every
+// key is masked) and the codes dequantize as code * scale in fp32 while
+// the tile is staged, so no fp copy of the pool exists anywhere. The
+// walk's scales are gathered into shared memory by all threads at once
+// before it starts, so no block iteration waits on a scale load. Whether
+// scales are applied is a template parameter too, so a pool without
+// scales compiles to a walk with no scale load and no multiply: choosing
+// at run time (a branch and a multiply by 1.0f) made the fp walk 23 %
+// slower on the H100, where each block iteration of this latency-bound
+// loop takes a few microseconds. An int8 pool halves (bf16) or quarters
+// (fp32) the bytes the walk reads.
+//
 // Bound on the H100: device-memory bytes. The kernel reads
-// len x Kh x Dh x 2 (K and V) x sizeof(T) per sequence and layer and
+// len x Kh x Dh x 2 (K and V) x sizeof(P) per sequence and layer and
 // does 4 x G flops per byte-pair read — far below the ~295 flops/byte
 // where Hopper's tensor cores, not HBM, would limit — so the products
 // run on the CUDA cores in fp32 and the design only has to read each
@@ -35,11 +51,13 @@ using namespace repro;
 
 constexpr int kThreads = 128;
 
-template <typename T>
+template <typename T, typename P, bool kScaled>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q,          // (B, H, Dh)
-    const T* __restrict__ k_pool,     // (n_blocks, bs, Kh, Dh)
-    const T* __restrict__ v_pool,     // (n_blocks, bs, Kh, Dh)
+    const P* __restrict__ k_pool,     // (n_blocks, bs, Kh, Dh)
+    const P* __restrict__ v_pool,     // (n_blocks, bs, Kh, Dh)
+    const float* __restrict__ k_scale,  // (n_blocks, Kh), or null
+    const float* __restrict__ v_scale,  // (n_blocks, Kh), or null
     const int* __restrict__ tables,   // (B, >= nb), row stride table_stride
     const int* __restrict__ lengths,  // (B,)
     T* __restrict__ out,              // (B, H, Dh)
@@ -60,6 +78,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float* m_s = p_s + group * bs;        // (G,)
   float* l_s = m_s + group;             // (G,)
   float* a_s = l_s + group;             // (G,)
+  float* ks_s = a_s + group;            // (nb,) the walk's K scales
+  float* vs_s = ks_s + nb;              // (nb,) and V scales, if kScaled
 
   const int n_heads = n_kv_heads * group;
   const size_t head0 = (size_t)b * n_heads + (size_t)kh * group;
@@ -84,16 +104,30 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
   const int* tab = tables + (size_t)b * table_stride;
   const size_t tok_stride = (size_t)n_kv_heads * dh;  // between a block's rows
+  if constexpr (kScaled) {
+    for (int j = j_begin + tid; j < j_end; j += kThreads) {
+      const size_t blk = tab[j];
+      ks_s[j] = k_scale[blk * n_kv_heads + kh];
+      vs_s[j] = v_scale[blk * n_kv_heads + kh];
+    }
+  }
   __syncthreads();
 
   for (int j = j_begin; j < j_end; ++j) {
-    const size_t base = ((size_t)tab[j] * bs * n_kv_heads + kh) * dh;
-    const T* kb = k_pool + base;
-    const T* vb = v_pool + base;
+    const size_t blk = tab[j];
+    const size_t base = (blk * bs * n_kv_heads + kh) * dh;
+    const P* kb = k_pool + base;
+    const P* vb = v_pool + base;
     for (int i = tid; i < bs * dh; i += kThreads) {
       const int t = i / dh, d = i - t * dh;
-      k_s[t * k_stride + d] = to_f32(kb[t * tok_stride + d]);
-      v_s[t * dh + d] = to_f32(vb[t * tok_stride + d]);
+      float kv = to_f32(kb[t * tok_stride + d]);
+      float vv = to_f32(vb[t * tok_stride + d]);
+      if constexpr (kScaled) {
+        kv *= ks_s[j];
+        vv *= vs_s[j];
+      }
+      k_s[t * k_stride + d] = kv;
+      v_s[t * dh + d] = vv;
     }
     __syncthreads();
 
@@ -132,15 +166,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* tables, const int* lengths, void* out, int batch,
-           int n_kv_heads, int group, int dh, int bs, int nb,
-           int table_stride, int window, float scale, cudaStream_t stream) {
+           const float* k_scale, const float* v_scale, const int* tables,
+           const int* lengths, void* out, int batch, int n_kv_heads,
+           int group, int dh, int bs, int nb, int table_stride, int window,
+           float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (2 * (size_t)group * dh + (size_t)bs * (dh + 1) + (size_t)bs * dh +
-       (size_t)group * bs + 3 * (size_t)group);
-  auto kernel = paged_decode_kernel<T>;
+       (size_t)group * bs + 3 * (size_t)group +
+       (k_scale != nullptr ? 2 * (size_t)nb : 0));
+  auto kernel = k_scale != nullptr ? paged_decode_kernel<T, P, true>
+                                    : paged_decode_kernel<T, P, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -148,29 +185,57 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   }
   dim3 grid(batch, n_kv_heads);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, lengths, static_cast<T*>(out),
-      n_kv_heads, group, dh, bs, nb, table_stride, window, scale);
+      static_cast<const T*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), k_scale, v_scale, tables, lengths,
+      static_cast<T*>(out), n_kv_heads, group, dh, bs, nb, table_stride,
+      window, scale);
   return (int)cudaGetLastError();
+}
+
+// q's type T with a pool of T, or of int8 codes
+template <typename T>
+int launch_pool(const void* q, const void* k_pool, const void* v_pool,
+                const float* k_scale, const float* v_scale,
+                const int* tables, const int* lengths, void* out, int batch,
+                int n_kv_heads, int group, int dh, int bs, int nb,
+                int table_stride, int window, float scale, int pool_dtype,
+                int dtype, cudaStream_t stream) {
+  if (pool_dtype == dtype)
+    return launch<T, T>(q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
+                        out, batch, n_kv_heads, group, dh, bs, nb,
+                        table_stride, window, scale, stream);
+  if (pool_dtype == repro::kInt8)
+    return launch<T, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                             lengths, out, batch, n_kv_heads, group, dh, bs,
+                             nb, table_stride, window, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// k_scale / v_scale: (n_blocks, Kh) fp32 scales of an int8 pool, or null
+// for a pool of q's type.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* lengths, void* out, int batch, int n_kv_heads, int group,
-    int dh, int bs, int nb, int table_stride, int window, float scale,
-    int dtype, void* stream) {
+    const void* lengths, void* out, const void* k_scale, const void* v_scale,
+    int batch, int n_kv_heads, int group, int dh, int bs, int nb,
+    int table_stride, int window, float scale, int dtype, int pool_dtype,
+    void* stream) {
   const int* tab = static_cast<const int*>(tables);
   const int* lens = static_cast<const int*>(lengths);
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return launch<float>(q, k_pool, v_pool, tab, lens, out, batch, n_kv_heads,
-                         group, dh, bs, nb, table_stride, window, scale, s);
+    return launch_pool<float>(q, k_pool, v_pool, ksc, vsc, tab, lens, out,
+                              batch, n_kv_heads, group, dh, bs, nb,
+                              table_stride, window, scale, pool_dtype, dtype,
+                              s);
   if (dtype == repro::kBFloat16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tab, lens, out, batch,
-                                 n_kv_heads, group, dh, bs, nb, table_stride,
-                                 window, scale, s);
+    return launch_pool<__nv_bfloat16>(q, k_pool, v_pool, ksc, vsc, tab, lens,
+                                      out, batch, n_kv_heads, group, dh, bs,
+                                      nb, table_stride, window, scale,
+                                      pool_dtype, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -40,11 +40,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 #: C signatures: pointers and the stream as void*, sizes as int, strides
 #: as long long
 SIGNATURES = {
-    # q, k_pool, v_pool, tables, lengths, out,
+    # q, k_pool, v_pool, tables, lengths, out, k_scale, v_scale,
     # batch, kv_heads, group, d_head, block_size, n_table_cols,
-    # table_stride, window, scale, dtype, stream
+    # table_stride, window, scale, dtype, pool_dtype, stream
     "repro_paged_decode_attention":
-        [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+        [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
     # q, k_suffix, v_suffix, k_pool, v_pool, tables, out, k_scale,
     # v_scale, batch, sq, kv_heads, group, d_head, block_size, npre,
     # table_stride, window, scale, dtype, pool_dtype, stream

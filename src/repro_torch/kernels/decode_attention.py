@@ -5,7 +5,8 @@ Counterpart of ``src/repro/kernels/decode_attention.py::
 paged_decode_attention`` (Pallas kernel ``_decode_kernel``); the source
 file's note says how the design maps the TPU kernel onto Hopper and what
 bounds it. The plain version is ``kernels.ref.paged_decode_attention_ref``.
-``paged_decode_attention.launches`` counts the kernel's launches.
+``paged_decode_attention.launches`` counts the kernel's launches and
+``paged_decode_attention.launches_int8`` those of them on an int8 pool.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import DTYPE_CODES
+from repro_torch.kernels._build import DTYPE_CODES, INT8_CODE
 
 
 def check_kv_inputs(q: torch.Tensor, pools, index_tensors) -> None:
@@ -39,18 +40,52 @@ def check_kv_inputs(q: torch.Tensor, pools, index_tensors) -> None:
             raise ValueError("index tensors need a unit last stride")
 
 
+def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                k_scale: Optional[torch.Tensor],
+                v_scale: Optional[torch.Tensor]) -> int:
+    """The pool rule of both paged kernels: a pool of q's type without
+    scales, or a pool with (n_blocks, Kh) fp32 contiguous scales (int8
+    codes, or q's type as the reference allows). Returns the pool's type
+    code."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale are given both or neither")
+    if k_scale is None:
+        check_kv_inputs(q, (k_pool, v_pool), ())
+        return DTYPE_CODES[q.dtype]
+    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in (q.dtype,
+                                                            torch.int8):
+        raise TypeError(f"pools {k_pool.dtype} / {v_pool.dtype} with scales:"
+                        f" need int8 or q's {q.dtype}")
+    want = (k_pool.shape[0], k_pool.shape[2])
+    for t in (k_pool, v_pool, k_scale, v_scale):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"pools and scales must be contiguous tensors "
+                             f"on {q.device}, got a {tuple(t.shape)} tensor "
+                             f"on {t.device} with strides {t.stride()}")
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise TypeError(f"scales must be fp32 of shape {want}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    return INT8_CODE if k_pool.dtype == torch.int8 else DTYPE_CODES[q.dtype]
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            lengths: torch.Tensor, *,
-                           window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, Dh); k/v_pool: (n_blocks, bs, Kh, Dh); tables: (B, nb)
-    int32 (a column slice of a wider table is fine: rows may be
-    strided); lengths: (B,) int32 KV length including the current token.
-    Returns (B, H, Dh) in q.dtype."""
+                           window: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q: (B, H, Dh); k/v_pool: (n_blocks, bs, Kh, Dh), int8 when
+    k/v_scale (n_blocks, Kh) fp32 are given; tables: (B, nb) int32 (a
+    column slice of a wider table is fine: rows may be strided);
+    lengths: (B,) int32 KV length including the current token. Returns
+    (B, H, Dh) in q.dtype."""
     if not q.is_contiguous() or q.dim() != 3:
         raise ValueError(f"q must be a contiguous (B, H, Dh), got "
                          f"{tuple(q.shape)}")
-    check_kv_inputs(q, (k_pool, v_pool), (tables, lengths))
+    check_kv_inputs(q, (), (tables, lengths))
+    pool_code = check_pools(q, k_pool, v_pool, k_scale, v_scale)
     b, h, dh = q.shape
     n_blocks, bs, kh, dh_kv = k_pool.shape
     if v_pool.shape != k_pool.shape or dh_kv != dh or h % kh:
@@ -64,12 +99,18 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     err = lib.repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
         b, kh, h // kh, dh, bs, tables.shape[1], tables.stride(0),
         -1 if window is None else int(window), 1.0 / math.sqrt(dh),
-        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPE_CODES[q.dtype], pool_code,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    if pool_code == INT8_CODE:
+        paged_decode_attention.launches_int8 += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0

@@ -40,6 +40,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _decode.paged_decode_attention.launches_int8 = 0
     _prefill.paged_prefill_attention.launches_int8 = 0
 
 
@@ -55,15 +56,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool, v_pool, tables, lengths,
-                           *, window: Optional[int] = None) -> torch.Tensor:
+                           *, window: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Single-token GQA decode over a paged KV pool. q: (B, H, Dh);
     k/v_pool: (n_blocks, bs, Kh, Dh); tables: (B, nb) int32 block ids;
-    lengths: (B,) int32 KV length including the current token."""
+    lengths: (B,) int32 KV length including the current token;
+    k/v_scale: optional (n_blocks, Kh) fp32 scales of an int8 pool."""
     if q.device.type == "cpu":
-        return ref.paged_decode_attention_ref(q, k_pool, v_pool, tables,
-                                              lengths, window=window)
-    return _decode.paged_decode_attention(q, k_pool, v_pool, tables,
-                                          lengths, window=window)
+        return ref.paged_decode_attention_ref(
+            q, k_pool, v_pool, tables, lengths, window=window,
+            k_scale=k_scale, v_scale=v_scale)
+    return _decode.paged_decode_attention(
+        q, k_pool, v_pool, tables, lengths, window=window, k_scale=k_scale,
+        v_scale=v_scale)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_suffix, v_suffix, k_pool,

@@ -18,34 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODES, INT8_CODE
-from repro_torch.kernels.decode_attention import check_kv_inputs
-
-
-def _check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                 k_scale: Optional[torch.Tensor],
-                 v_scale: Optional[torch.Tensor]) -> int:
-    """A pool of q's type without scales, or a pool with (n_blocks, Kh)
-    fp32 scales (int8 codes, or q's type as the reference allows).
-    Returns the pool's type code."""
-    if (k_scale is None) != (v_scale is None):
-        raise ValueError("k_scale and v_scale are given both or neither")
-    if k_scale is None:
-        check_kv_inputs(q, (k_pool, v_pool), ())
-        return DTYPE_CODES[q.dtype]
-    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in (q.dtype,
-                                                            torch.int8):
-        raise TypeError(f"pools {k_pool.dtype} / {v_pool.dtype} with scales:"
-                        f" need int8 or q's {q.dtype}")
-    want = (k_pool.shape[0], k_pool.shape[2])
-    for t in (k_pool, v_pool, k_scale, v_scale):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"pools and scales must be contiguous on "
-                             f"{q.device}, got {t.device}")
-    for t in (k_scale, v_scale):
-        if t.dtype != torch.float32 or tuple(t.shape) != want:
-            raise TypeError(f"scales must be fp32 of shape {want}, got "
-                            f"{t.dtype} {tuple(t.shape)}")
-    return INT8_CODE if k_pool.dtype == torch.int8 else DTYPE_CODES[q.dtype]
+from repro_torch.kernels.decode_attention import check_kv_inputs, check_pools
 
 
 def paged_prefill_attention(q: torch.Tensor, k_suffix: torch.Tensor,
@@ -63,7 +36,7 @@ def paged_prefill_attention(q: torch.Tensor, k_suffix: torch.Tensor,
     q = q.contiguous()
     k_suffix, v_suffix = k_suffix.contiguous(), v_suffix.contiguous()
     check_kv_inputs(q, (k_suffix, v_suffix), (tables,))
-    pool_code = _check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    pool_code = check_pools(q, k_pool, v_pool, k_scale, v_scale)
     b, sq, h, dh = q.shape
     n_blocks, bs, kh, dh_kv = k_pool.shape
     if (v_pool.shape != k_pool.shape or dh_kv != dh or h % kh

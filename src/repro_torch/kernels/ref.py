@@ -2,11 +2,10 @@
 
 Port of ``src/repro/kernels/ref.py``: ``flash_attention_ref``,
 ``rmsnorm_ref``, ``dequantize_pool`` (with the int8 pool's scales) and
-the two paged attention oracles. The int8 pool path is ported for paged
-prefill; paged decode takes fp pools only so far (its int8 path is
-ROADMAP Queue 2 item 1). These define what the CUDA kernels compute: the
-CPU path of ``kernels.ops`` runs them, and the card-side checks compare
-each kernel with them on the same inputs.
+the two paged attention oracles, each on fp pools and on int8 pools with
+their (n_blocks, Kh) scales. These define what the CUDA kernels compute:
+the CPU path of ``kernels.ops`` runs them, and the card-side checks
+compare each kernel with them on the same inputs.
 """
 from __future__ import annotations
 
@@ -67,22 +66,29 @@ def dequantize_pool(pool: torch.Tensor, tables: torch.Tensor,
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, tables: torch.Tensor,
                                lengths: torch.Tensor, *,
-                               window: Optional[int] = None) -> torch.Tensor:
+                               window: Optional[int] = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Single-token GQA decode attention over a paged KV pool.
 
-    q: (B, H, Dh); k/v_pool: (n_blocks, bs, Kh, Dh); tables: (B, nb)
-    int32 physical block ids in position order (unowned columns point at
-    the trash block 0); lengths: (B,) int32 KV length including the
-    current token. Visible keys: kpos < length, and kpos > length-1-window
-    when windowed. fp32 softmax; returns (B, H, Dh) in q.dtype.
+    q: (B, H, Dh); k/v_pool: (n_blocks, bs, Kh, Dh), int8 codes when
+    ``k_scale``/``v_scale`` (n_blocks, Kh) fp32 are given (both or
+    neither; dequantized right after the gather); tables: (B, nb) int32
+    physical block ids in position order (unowned columns point at the
+    trash block 0); lengths: (B,) int32 KV length including the current
+    token. Visible keys: kpos < length, and kpos > length-1-window when
+    windowed. fp32 softmax; returns (B, H, Dh) in q.dtype.
     """
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale are given both or neither")
     b, h, dh = q.shape
     nb = tables.shape[1]
     bs, kh = k_pool.shape[1], k_pool.shape[2]
     g = h // kh
     scale = 1.0 / math.sqrt(dh)
-    k = dequantize_pool(k_pool, tables).reshape(b, nb * bs, kh, dh)
-    v = dequantize_pool(v_pool, tables).reshape(b, nb * bs, kh, dh)
+    k = dequantize_pool(k_pool, tables, k_scale).reshape(b, nb * bs, kh, dh)
+    v = dequantize_pool(v_pool, tables, v_scale).reshape(b, nb * bs, kh, dh)
     qf = q.float().reshape(b, kh, g, dh) * scale
     scores = torch.einsum("bkgd,btkd->bkgt", qf, k)
     kpos = torch.arange(nb * bs, device=q.device)[None, :]

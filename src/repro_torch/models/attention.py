@@ -7,12 +7,13 @@ weights are cast back to q.dtype before the PV product.
 
 Ported: ``qkv_proj``, ``make_causal_mask``, ``sdpa`` (the reference's
 ``impl="repeat"`` formulation), ``out_proj``, ``attend`` (unchunked),
-``prefill_attention`` (dense and paged-prefix branches) and
-``decode_attention`` (paged branch). The paged branches call ``repro_torch.kernels.ops``, which
-launches the CUDA kernels for CUDA tensors. Not yet ported, each raising
-``NotImplementedError``: the q-chunked path (``sdpa_chunked_q``), the
-slotted and scalar-position decode branches, and int8 pools
-(``_quantized_block_write``).
+``prefill_attention`` (dense and paged-prefix branches),
+``_quantized_block_write`` and ``decode_attention`` (paged branch), each
+paged branch on fp pools and on int8 pools with their scales. The paged
+branches call ``repro_torch.kernels.ops``, which launches the CUDA
+kernels for CUDA tensors. Not yet ported, each raising
+``NotImplementedError``: the q-chunked path (``sdpa_chunked_q``) and the
+slotted and scalar-position decode branches.
 """
 from __future__ import annotations
 
@@ -128,29 +129,59 @@ def prefill_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
                       paged_prefix: Optional[tuple] = None):
     """Causal self-attention that also returns the suffix K/V.
 
-    ``paged_prefix`` = (k_pool, v_pool, tables): the queries are suffix
-    tokens at global positions ``npre * bs + i`` (the caller passes RoPE
-    ``positions`` with that offset) and attend over [the ``npre`` prefix
-    blocks that ``tables`` (B, npre) names in the pool ++ their own K/V]
-    through ``kernels.ops.paged_prefill_attention``.
+    ``paged_prefix`` = (k_pool, v_pool, k_scale, v_scale, tables): the
+    queries are suffix tokens at global positions ``npre * bs + i`` (the
+    caller passes RoPE ``positions`` with that offset) and attend over
+    [the ``npre`` prefix blocks that ``tables`` (B, npre) names in the
+    pool ++ their own K/V] through ``kernels.ops.paged_prefill_attention``;
+    scales (n_blocks, Kh) that are not None mark an int8 pool.
     """
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = qkv_proj(c, p, x, positions if c.use_rope else None)
     if paged_prefix is not None:
-        k_pool, v_pool, tables = paged_prefix
+        k_pool, v_pool, k_scale, v_scale, tables = paged_prefix
         out = kops.paged_prefill_attention(q, k, v, k_pool, v_pool, tables,
-                                           window=c.attn_window)
+                                           window=c.attn_window,
+                                           k_scale=k_scale, v_scale=v_scale)
         return out_proj(p, out.to(q.dtype)), (k, v)
     return out_proj(p, attend(c, q, k, v, causal=True)), (k, v)
+
+
+def _quantized_block_write(pool: torch.Tensor, scale: torch.Tensor,
+                           new: torch.Tensor, blk: torch.Tensor,
+                           off: torch.Tensor) -> None:
+    """Write one token (B, Kh, Dh) into int8 pool blocks at
+    ``(blk[b], off[b])``, IN PLACE on ``pool`` (n_blocks, bs, Kh, Dh) and
+    ``scale`` (n_blocks, Kh): dequantize each owning block under its old
+    scale, place the token, re-quantize under ``max(old scale,
+    maxabs(new) / 127)``. The scale is monotone, so when the token fits
+    the old range the block's other codes are bit-unchanged. The old
+    scale and codes are read before anything is written, and codes and
+    scale go to the same ``blk``. Duplicate ``blk`` entries only occur on
+    the trash block 0 (idle slots), where which write wins is harmless.
+    Same arithmetic as the reference, op for op."""
+    newf = new.float()
+    osc = scale[blk]                                          # (B, Kh)
+    deq = pool[blk].float() * osc[:, None, :, None]           # (B,bs,Kh,Dh)
+    rows = torch.arange(new.shape[0], device=new.device)
+    deq[rows, off] = newf
+    nsc = torch.maximum(osc, newf.abs().amax(dim=-1) / 127.0)
+    div = torch.where(nsc > 0.0, nsc, torch.ones_like(nsc))
+    q = torch.round(deq / div[:, None, :, None])
+    pool[blk] = q.clamp(-127, 127).to(pool.dtype)
+    scale[blk] = nsc
 
 
 def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      pos: torch.Tensor, *,
                      block_tables: Optional[torch.Tensor] = None,
-                     n_kv_blocks: Optional[int] = None) -> torch.Tensor:
+                     n_kv_blocks: Optional[int] = None,
+                     cache_k_scale: Optional[torch.Tensor] = None,
+                     cache_v_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """One-token decode against the paged KV pool.
 
     x: (B, 1, D); cache_k/v: one layer's pools ``(n_blocks, bs, Kh, Dh)``,
@@ -159,6 +190,9 @@ def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
     pools instead). pos: (B,) int per-slot positions; idle slots park at a
     position whose table column is the trash block 0. Attention walks the
     first ``n_kv_blocks`` table columns, masked by true length pos + 1.
+    ``cache_k_scale``/``cache_v_scale`` (n_blocks, Kh) fp32 mark an int8
+    pool: the token goes in through :func:`_quantized_block_write` (the
+    scales updated in place too) and the kernel dequantizes with them.
     Returns out (B, 1, D).
     """
     if block_tables is None:
@@ -168,18 +202,20 @@ def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
         raise NotImplementedError(
             "scalar-position decode is not ported yet: ROADMAP Queue 1 "
             "item 3")
-    if cache_k.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV pools (_quantized_block_write) are not ported yet: "
-            "ROADMAP Queue 1 item 3")
     q, k_new, v_new = qkv_proj(c, p, x, pos[:, None] if c.use_rope else None)
     bs = cache_k.shape[1]
     nb = n_kv_blocks if n_kv_blocks is not None else block_tables.shape[1]
     blk = block_tables.gather(1, (pos // bs)[:, None].long())[:, 0].long()
     off = (pos % bs).long()
-    cache_k[blk, off] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[blk, off] = v_new[:, 0].to(cache_v.dtype)
+    if cache_k_scale is not None:
+        _quantized_block_write(cache_k, cache_k_scale, k_new[:, 0], blk, off)
+        _quantized_block_write(cache_v, cache_v_scale, v_new[:, 0], blk, off)
+    else:
+        cache_k[blk, off] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[blk, off] = v_new[:, 0].to(cache_v.dtype)
     out = kops.paged_decode_attention(q[:, 0], cache_k, cache_v,
                                       block_tables[:, :nb], pos + 1,
-                                      window=c.attn_window)
+                                      window=c.attn_window,
+                                      k_scale=cache_k_scale,
+                                      v_scale=cache_v_scale)
     return out_proj(p, out[:, None].to(q.dtype))

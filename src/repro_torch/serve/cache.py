@@ -2,9 +2,10 @@
 
 Port of the paged part of ``src/repro/serve/cache.py``:
 ``PagedKVCache`` (trash block 0, host free list, ``ensure``/``free``/
-``adopt``/``make_writable``, the prefix-cache methods and
-``device_tables``), ``insert_paged_prefill``, ``copy_blocks`` and a copy
-of ``PrefixIndex``.
+``adopt``/``make_writable``, the prefix-cache methods,
+``device_tables`` and the int8 pool layout), ``_quantize_block``,
+``insert_paged_prefill``, ``copy_blocks`` and a copy of
+``PrefixIndex``.
 
 Attention K/V lives in fixed-size blocks inside one shared pool per
 layer, addressed through per-slot block tables. Block 0 is the *trash
@@ -18,8 +19,10 @@ JAX's ``mode="drop"`` scatter to discard the engine's padding rows
 the port masks them out explicitly on the host before scattering.
 
 Cache tree: ``{"slot0": {"k", "v"}}`` with leaves
-``(L, n_blocks, block_size, Kh, Dh)`` in the model's activation dtype.
-The int8 pool (``kv_dtype="int8"``) is not ported yet.
+``(L, n_blocks, block_size, Kh, Dh)`` in the model's activation dtype;
+with ``kv_dtype="int8"`` the k/v leaves hold int8 codes and
+``"k_scale"``/``"v_scale"`` leaves ``(L, n_blocks, Kh)`` fp32 hold their
+symmetric per-(block, KV head) scales.
 """
 from __future__ import annotations
 
@@ -53,6 +56,21 @@ def _rows_to_blocks(small: torch.Tensor, block_size: int) -> torch.Tensor:
                          + tuple(small.shape[3:]))
 
 
+def _quantize_block(blk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of pool-shaped KV ``(L, n, bs, Kh,
+    Dh)`` per (block, KV head): scale = maxabs / 127 over the block's
+    (bs, Dh) slab, codes = round-half-to-even(x / scale) clamped to
+    +-127. Returns (int8 codes, fp32 scales (L, n, Kh)). Zero slabs get
+    scale 0 and all-zero codes. Same arithmetic as the reference, op for
+    op (a true division, not a reciprocal multiply), so the same fp32
+    input gives the same codes and scales."""
+    blk = blk.float()
+    sc = blk.abs().amax(dim=(2, 4)) / 127.0
+    div = torch.where(sc > 0.0, sc, torch.ones_like(sc))
+    q = torch.round(blk / div[:, :, None, :, None])
+    return q.clamp(-127, 127).to(torch.int8), sc
+
+
 def insert_paged_prefill(caches: Params, rows: Params, blocks, *,
                          block_size: int) -> Params:
     """Scatter a batched prefill result into the paged pool, in place.
@@ -63,15 +81,23 @@ def insert_paged_prefill(caches: Params, rows: Params, blocks, *,
     ``n_blocks``) and the unowned tail columns of short prompts — are
     DROPPED, by masking them out here. (The reference's per-slot state
     leaves, padded with slot ``n_slots``, belong to the mamba families
-    the port has not ported.) Returns ``caches``.
+    the port has not ported.) A k/v pool with a ``_scale`` sibling (the
+    int8 layout) is written as :func:`_quantize_block` codes, and the
+    scales of the same blocks beside it. Returns ``caches``.
     """
     flat = np.asarray(blocks).reshape(-1)
+    tree = caches["slot0"]
     for name, small in rows["slot0"].items():
-        pool = caches["slot0"][name]
+        pool = tree[name]
         keep = np.nonzero((flat >= 0) & (flat < pool.shape[1]))[0]
-        src = _rows_to_blocks(small, block_size)
-        pool[:, _idx(flat[keep], pool)] = src[:, _idx(keep, pool)].to(
-            pool.dtype)
+        src = _rows_to_blocks(small, block_size)[:, _idx(keep, pool)]
+        dst = _idx(flat[keep], pool)
+        if name + "_scale" in tree:
+            codes, sc = _quantize_block(src)
+            pool[:, dst] = codes
+            tree[name + "_scale"][:, dst] = sc
+        else:
+            pool[:, dst] = src.to(pool.dtype)
     return caches
 
 
@@ -81,7 +107,9 @@ def _idx(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 def copy_blocks(caches: Params, src, dst) -> Params:
     """Copy pool blocks ``src[i] -> dst[i]`` (host ints) on every k/v
-    pool, in place — the copy-on-write of a shared block."""
+    pool and, on an int8 pool, on its scale leaves, in place — the
+    copy-on-write of a shared block, which then dequantizes as its
+    parent does."""
     for pool in caches["slot0"].values():
         pool[:, _idx(dst, pool)] = pool[:, _idx(src, pool)]
     return caches
@@ -204,16 +232,21 @@ class PagedKVCache:
     returns a slot's references and points its table row back at the
     trash block 0. The default pool reserves worst-case capacity
     ``n_slots * max_len / block_size`` blocks plus the trash block.
+
+    ``kv_dtype="int8"`` stores int8 codes with ``(L, n_blocks, Kh)`` fp32
+    scale leaves beside the pools. ``pool_bytes`` (codes and scales),
+    ``pool_bytes_fp`` (the same blocks at the model's KV dtype),
+    ``bytes_per_block`` and ``max_concurrency`` (worst-case-length
+    requests that fit in the fp byte budget) are the reference's
+    capacity arithmetic.
     """
 
     def __init__(self, c: ModelConfig, n_slots: int, max_len: int, *,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  kv_dtype: str = "fp32", device: torch.device):
         check_family(c)
-        if kv_dtype != "fp32":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} is not ported yet: ROADMAP Queue 1 "
-                "item 6 (int8 pools)")
+        if kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: fp32 or int8")
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} is not a multiple of "
                              f"block_size {block_size}")
@@ -229,9 +262,22 @@ class PagedKVCache:
                 f"({self.max_blocks} blocks) plus the trash block")
         self.n_blocks = total
         shape = (c.n_layers, total, block_size, c.n_kv_heads, c.d_head)
-        self.caches = {"slot0": {
-            name: torch.zeros(shape, dtype=dtype_of(c), device=device)
-            for name in ("k", "v")}}
+        fp = dtype_of(c)
+        tree = {name: torch.zeros(shape, dtype=torch.int8 if kv_dtype ==
+                                  "int8" else fp, device=device)
+                for name in ("k", "v")}
+        if kv_dtype == "int8":
+            for name in ("k", "v"):
+                tree[name + "_scale"] = torch.zeros(
+                    (c.n_layers, total, c.n_kv_heads), dtype=torch.float32,
+                    device=device)
+        self.caches = {"slot0": tree}
+        self.pool_bytes = sum(t.numel() * t.element_size()
+                              for t in tree.values())
+        self.pool_bytes_fp = 2 * int(np.prod(shape)) * fp.itemsize
+        self.bytes_per_block = self.pool_bytes // total
+        self.max_concurrency = int(
+            self.pool_bytes_fp // (self.max_blocks * self.bytes_per_block))
         self.tables_np = np.zeros((n_slots, self.max_blocks), np.int32)
         self._tables = torch.from_numpy(self.tables_np.copy()).to(device)
         self._dirty = False

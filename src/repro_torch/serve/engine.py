@@ -2,14 +2,18 @@
 cache, with energy-per-token accounting.
 
 Port of ``src/repro/serve/engine.py`` (``ServeEngine``) for
-``cache="paged"``, ``sched="phased"``, ``kv_dtype="fp32"``, with the
-prefix cache off or on. The decode hot path keeps the reference's
-mechanisms:
+``cache="paged"``: both schedulers (``sched="phased"`` and
+``"chunked"``), both pool layouts (``kv_dtype="fp32"`` and ``"int8"``)
+and the prefix cache off or on. The decode hot path keeps the
+reference's mechanisms:
 
   * **paged KV** — ``serve.cache.PagedKVCache``: fixed-size blocks in a
     shared pool addressed by per-slot block tables; decode attention
     walks only the first ``nb`` table columns (``nb`` bucketed to the
     longest live slot) through ``kernels.ops.paged_decode_attention``;
+    an int8 pool quantizes on insert and on every decode write
+    (``models.attention._quantized_block_write``) and both kernels
+    dequantize with its per-(block, KV head) scales;
   * **batched admission prefill** — newly admitted requests prefill as
     one batch per (prompt bucket, prefix depth) group, padded to
     ``n_slots`` rows like the reference, so both packages run the same
@@ -21,15 +25,36 @@ mechanisms:
     back to back with the tokens chained on the device, and all ``k``
     outputs come back in one ``.cpu()``.
 
+Two scheduler modes share the loop (``sched=``):
+
+  * ``phased``  — a newly admitted request's whole prompt prefills at
+    admission, which reserves its worst-case blocks (prompt + budget);
+    a shortfall defers the queue head (FIFO);
+  * ``chunked`` — each loop iteration runs at most one block-aligned
+    ``chunk_tokens`` prefill slice per mid-prefill slot (batched across
+    slots), then one decode step for every fully prefilled slot. Every
+    chunk after the first is a suffix prefill over the slot's own blocks
+    through the paged prefill kernel. Admission reserves only prompt + 1
+    blocks; a shortfall at admission or during decode growth PREEMPTS
+    the youngest strictly younger request (its blocks free, it re-queues
+    at the front) and the resume re-prefills the original prompt chunk
+    by chunk, then REPLAYS the already-emitted tail through the decode
+    program as forced inputs, so the resumed stream equals the
+    never-preempted one.
+
 The reference's JIT programs become eager calls and its donated buffers
 become in-place updates of the pool. Energy: every step window is
 bracketed by synchronous ``PowerMethod`` samples and
 ``core.metrics.attribute_energy`` integrates over it (Wh/token,
 Wh/request).
 
+Beyond the reference, the engine counts ``replayed_tokens`` (forced
+decode inputs of resumed requests) and ``paged_prefills`` (batched
+prefill calls that attended over pool blocks: prefix hits and chunks
+after the first) in the last ``serve()``.
+
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
-item: the slotted cache, ``sched="chunked"`` (with preemption and decode
-replay), ``kv_dtype="int8"``, deadlines and shedding, slot faults, the
+item: the slotted cache, deadlines and shedding, slot faults, the
 scripted (callable-driven) mode, and ``generate``/``BatchedServer``.
 """
 from __future__ import annotations
@@ -49,10 +74,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.blocks import check_family
 from repro_torch.serve.cache import (
-    PagedKVCache, copy_blocks, insert_paged_prefill,
+    CacheOOM, PagedKVCache, copy_blocks, insert_paged_prefill,
 )
 from repro_torch.serve.requests import Request, RequestResult
-from repro_torch.serve.scheduler import Scheduler, StepRecord
+from repro_torch.serve.scheduler import Scheduler, Slot, StepRecord
 
 Params = Any
 
@@ -71,6 +96,9 @@ class ServeRunResult:
     sample_ws: list               # total watts at each sample
     summary: ServeSummary
 
+    def by_rid(self) -> dict:
+        return {r.rid: r for r in self.results}
+
 
 class ServeEngine:
     """Serving engine over the paged KV cache (see module docstring).
@@ -80,7 +108,9 @@ class ServeEngine:
     the caller passes ``device="cpu"``. ``max_len`` is the total
     per-slot capacity (prompt + generated tokens); ``decode_window`` caps
     how many decode steps a fused run keeps in flight (1 syncs every
-    token).
+    token). ``kv_dtype`` picks the pool layout (``"fp32"``: the model's
+    activation dtype; ``"int8"``: codes + scales); ``sched`` and
+    ``chunk_tokens`` are the default scheduler of ``serve()``.
     """
 
     def __init__(self, c: ModelConfig, params: Params, *,
@@ -89,17 +119,16 @@ class ServeEngine:
                  n_blocks: Optional[int] = None,
                  prefix_cache: bool = False, kv_dtype: str = "fp32",
                  decode_window: int = 8, sched: str = "phased",
-                 device: DeviceLike = None,
+                 chunk_tokens: int = 32, device: DeviceLike = None,
                  prefill_fn: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None,
                  power_methods: Sequence = ()):
         if cache != "paged":
             raise _todo(f"cache={cache!r}", "Queue 1 item 6 (slotted cache)")
-        if sched != "phased":
-            raise _todo(f"sched={sched!r}", "Queue 1 item 7.3 (chunked "
-                        "prefill, preemption and decode replay)")
-        if kv_dtype != "fp32":
-            raise _todo(f"kv_dtype={kv_dtype!r}", "Queue 1 item 7.5")
+        if sched not in ("phased", "chunked"):
+            raise ValueError(f"sched {sched!r}: phased or chunked")
+        if kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: fp32 or int8")
         if prefill_fn is not None or decode_fn is not None:
             raise _todo("scripted mode (prefill_fn/decode_fn)",
                         "Queue 1 item 7")
@@ -114,13 +143,19 @@ class ServeEngine:
         self.block_size = block_size
         self._n_blocks = n_blocks
         self.prefix_cache = prefix_cache
+        self.kv_dtype = kv_dtype
         self.decode_window = max(int(decode_window), 1)
+        self.sched = sched
+        self.chunk_tokens = int(chunk_tokens)
+        self.preemptions = 0          # preempt events in the last serve()
+        self.replayed_tokens = 0      # replayed decode inputs, last serve()
+        self.paged_prefills = 0       # prefill calls over pool blocks
         self.clock = time.monotonic
         self.power_methods = list(power_methods)
         self.prefix_stats: dict = self._blank_prefix_stats()
         self._paged: Optional[PagedKVCache] = None
-        #: admission-control ledger: slot -> worst-case block demand
-        #: (prompt + full token budget)
+        #: admission-control ledger: slot -> reserved block demand
+        #: (phased: prompt + full token budget; chunked: prompt + 1)
         self._slot_cap: dict[int, int] = {}
         #: available-block count snapshotted when admission last deferred
         #: the queue head; admission retries only once it changes
@@ -137,6 +172,7 @@ class ServeEngine:
         self._paged = PagedKVCache(self.c, self.n_slots, self.max_len,
                                    block_size=self.block_size,
                                    n_blocks=self._n_blocks,
+                                   kv_dtype=self.kv_dtype,
                                    device=self.device)
         if self.prefix_cache:
             self._paged.enable_prefix_cache()
@@ -179,18 +215,49 @@ class ServeEngine:
                        for s, cap in self._slot_cap.items())
         return self._paged.available_blocks - reserved
 
-    def _admit_paged(self, sched: Scheduler, admitted: list) -> list:
-        """Reserve each admission's worst-case block demand; when the
-        pool cannot cover the next request, it and everything behind it
-        go back to the queue front (FIFO kept) until blocks free up."""
+    def _admit_paged(self, sched: Scheduler, admitted: list,
+                     results=None, chunked: bool = False) -> list:
+        """Reserve pool blocks for new admissions; defer (phased) or
+        preempt (chunked) when the pool cannot cover them.
+
+        Phased: each admission reserves its worst-case demand (prompt +
+        full budget); when the unreserved headroom cannot cover the next
+        request, it and everything behind it go back to the queue front
+        (FIFO kept) until blocks free up. Chunked: the reservation is
+        optimistic (prompt + first token) and a shortfall first unadmits
+        the not-yet-prefilled tail, then preempts strictly younger
+        running slots until the head fits (the head defers itself when
+        no younger victim is left); the tail re-admits on the next loop
+        iteration, behind any just-preempted (older) victims.
+        """
         ok = []
         for i, slot in enumerate(admitted):
             req = slot.request
-            cap = -(-(req.prompt_len + req.max_new_tokens) // self.block_size)
+            if chunked:
+                cap = -(-(req.prompt_len + 1) // self.block_size)
+            else:
+                cap = -(-(req.prompt_len + req.max_new_tokens)
+                        // self.block_size)
             if cap > self._paged_headroom():
-                for later in reversed(admitted[i:]):
+                if not chunked:
+                    for later in reversed(admitted[i:]):
+                        sched.unadmit(later)
+                    self._defer_free_blocks = self._paged.available_blocks
+                    break
+                for later in reversed(admitted[i + 1:]):
                     sched.unadmit(later)
-                self._defer_free_blocks = self._paged.available_blocks
+                me = (req.arrival_s, req.rid)
+                while cap > self._paged_headroom():
+                    victim = self._pick_victim(sched, me)
+                    if victim is None:
+                        break
+                    self._preempt_slot(sched, victim, results)
+                if cap > self._paged_headroom():
+                    sched.unadmit(slot)
+                    self._defer_free_blocks = self._paged.available_blocks
+                    break
+                self._slot_cap[slot.index] = cap
+                ok.append(slot)
                 break
             self._slot_cap[slot.index] = cap
             ok.append(slot)
@@ -203,6 +270,53 @@ class ServeEngine:
                 and self._paged.available_blocks == snap)
 
     # ------------------------------------------------------------------
+    # Block-granular preemption (chunked scheduler)
+    # ------------------------------------------------------------------
+
+    def _ensure_with_preempt(self, sched: Scheduler, slot: Slot,
+                             n_tokens: int, results) -> bool:
+        """Grow ``slot`` to ``n_tokens`` rows, preempting strictly
+        younger requests on ``CacheOOM``; when none is left the slot
+        preempts itself. True once the growth lands, False when the slot
+        itself was preempted. The oldest active request can therefore
+        always preempt its way to completion: an oversubscribed pool
+        degrades to FIFO service, never to livelock."""
+        req = slot.request
+        me = (req.arrival_s, req.rid)
+        while True:
+            try:
+                self._paged.ensure(slot.index, n_tokens)
+                return True
+            except CacheOOM:
+                victim = self._pick_victim(sched, me)
+                if victim is None:
+                    self._preempt_slot(sched, slot, results)
+                    return False
+                self._preempt_slot(sched, victim, results)
+
+    def _pick_victim(self, sched: Scheduler, me: tuple) -> Optional[Slot]:
+        """Youngest active request strictly younger than ``me``; among
+        equal arrivals the one holding the fewest blocks."""
+        cands = [s for s in sched.slots if s.active
+                 and (s.request.arrival_s, s.request.rid) > me]
+        if not cands:
+            return None
+        return max(cands, key=lambda s: (s.request.arrival_s,
+                                         -self._paged.owned(s.index),
+                                         s.request.rid))
+
+    def _preempt_slot(self, sched: Scheduler, victim: Slot,
+                      results) -> None:
+        """Evict ``victim``: the scheduler captures its emitted stream in
+        the resume request, then its blocks are reclaimed."""
+        idx = victim.index
+        sched.preempt(victim, results[victim.request.rid].tokens)
+        self._free_paged_slot(idx)
+        # blocks moved: a headroom-deferred queue head may retry
+        self._defer_free_blocks = None
+        self.preemptions += 1
+
+    # ------------------------------------------------------------------
     # Model phases
     # ------------------------------------------------------------------
 
@@ -212,14 +326,16 @@ class ServeEngine:
 
     def _prefill(self, tokens: np.ndarray, last: np.ndarray, npre: int,
                  pre_blocks: np.ndarray):
-        """One batched prefill: cold (``npre == 0``) or a prefix-cache
-        hit whose suffix attends over ``npre`` shared pool blocks.
-        Returns (first tokens on the device, suffix cache rows)."""
+        """One batched prefill: cold (``npre == 0``), or a suffix (a
+        prefix-cache hit, or a chunk after the first) that attends over
+        ``npre`` pool blocks through the paged prefill kernel. Returns
+        (first tokens on the device, suffix cache rows)."""
         kw = {}
         if npre:
             kw = dict(paged_prefix=self.caches,
                       paged_tables=self._tensor(pre_blocks, torch.int32),
                       pos_offset=npre * self.block_size)
+            self.paged_prefills += 1
         logits, rows = lm.prefill(self.c, self.params, self._tensor(tokens),
                                   last_pos=self._tensor(last), **kw)
         return logits[:, -1].argmax(-1), rows
@@ -293,14 +409,139 @@ class ServeEngine:
                     res.finish_s, res.finish_reason = t1, reason
                     self._free_paged_slot(slot_index)
 
+    def _start_chunked(self, admitted, results) -> None:
+        """Begin chunked prefill for newly admitted slots: rewind
+        ``prefill_pos`` (``refill`` set it to ``prompt_len``, the phased
+        default) to the prefix-match depth, adopting the matched shared
+        blocks. A resume adopts no block of its replay region and leaves
+        at least one original-prompt token to prefill."""
+        t_admit = self.clock()
+        for slot in admitted:
+            req = slot.request
+            res = results[req.rid]
+            res.slot = slot.index
+            # a resume keeps its first admission stamp: TTFT measures
+            # first service, not re-service
+            if res.admitted_s == 0.0:
+                res.admitted_s = t_admit
+            pre: list = []
+            if self.prefix_cache:
+                pre = self._paged.prefix_match([int(t) for t in req.prompt])
+                if req.n_replay:
+                    pre = pre[:max(slot.prefill_target - 1, 0)
+                              // self.block_size]
+                st = self.prefix_stats
+                st["hit_requests" if pre else "miss_requests"] += 1
+                st["reused_blocks"] += len(pre)
+            if pre:
+                self._paged.adopt(slot.index, pre)
+            slot.prefill_pos = len(pre) * self.block_size
+            slot.pos = slot.prefill_pos   # KV rows landed so far
+
+    def _model_prefill_chunks(self, sched: Scheduler, results, steps, ts,
+                              ws, chunk_tokens: int) -> None:
+        """Run ONE ``chunk_tokens`` prefill slice for every mid-prefill
+        slot, batched per (suffix-bucket, prefix-depth) group. Chunk
+        ``j > 0`` is a suffix prefill over the slot's own first
+        ``prefill_pos / block_size`` blocks (the paged prefill kernel).
+        A non-final chunk writes K/V only (its argmax is discarded); the
+        final chunk emits the first token as phased prefill does and
+        registers the prompt with the prefix index — unless the slot is
+        a resume, which starts its decode replay instead. Pool growth
+        for a chunk may preempt a younger slot, possibly one of this
+        wave, which then drops out before grouping."""
+        bs = self.block_size
+        slots = [s for s in sched.slots if s.prefilling]
+        # grow oldest-first so preemption flows old -> young
+        for slot in sorted(slots, key=lambda s: (s.request.arrival_s,
+                                                 s.index)):
+            if not slot.prefilling:
+                continue    # preempted by an older slot's growth
+            end = min(slot.prefill_pos + chunk_tokens, slot.prefill_target)
+            self._ensure_with_preempt(sched, slot, end, results)
+        groups: dict[tuple, list] = {}
+        for slot in slots:
+            if not slot.prefilling:
+                continue
+            start = slot.prefill_pos
+            end = min(start + chunk_tokens, slot.prefill_target)
+            bucket = self._prompt_bucket(end - start)
+            groups.setdefault((bucket, start // bs), []).append(
+                (slot, start, end))
+        for (bucket, npre), entries in sorted(groups.items()):
+            kp = self.n_slots
+            pre_len = npre * bs
+            t0 = self.clock()
+            self._sample_power(ts, ws)   # bracket the chunk window
+            tokens = np.zeros((kp, bucket), np.int64)
+            last = np.zeros((kp,), np.int64)
+            pre_blocks = np.zeros((kp, npre), np.int32)
+            for i, (slot, start, end) in enumerate(entries):
+                prompt = np.asarray(slot.request.prompt, np.int64)
+                tokens[i, :end - start] = prompt[start:end]
+                last[i] = end - start - 1
+                if npre:
+                    pre_blocks[i] = self._paged.block_ids(slot.index,
+                                                          pre_len)
+            first, rows = self._prefill(tokens, last, npre, pre_blocks)
+            blocks = np.full((kp, -(-bucket // bs)), self._paged.n_blocks,
+                             np.int64)                       # pad: dropped
+            for i, (slot, start, end) in enumerate(entries):
+                own = self._paged.block_ids(slot.index, end)[npre:]
+                blocks[i, :len(own)] = own
+            insert_paged_prefill(self.caches, rows, blocks, block_size=bs)
+            finals = [(i, slot) for i, (slot, _s, end) in enumerate(entries)
+                      if end == slot.prefill_target]
+            emitting = [(i, s) for i, s in finals if not s.request.n_replay]
+            first_np = first.cpu().numpy() if emitting else None
+            t1 = self.clock()
+            self._sample_power(ts, ws)
+            rids = tuple(s.request.rid for s, _s, _e in entries)
+            # the window's energy splits across every chunking request;
+            # n_tokens counts only first tokens actually emitted
+            steps.append(StepRecord("prefill", t0, t1, rids, len(emitting)))
+            for slot, _start, end in entries:
+                slot.prefill_pos = end
+                slot.pos = end
+            for i, slot in finals:
+                req = slot.request
+                if req.n_replay:
+                    # resume: the original prompt is back; the emitted
+                    # tail replays through decode as forced inputs (this
+                    # chunk's argmax recomputes an emitted token: drop
+                    # it). No prefix registration: the tail blocks will
+                    # hold decode-built K/V.
+                    slot.replay = req.n_replay
+                    slot.last_token = int(req.prompt[slot.prefill_pos])
+                    continue
+                if self.prefix_cache:
+                    self.prefix_stats["registered_blocks"] += \
+                        self._paged.prefix_register(
+                            slot.index, [int(t) for t in req.prompt])
+                res = results[req.rid]
+                if res.first_token_s == 0.0:
+                    res.first_token_s = t1
+                tok = int(first_np[i])
+                res.tokens.append(tok)
+                slot_index = slot.index
+                reason = sched.record_token(slot, tok)
+                if reason is not None:
+                    res.finish_s, res.finish_reason = t1, reason
+                    self._free_paged_slot(slot_index)
+
     def _decode_plan(self, sched: Scheduler, active,
-                     admission_blocked: bool = False) -> int:
+                     admission_blocked: bool = False,
+                     prefilling: bool = False) -> int:
         """How many decode steps can run before the host must look: fused
-        only when no active request can hit EOS, each has at least ``k``
-        budget left, and no admission could happen meanwhile (a
-        headroom-deferred head cannot admit until a slot finishes, and
-        finishes land on window edges)."""
-        if self.decode_window <= 1:
+        only when no slot is mid-chunked-prefill (its next chunk goes
+        between decode steps) or replaying (its inputs are forced host
+        tokens, not the chained argmax), no active request can hit EOS,
+        each has at least ``k`` budget left, and no admission could
+        happen meanwhile (a headroom-deferred head cannot admit until a
+        slot finishes, and finishes land on window edges)."""
+        if self.decode_window <= 1 or prefilling:
+            return 1
+        if any(s.replay for s in active):
             return 1
         if (len(active) < self.n_slots and sched.n_pending
                 and not admission_blocked and sched.policy != "fixed"):
@@ -312,11 +553,25 @@ class ServeEngine:
         return max(1, min(k, self.decode_window))
 
     def _model_decode_run(self, sched: Scheduler, active, k: int, results,
-                          steps, ts, ws):
+                          steps, ts, ws, allow_preempt: bool = False):
         """Run ``k`` decode steps with the token stream chained on the
-        device, then drain all outputs in one ``.cpu()``."""
-        for s in active:
-            self._paged.ensure(s.index, s.pos + k)
+        device, then drain all outputs in one ``.cpu()``. Under the
+        chunked scheduler (``allow_preempt``) growth past the optimistic
+        reservation preempts younger slots, oldest first; a replaying
+        slot consumes its forced inputs and emits only after the last."""
+        if allow_preempt:
+            for s in sorted(active, key=lambda s: (s.request.arrival_s
+                                                   if s.request else 0.0,
+                                                   s.index)):
+                if not s.decoding:
+                    continue    # preempted by an older slot's growth
+                self._ensure_with_preempt(sched, s, s.pos + k, results)
+            active = [s for s in active if s.decoding]
+            if not active:
+                return
+        else:
+            for s in active:
+                self._paged.ensure(s.index, s.pos + k)
         if self.prefix_cache:
             # copy-on-write net: decode writes land past every shared
             # (full, block-aligned) prefix block, so this stays a no-op
@@ -352,6 +607,15 @@ class ServeEngine:
             for s in active:
                 if s.request is None:     # finished at an earlier micro-step
                     continue
+                if s.replay:
+                    # a forced emitted-tail input was consumed; only the
+                    # last replay step's argmax is a new token
+                    s.replay -= 1
+                    self.replayed_tokens += 1
+                    if s.replay:
+                        s.pos += 1
+                        s.last_token = int(s.request.prompt[s.pos])
+                        continue
                 res = results[s.request.rid]
                 tok_i = int(out[s.index])
                 emitted += 1
@@ -361,6 +625,8 @@ class ServeEngine:
                 if reason is not None:
                     res.finish_s, res.finish_reason = t1, reason
                     self._free_paged_slot(slot_index)
+        # every stepped slot is credited the window's energy (replay
+        # steps burn compute too); n_tokens counts appended tokens only
         steps.append(StepRecord("decode", t0, t1, rids * k, emitted,
                                 n_steps=k))
 
@@ -412,19 +678,29 @@ class ServeEngine:
         """Run a request set to completion under ``policy``
         (``continuous`` or ``fixed``). ``arrival_s`` is relative to the
         run start; the engine sleeps while the queue is empty and slots
-        are idle."""
-        if sched not in (None, "phased"):
-            raise _todo(f"sched={sched!r}", "Queue 1 item 7.3")
+        are idle. ``sched`` overrides the engine's scheduler for this
+        run; a chunked run needs ``chunk_tokens`` to be a positive
+        multiple of ``block_size`` (chunk edges land on block edges)."""
+        mode = sched or self.sched
+        if mode not in ("phased", "chunked"):
+            raise ValueError(f"sched {mode!r}: phased or chunked")
+        ct = self.chunk_tokens
+        if mode == "chunked" and (ct <= 0 or ct % self.block_size):
+            raise ValueError(f"chunk_tokens {ct} must be a positive "
+                             f"multiple of block_size {self.block_size}")
         if faults is not None:
             raise _todo("fault schedules (overload shedding, slot faults)",
                         "Queue 1 item 7.6")
         if any(r.deadline_s is not None for r in requests):
             raise _todo("deadlines and shedding", "Queue 1 item 7.6")
         with torch.no_grad():
-            return self._serve(requests, policy, poll_s)
+            return self._serve(requests, policy, poll_s, mode == "chunked",
+                               ct)
 
-    def _serve(self, requests, policy: str, poll_s: float) -> ServeRunResult:
+    def _serve(self, requests, policy: str, poll_s: float, chunked: bool,
+               chunk_tokens: int) -> ServeRunResult:
         self._ensure_cache()
+        self.preemptions = self.replayed_tokens = self.paged_prefills = 0
         sched = Scheduler(self.n_slots, self.max_len, policy=policy)
         t_start = self.clock()
         results: dict[int, RequestResult] = {}
@@ -449,18 +725,27 @@ class ServeEngine:
                 self._defer_free_blocks = None
                 admitted = sched.refill(now_rel)
                 if admitted:
-                    admitted = self._admit_paged(sched, admitted)
-            if admitted:
+                    admitted = self._admit_paged(sched, admitted, results,
+                                                 chunked=chunked)
+            if chunked:
+                if admitted:
+                    self._start_chunked(admitted, results)
+                if any(s.prefilling for s in sched.slots):
+                    self._model_prefill_chunks(sched, results, steps, ts,
+                                               ws, chunk_tokens)
+            elif admitted:
                 self._model_prefill_admitted(sched, admitted, results,
                                              steps, ts, ws)
             active = sched.decode_slots()
+            prefilling = any(s.prefilling for s in sched.slots)
             if active:
                 k = self._decode_plan(
                     sched, active,
-                    admission_blocked=self._admission_blocked())
+                    admission_blocked=self._admission_blocked(),
+                    prefilling=prefilling)
                 self._model_decode_run(sched, active, k, results,
-                                       steps, ts, ws)
-            elif sched.n_pending:
+                                       steps, ts, ws, allow_preempt=chunked)
+            elif sched.n_pending and not prefilling:
                 # idle: nothing admitted yet — wait for the next arrival
                 nxt = sched.next_arrival_s()
                 wait = (t_start + nxt) - self.clock() if nxt is not None \

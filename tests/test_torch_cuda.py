@@ -6,7 +6,9 @@ reference's SWEEP (``tests/test_kernels.py``) in both types, strided
 inputs and the llama3.2-3b prefill width; RMSNorm over the reference's
 sweep, mixed scale types, leading dims and the (4096, 3072) width; and
 no fallback: a kernel missing from the library, or a type a kernel does
-not take, raises.
+not take, raises. The serve engine on the card (kernels) against the CPU
+(plain versions): fp and int8 pools, phased and chunked with
+preemption.
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -30,6 +32,7 @@ import torch
 from repro_torch.bench.workloads.kernels import plain_fp32 as _plain_fp32
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.prefill_attention import paged_prefill_attention
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeEngine
@@ -92,6 +95,68 @@ def test_decode_kernel_matches_plain(card, dtype, bs, g, window):
     _assert_close(got, want, dtype)
 
 
+def _int8_pools(card, rng, n_blocks, bs):
+    """Two int8 code pools and their (n_blocks, Kh) fp32 scales."""
+    pools, scales = [], []
+    for _ in range(2):
+        codes = rng.integers(-127, 128, size=(n_blocks, bs, KH, DH))
+        pools.append(torch.from_numpy(codes.astype(np.int8)).to(card))
+        scales.append(torch.from_numpy(rng.uniform(
+            0.001, 0.05, size=(n_blocks, KH)).astype(np.float32)).to(card))
+    return pools, scales
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs,g,window", DECODE)
+def test_decode_kernel_int8_pool_matches_plain(card, dtype, bs, g, window):
+    """int8 pool codes and (n_blocks, Kh) scales, the same through both
+    sides; row 0 reads only the trash block 0 past its one token."""
+    rng = np.random.default_rng(bs * 10 + g + 7)
+    b, nb = 5, 256 // bs
+    n_blocks = 1 + b * nb
+    tables = rng.permutation(np.arange(1, n_blocks)).reshape(b, nb)
+    lengths = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
+    lengths[0] = 1
+    tables[0, 1:] = 0
+    q, tab, lens = _on(card, dtype,
+                       rng.normal(size=(b, KH * g, DH)).astype(np.float32),
+                       tables.astype(np.int32), lengths)
+    pools, scales = _int8_pools(card, rng, n_blocks, bs)
+    kw = dict(window=window, k_scale=scales[0], v_scale=scales[1])
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, *pools, tab, lens, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    assert paged_decode_attention.launches_int8 == 1
+    want = _plain_fp32(ref.paged_decode_attention_ref, q, *pools, tab, lens,
+                       **kw)
+    _assert_close(got, want, dtype)
+
+
+def test_decode_kernel_int8_refuses_bad_scales(card):
+    rng = np.random.default_rng(1)
+    pools, (ksc, vsc) = _int8_pools(card, rng, 9, 16)
+    q = torch.ones(2, KH, DH, device=card)
+    tab = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=card)
+    lens = torch.tensor([5, 20], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="both or neither"):
+        paged_decode_attention(q, *pools, tab, lens, k_scale=ksc)
+    with pytest.raises(TypeError, match="does not match q"):
+        paged_decode_attention(q, *pools, tab, lens)    # codes, no scales
+    with pytest.raises(TypeError, match="scales must be fp32"):
+        paged_decode_attention(q, *pools, tab, lens, k_scale=ksc[:4],
+                               v_scale=vsc[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(q, *pools, tab, lens, k_scale=ksc.t(),
+                               v_scale=vsc.t())
+    with pytest.raises(TypeError, match="scales must be fp32"):
+        paged_decode_attention(q, *pools, tab, lens, k_scale=ksc.double(),
+                               v_scale=vsc.double())
+    with pytest.raises(TypeError, match="need int8"):
+        paged_decode_attention(q, pools[0], pools[1].float(), tab, lens,
+                               k_scale=ksc, v_scale=vsc)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bs,g,npre,window", PREFILL)
 def test_prefill_kernel_matches_plain(card, dtype, bs, g, npre, window):
@@ -130,12 +195,7 @@ def test_prefill_kernel_int8_pool_matches_plain(card, dtype, bs, g, npre,
               rng.normal(size=(b, sq, KH, DH)).astype(np.float32),
               rng.normal(size=(b, sq, KH, DH)).astype(np.float32))
     q, ks, vs = _on(card, dtype, *arrays)
-    pools, scales = [], []
-    for _ in range(2):
-        codes = rng.integers(-127, 128, size=(n_blocks, bs, KH, DH))
-        pools.append(torch.from_numpy(codes.astype(np.int8)).to(card))
-        scales.append(torch.from_numpy(rng.uniform(
-            0.001, 0.05, size=(n_blocks, KH)).astype(np.float32)).to(card))
+    pools, scales = _int8_pools(card, rng, n_blocks, bs)
     tab = torch.from_numpy(tables).to(card)
     ops.reset_launch_counts()
     got = ops.paged_prefill_attention(q, ks, vs, *pools, tab, window=window,
@@ -229,38 +289,76 @@ def test_missing_kernel_raises_without_fallback(card, monkeypatch):
         ops.flash_attention(q, q, q)
 
 
-def test_engine_on_card_matches_cpu(card):
-    """Reduced fp32 model: the card (kernels) and the CPU (plain
-    versions) serve the same greedy streams, prefix hits included (LCP
-    agreement >= 0.95: summation order differs, so a near-tie may
-    flip)."""
+def _agreement(a: dict, b: dict) -> float:
+    """Mean longest-common-prefix share of two rid -> stream maps."""
+    fracs = []
+    for rid, x in a.items():
+        y = b[rid]
+        lcp = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                   min(len(x), len(y)))
+        fracs.append(lcp / max(len(x), len(y), 1))
+    return sum(fracs) / len(fracs)
+
+
+def _card_vs_cpu(card, engine_kw, serve_kw, budget=12, step=1):
     c = get_config("llama3.2-3b").reduced(dtype="float32",
                                           param_dtype="float32")
     params = lm.init(c, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
     shared = rng.integers(0, c.vocab, size=32)
     reqs = [Request(rid=i, prompt=np.concatenate(
-                [shared, rng.integers(0, c.vocab, size=5 + i)]).astype(
-                    np.int32), max_new_tokens=12) for i in range(8)]
-    streams = {}
+                [shared, rng.integers(0, c.vocab, size=5 + step * i)]
+            ).astype(np.int32), max_new_tokens=budget) for i in range(8)]
+    streams, engines = {}, {}
     for dev in ("cpu", "cuda"):
         p = params if dev == "cpu" else _to(params, card)
-        eng = ServeEngine(c, p, n_slots=4, max_len=64, block_size=16,
-                          prefix_cache=True, device=dev)
+        eng = ServeEngine(c, p, block_size=16, prefix_cache=True,
+                          device=dev, **engine_kw)
         ops.reset_launch_counts()
-        out = eng.serve(reqs)
+        out = eng.serve(reqs, **serve_kw)
         if dev == "cuda":
             counts = ops.launch_counts()
             assert counts["paged_decode_attention"] > 0
             assert counts["paged_prefill_attention"] > 0
+        assert all(r.n_tokens == budget for r in out.results)
         streams[dev] = {r.rid: r.tokens for r in out.results}
-    fracs = []
-    for rid, a in streams["cpu"].items():
-        b = streams["cuda"][rid]
-        lcp = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                   len(a))
-        fracs.append(lcp / len(a))
-    assert sum(fracs) / len(fracs) >= 0.95
+        engines[dev] = eng
+    return _agreement(streams["cpu"], streams["cuda"]), engines
+
+
+def test_engine_on_card_matches_cpu(card):
+    """Reduced fp32 model: the card (kernels) and the CPU (plain
+    versions) serve the same greedy streams, prefix hits included (LCP
+    agreement >= 0.95: summation order differs, so a near-tie may
+    flip)."""
+    agree, _ = _card_vs_cpu(card, dict(n_slots=4, max_len=64), {})
+    assert agree >= 0.95
+
+
+@pytest.mark.parametrize("sched", ["phased", "chunked"])
+def test_int8_engine_on_card_matches_cpu(card, sched):
+    """int8 pools: every decode step and every paged prefill on the card
+    runs the kernels' int8 paths."""
+    agree, _ = _card_vs_cpu(card, dict(n_slots=4, max_len=96,
+                                       kv_dtype="int8"),
+                            dict(sched=sched), step=4)
+    assert paged_decode_attention.launches_int8 == \
+        ops.launch_counts()["paged_decode_attention"] > 0
+    assert paged_prefill_attention.launches_int8 == \
+        ops.launch_counts()["paged_prefill_attention"] > 0
+    assert agree >= 0.95
+
+
+def test_chunked_engine_with_preemption_on_card_matches_cpu(card):
+    """A pool of two full slots plus trash for four slots: the chunked
+    scheduler preempts and replays on both devices, as often."""
+    agree, engines = _card_vs_cpu(card, dict(n_slots=4, max_len=128,
+                                             n_blocks=17),
+                                  dict(sched="chunked"), budget=40, step=4)
+    assert engines["cuda"].preemptions >= 1
+    assert engines["cuda"].replayed_tokens >= 1
+    assert engines["cuda"].preemptions == engines["cpu"].preemptions
+    assert agree >= 0.95
 
 
 def _assert_close(got, want, dtype):

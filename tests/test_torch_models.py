@@ -159,7 +159,7 @@ def test_prefill_attention_paged_prefix(arch):
                       jnp.asarray(tables), "xla", False))
     got, _ = attention.prefill_attention(
         c, jax.tree.map(_t, p), _t(x), positions=_t(pos),
-        paged_prefix=(_t(k_pool), _t(v_pool), _t(tables)))
+        paged_prefix=(_t(k_pool), _t(v_pool), None, None, _t(tables)))
     _close(got, want)
 
 

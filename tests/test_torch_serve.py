@@ -12,6 +12,9 @@ the port's engine on the CPU, with the prefix cache off and on.
     decode windows equal per-token decode, bit for bit;
   * the pool drains clean, the pad rows of a batched prefill are dropped
     (not written, not an error), and unported options raise.
+
+The int8 pool and the chunked scheduler have their own files
+(``test_torch_int8_kv.py``, ``test_torch_chunked_serve.py``).
 """
 import dataclasses
 
@@ -213,8 +216,7 @@ def test_copy_blocks_in_place():
     torch.testing.assert_close(caches["slot0"]["k"][:, 3], want)
 
 
-@pytest.mark.parametrize("kw", [dict(cache="slotted"), dict(sched="chunked"),
-                                dict(kv_dtype="int8"),
+@pytest.mark.parametrize("kw", [dict(cache="slotted"),
                                 dict(prefill_fn=lambda s, p: 0)])
 def test_unported_engine_options_raise(setup, kw):
     _, c, _, p, _ = setup
