@@ -4,7 +4,10 @@
   python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-sm_90a), then runs six phases, any failure of which exits non-zero:
+sm_90a) and checks that the bf16 tensor-core kernels (flash attention
+and paged prefill on ``csrc/attention_mma.cuh``) issue
+``HMMA.16816.F32.BF16`` in the library's SASS and spill no register, then
+runs six phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -58,7 +61,8 @@ sm_90a), then runs six phases, any failure of which exits non-zero:
   5. times — each kernel at main-path shapes beside its plain version,
      the one PyTorch call that computes the same function
      (``scaled_dot_product_attention``, ``rms_norm``; never used by the
-     port) and the least time the card could take. The fp decode and
+     port), the least time the card could take and the kernel's TFLOP/s
+     (its operations over its time). The fp decode and
      prefill rows count their launches in phase 2, the int8 decode row in
      phase 2b, the others in phase 4.
 
@@ -71,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -88,8 +93,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-3}
 MAX_BF16_MISMATCH_SHARE = 1e-2
 H, KH, DH, BS, B = 24, 8, 128, 16, 8
-#: the reference's flash SWEEP (tests/test_kernels.py:11-21) plus a
-#: 2048-token llama3.2-3b prefill: b, sq, skv, h, kh, dh, causal, window
+#: the reference's flash SWEEP (tests/test_kernels.py:11-21), a ragged
+#: case and a 2048-token llama3.2-3b prefill: b, sq, skv, h, kh, dh,
+#: causal, window
 FLASH_SWEEP = [
     (1, 128, 128, 1, 1, 64, True, None),
     (2, 256, 256, 4, 2, 64, True, None),
@@ -99,12 +105,17 @@ FLASH_SWEEP = [
     (1, 512, 512, 2, 1, 128, True, 256),
     (2, 256, 256, 4, 2, 64, False, None),
     (1, 384, 384, 3, 3, 64, True, None),
+    (1, 200, 333, 6, 2, 128, True, 100),      # ragged tiles, G = 3
     (2, 2048, 2048, H, KH, DH, True, None),
 ]
 #: the reference's rmsnorm sweep (tests/test_kernels.py:79-82) plus 4096
 #: tokens at llama3.2-3b width
 RMSNORM_SWEEP = [(8, 64), (37, 512), (300, 128), (1, 1024), (4096, 3072)]
 INT8 = "paged_prefill_attention[int8]"
+#: the tensor-core kernels (csrc/attention_mma.cuh) and the SASS
+#: instruction each must issue
+MMA_KERNELS = ("flash_mma_kernel", "paged_prefill_mma_kernel")
+HMMA = "HMMA.16816.F32.BF16"
 DECODE_INT8 = "paged_decode_attention[int8]"
 #: the int8 chunked serve's pool: two full slots of 64 blocks plus the
 #: trash block, for 8 slots (28 layers x 129 blocks x 16 x 8 x 128 x 2 B
@@ -139,6 +150,48 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def check_build(build) -> None:
+    """The tensor-core kernels must issue ``HMMA`` (``mma.sync`` bf16 with
+    fp32 accumulation) in the built library's SASS (``cuobjdump``, beside
+    ``nvcc``) and spill no register (``ptxas -v`` in the build log); logs
+    both, and the registers, per kernel instance."""
+    ptxas, name = {}, None
+    for line in build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name is not None and "spill stores" in line:
+            ptxas[name] = [int(re.search(r"(\d+) bytes spill stores",
+                                         line).group(1)), None]
+        elif name in ptxas and "Used" in line and "registers" in line:
+            ptxas[name][1] = int(re.search(r"Used (\d+) registers",
+                                           line).group(1))
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            counts[name] = 0
+        elif name is not None and HMMA in line:
+            counts[name] += 1
+    for kernel in MMA_KERNELS:
+        found = {n: c for n, c in counts.items() if kernel in n}
+        assert found and all(found.values()), (kernel, found)
+        for n, c in sorted(found.items()):
+            # mangled template arguments: ILi<Dh>E, then a (int8) or a
+            # bf16 pool type for the prefill kernel
+            args = n[n.index(kernel) + len(kernel):]
+            dh = re.match(r"ILi(\d+)E", args).group(1)
+            pool = "" if kernel.startswith("flash") else (
+                ", int8 pool" if args.startswith(f"ILi{dh}EaE")
+                else ", bf16 pool")
+            spilled, regs = ptxas.get(n, (None, None))
+            log(f"[build] {kernel}<Dh {dh}{pool}>: {c} x {HMMA} in SASS, "
+                f"{regs} registers, {spilled} bytes spilled")
+            assert spilled == 0, (n, spilled)
 
 
 # ---------------------------------------------------------------------------
@@ -797,7 +850,8 @@ REPLACES = {
 def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
          peak_dtype, shape, source=None):
     """One JSON row; the bound is the larger of the bytes over HBM rate
-    and the operations over the peak rate of ``peak_dtype``."""
+    and the operations over the peak rate of ``peak_dtype``; ``tflops``
+    is the operations over the kernel's time."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[peak_dtype] * 1e3
     row = {"name": name, "route": "cuda",
@@ -806,12 +860,12 @@ def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": lib}
+           "library_ms": lib, "tflops": flops / ms / 1e9}
     log(f"[times] {name} ({module}.py) at {shape}: kernel {ms:.4f} ms, "
         f"plain {plain:.4f} ms, library {lib:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); launches "
-        f"{counts[name]}")
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+        f"{row['tflops']:.1f} TFLOP/s; launches {counts[name]}")
     return row
 
 
@@ -832,6 +886,7 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "bytes stack" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    check_build(_build)
 
     errs = phase_kernels(dev)
     c, params = full_model(dev)

@@ -8,36 +8,49 @@
 // only kpos > qpos - window; a bidirectional call ignores the window.
 // Scores and the softmax are fp32, the output is cast to q's type.
 //
-// Design. One thread block per (64-query tile, query head, batch row);
-// the KV head is h / G, so G = H / Kh needs no power-of-two tile. The
-// block reads q, k and v in the model's (B, S, H, Dh) layout through
-// their strides (the reference transposes to (B, H, S, Dh) first; the
-// port does not copy). Its query tile is staged once in shared memory,
-// pre-scaled, and one loop over 64-key tiles takes the place of the
-// Pallas sequential KV grid axis, skipping tiles wholly past the causal
-// diagonal or wholly before the window, as the reference does. Each tile
-// stages K and V in shared memory (rows padded by one float against bank
-// conflicts); each of the 256 threads computes a 4 x 4 block of scores
-// (two fp32 loads per FMA pair instead of two per FMA), one warp per row
-// runs the online softmax on the score tile in shared memory, and each
-// thread keeps a 4 x Dh/16 block of the output accumulator in registers.
-// Masked scores are -inf with an explicit zero probability and a zero
-// rescale for a row that has seen no key yet, so a row fully masked
-// inside one tile gives no NaN (the reference's -1e30 hides that case).
-// A ragged last query or key tile is masked, not padded (the Pallas
-// kernel asserts Sq % block_q == 0).
-//
 // Bound on the H100: at llama3.2-3b prefill width (B=2, S=2048, H=24,
 // Kh=8, Dh=128, bf16, causal) the call does ~52 GFLOP over ~67 MB, so it
-// is bound by operations: ~52 us at the bf16 tensor-core peak. This
-// first kernel does its products as fp32 FMAs on the CUDA cores, fed
-// from shared memory, whose rate is its real limit; moving QK^T and PV
-// onto wgmma with TMA-fed tiles is the later optimisation.
-#include "common.cuh"
+// is bound by operations: ~52 us at the bf16 tensor-core peak.
+//
+// What held the first design back (kept below for fp32 inputs): its
+// products were fp32 FMAs on the CUDA cores, each operand fed from shared
+// memory (flash_kernel's two inner loops), the softmax went through
+// shared memory with one warp per row (common.cuh), and each K/V tile was
+// loaded once per query head, G times per KV head: 4.6 ms at the shape
+// above, 88x its bound, slower than its plain version's einsums.
+//
+// bf16 design (flash_mma_kernel): the shared tensor-core core of
+// attention_mma.cuh. One block of four warps takes one KV head of one
+// batch row and 64 packed (query, g) rows, so a K/V tile serves the G
+// heads of its KV head; Q K^T and P V run as mma.sync m16n8k16 with fp32
+// accumulators, the online softmax stays in registers, P is split into
+// bf16 hi + lo (a single bf16 P makes ~40 % of the outputs differ from
+// the fp32 softmax, the split under 1 %), and 64-key K/V tiles stream
+// through a two-stage cp.async ring. q, k and v are read in the model's
+// (B, S, H, Dh) layout through their strides (16-byte aligned rows: the
+// wrapper checks). Key tiles wholly past the causal diagonal or wholly
+// before the window of the block's rows are skipped, and the blocks with
+// the most keys launch first. fp32 inputs keep the FMA kernel: bf16 tensor
+// cores cannot meet the fp32 gate (rounding q to bf16 alone is ~2e-3).
+//
+// Left for a later PR: wgmma from shared-memory descriptors, TMA loads
+// completing on mbarriers, a producer warp, a persistent grid.
+#include "attention_mma.cuh"
 
 namespace {
 
 using namespace repro;
+
+// ---------------------------------------------------------------------------
+// fp32: one thread block per (64-query tile, query head, batch row); q
+// staged pre-scaled in shared memory, K/V tiles in shared memory (rows
+// padded by one float), a 4 x 4 block of scores per thread as fp32 FMAs,
+// the online softmax one warp per row on the score tile in shared memory,
+// a 4 x Dh/16 block of the accumulator per thread in registers. Masked
+// scores are -inf with an explicit zero probability and a zero rescale
+// for a row that has seen no key yet; a ragged last query or key tile is
+// masked, not padded (the Pallas kernel asserts Sq % block_q == 0).
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;   // 16 x 16 threads
 constexpr int kTileQ = 64;
@@ -211,24 +224,138 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out,
-              int batch, int sq, int skv, int n_heads, int n_kv_heads,
-              int d_head, const long long* strides, int causal, int window,
-              float scale, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                int batch, int sq, int skv, int n_heads, int n_kv_heads,
+                int d_head, const long long* strides, int causal, int window,
+                float scale, cudaStream_t stream) {
   if (d_head == 64)
-    return launch<T, 64>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
-                         strides, causal, window, scale, stream);
+    return launch<float, 64>(q, k, v, out, batch, sq, skv, n_heads,
+                             n_kv_heads, strides, causal, window, scale,
+                             stream);
   if (d_head == 128)
-    return launch<T, 128>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
+    return launch<float, 128>(q, k, v, out, batch, sq, skv, n_heads,
+                              n_kv_heads, strides, causal, window, scale,
+                              stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core core (attention_mma.cuh)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int DH>
+struct FlashProblem {
+  static constexpr bool scaled = false;
+  const bf16* qb;  // q at (b, 0, kh * G, 0)
+  const bf16* kb;  // k at (b, 0, kh, 0)
+  const bf16* vb;
+  bf16* ob;        // out at (b, 0, kh * G, 0)
+  long long q_ss, q_sh, k_ss, v_ss, o_ss;
+  int n_rows, group, pos_first, causal, window, t_begin, t_end, skv;
+
+  __device__ const bf16* q_row(int i, int g) const {
+    return qb + i * q_ss + g * q_sh;
+  }
+  __device__ bf16* out_row(int i, int g) const {
+    return ob + i * o_ss + g * DH;
+  }
+  __device__ int kpos0(int t) const { return t * mma::kKeys; }
+  __device__ int nvalid(int t) const {
+    return min(mma::kKeys, skv - t * mma::kKeys);
+  }
+  __device__ bool codes(int) const { return false; }
+  __device__ void issue(int t, const mma::Stage<DH>& sm, int s) const {
+    const long long k0 = (long long)t * mma::kKeys;
+    const int n = nvalid(t);
+    mma::stage_rows<DH>(sm.k(s), mma::Layout<DH>::kStride, n,
+                        [&](int r) { return kb + (k0 + r) * k_ss; });
+    mma::stage_rows<DH>(sm.v(s), mma::Layout<DH>::kStride, n,
+                        [&](int r) { return vb + (k0 + r) * v_ss; });
+  }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(mma::kThreads, mma::kMinBlocks) flash_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out, int sq, int skv,
+    int n_heads, int group, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, int causal, int window, float scale) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  // the row tiles with the most keys (the last, under `causal`) first
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  FlashProblem<DH> p;
+  p.qb = q + b * q_sb + (long long)kh * group * q_sh;
+  p.kb = k + b * k_sb + kh * k_sh;
+  p.vb = v + b * v_sb + kh * v_sh;
+  p.ob = out + ((long long)b * sq * n_heads + (long long)kh * group) * DH;
+  p.q_ss = q_ss;
+  p.q_sh = q_sh;
+  p.k_ss = k_ss;
+  p.v_ss = v_ss;
+  p.o_ss = (long long)n_heads * DH;
+  p.n_rows = sq * group;
+  p.group = group;
+  p.pos_first = skv - sq;
+  p.causal = causal;
+  p.window = causal ? window : -1;
+  p.skv = skv;
+  const int row_begin = tile * mma::kRows;
+  const int first_q = p.pos_first + row_begin / group;
+  const int last_q =
+      p.pos_first + min(p.n_rows - 1, row_begin + mma::kRows - 1) / group;
+  const int n_tiles = (skv + mma::kKeys - 1) / mma::kKeys;
+  p.t_begin = 0;
+  p.t_end = n_tiles;
+  if (causal) {
+    p.t_end = min(n_tiles, last_q / mma::kKeys + 1);
+    if (p.window > 0) p.t_begin = max(0, first_q - p.window + 1) / mma::kKeys;
+  }
+  mma::attend<DH>(p, mma::Stage<DH>(mma_smem), row_begin, scale);
+}
+
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               int batch, int sq, int skv, int n_heads, int n_kv_heads,
+               const long long* st, int causal, int window, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = mma::Layout<DH>::bytes(false);
+  auto kernel = flash_mma_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int group = n_heads / n_kv_heads;
+  dim3 grid((sq * group + mma::kRows - 1) / mma::kRows, n_kv_heads, batch);
+  kernel<<<grid, mma::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, skv, n_heads,
+      group, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int batch, int sq, int skv, int n_heads, int n_kv_heads,
+                int d_head, const long long* strides, int causal, int window,
+                float scale, cudaStream_t stream) {
+  if (d_head == 64)
+    return launch_mma<64>(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
                           strides, causal, window, scale, stream);
+  if (d_head == 128)
+    return launch_mma<128>(q, k, v, out, batch, sq, skv, n_heads,
+                           n_kv_heads, strides, causal, window, scale,
+                           stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // strides: q, k and v strides in elements over (batch, seq, head), nine
-// in all; the last dim of each has stride 1.
+// in all; the last dim of each has stride 1. fp32 inputs take the FMA
+// kernel, bf16 inputs the tensor-core kernel (16-byte aligned rows).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int batch,
     int sq, int skv, int n_heads, int n_kv_heads, int d_head,
@@ -240,12 +367,10 @@ extern "C" int repro_flash_attention(
                                 k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return launch_dh<float>(q, k, v, out, batch, sq, skv, n_heads,
-                            n_kv_heads, d_head, strides, causal, window,
-                            scale, s);
+    return launch_fp32(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
+                       d_head, strides, causal, window, scale, s);
   if (dtype == repro::kBFloat16)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, batch, sq, skv, n_heads,
-                                    n_kv_heads, d_head, strides, causal,
-                                    window, scale, s);
+    return launch_bf16(q, k, v, out, batch, sq, skv, n_heads, n_kv_heads,
+                       d_head, strides, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

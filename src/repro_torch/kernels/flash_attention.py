@@ -9,6 +9,12 @@ reference's transposes (``src/repro/kernels/ops.py:61-67``) and its
 ``block_q``/``block_k`` tiling arguments have no counterpart. The plain
 version is ``kernels.ref.flash_attention_ref``.
 ``flash_attention.launches`` counts the kernel's launches.
+
+The kernel is chosen by type: bf16 inputs run on the tensor cores
+(``mma.sync``, P split into bf16 hi + lo, ``cp.async`` tiles), whose
+16-byte copies need 16-byte aligned rows (see :func:`check_aligned`);
+fp32 inputs run on the fp32 FMA kernel, since bf16 tensor cores cannot
+meet the fp32 tolerance. A bf16 call never reaches the FMA kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +28,21 @@ from repro_torch.kernels._build import DTYPE_CODES
 
 #: head widths the kernel is instantiated for (the reference's 64 / 128)
 D_HEADS = (64, 128)
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """The tensor-core kernels copy 16-byte row chunks with ``cp.async``:
+    a tensor needs a 16-byte aligned start and strides (of every dim but
+    the last, where it has more than one element) of whole 16 bytes.
+    Raise otherwise; nothing is copied quietly."""
+    es = t.element_size()
+    if t.data_ptr() % 16 or any(
+            n > 1 and s * es % 16
+            for n, s in zip(t.shape[:-1], t.stride()[:-1])):
+        raise ValueError(f"{name}: the bf16 kernel needs a 16-byte aligned "
+                         f"start and strides of whole 16 bytes, got address "
+                         f"{t.data_ptr():#x} and strides {t.stride()} of "
+                         f"{es}-byte elements")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -53,6 +74,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shape mismatch or unsupported d_head: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}; d_head in {D_HEADS}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_aligned(name, t)
     if causal and sq > skv:
         raise ValueError(f"causal attention needs Sq <= Skv, got {sq} > "
                          f"{skv}: the first queries would see no key")

@@ -8,6 +8,14 @@ kernel onto Hopper and what bounds it. The plain version is
 ``kernels.ref.paged_prefill_attention_ref``.
 ``paged_prefill_attention.launches`` counts the kernel's launches and
 ``paged_prefill_attention.launches_int8`` those of them on an int8 pool.
+
+The kernel is chosen by type: bf16 inputs run on the tensor cores
+(``mma.sync``, P split into bf16 hi + lo, ``cp.async`` tiles; int8 codes
+widened in shared memory, their scales applied to score and probability
+columns), for head widths ``BF16_D_HEADS``, a block size that is a
+multiple of 8 and 16-byte aligned tensors; fp32 inputs run on the fp32
+FMA kernel at any width, since bf16 tensor cores cannot meet the fp32
+tolerance. A bf16 call never reaches the FMA kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +27,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODES, INT8_CODE
 from repro_torch.kernels.decode_attention import check_kv_inputs, check_pools
+from repro_torch.kernels.flash_attention import check_aligned
+
+#: head widths of the bf16 kernel: every head width of the configs (16
+#: reduced, 64 gpt-117m, 96 gpt-800m, 128 llama3.2-3b and gpt-13b) and 32
+BF16_D_HEADS = (16, 32, 64, 96, 128)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_suffix: torch.Tensor,
@@ -48,6 +61,16 @@ def paged_prefill_attention(q: torch.Tensor, k_suffix: torch.Tensor,
     if tables.dim() != 2 or tables.shape[0] != b or tables.shape[1] < 1:
         raise ValueError(f"tables {tuple(tables.shape)}: need (B, npre>=1); "
                          "a cold prefill takes the dense path")
+    if q.dtype == torch.bfloat16:
+        if dh not in BF16_D_HEADS or bs % 8:
+            raise ValueError(f"the bf16 kernel takes d_head in "
+                             f"{BF16_D_HEADS} and a block size that is a "
+                             f"multiple of 8, got d_head {dh}, block size "
+                             f"{bs}")
+        for name, t in (("q", q), ("k_suffix", k_suffix),
+                        ("v_suffix", v_suffix), ("k_pool", k_pool),
+                        ("v_pool", v_pool)):
+            check_aligned(name, t)
     out = torch.empty_like(q)
     lib = _build.load_library()
     err = lib.repro_paged_prefill_attention(

@@ -1,9 +1,13 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 Paged decode and paged prefill (fp and int8 pools) over block sizes,
-GQA groups, prefix depths and windows; flash attention over the
-reference's SWEEP (``tests/test_kernels.py``) in both types, strided
-inputs and the llama3.2-3b prefill width; RMSNorm over the reference's
+GQA groups, prefix depths and windows, the prefill in bf16 also at the
+configs' head widths (16, 64, 96, 128), with ragged packed-row tiles and
+with a window that hides whole prefix tiles; flash attention over the
+reference's SWEEP (``tests/test_kernels.py``) in both types, one-query
+and ragged cases, strided inputs and the llama3.2-3b prefill width; the
+bf16 (tensor-core) kernels refusing unaligned views, head widths
+without an instance and block sizes that are not a multiple of 8; RMSNorm over the reference's
 sweep, mixed scale types, leading dims and the (4096, 3072) width; and
 no fallback: a kernel missing from the library, or a type a kernel does
 not take, raises. The serve engine on the card (kernels) against the CPU
@@ -45,6 +49,10 @@ DTYPES = [torch.float32, torch.bfloat16]
 DECODE = list(itertools.product([8, 16], [1, 2, 3], [None, 24]))
 PREFILL = list(itertools.product([8, 16], [1, 2, 3], [1, 3], [None, 24]))
 KH, DH = 4, 128
+#: (dtype, d_head) of the prefill cases: fp32 (the FMA kernel) at 128,
+#: bf16 (the tensor-core kernel) at the configs' head widths
+PREFILL_TYPES = [(torch.float32, DH)] + [(torch.bfloat16, d)
+                                         for d in (16, 64, 96, 128)]
 FLASH_SWEEP = [
     # b, sq, skv, h, kh, dh, causal, window (tests/test_kernels.py:11-21)
     (1, 128, 128, 1, 1, 64, True, None),
@@ -56,6 +64,9 @@ FLASH_SWEEP = [
     (2, 256, 256, 4, 2, 64, False, None),     # bidirectional
     (1, 384, 384, 3, 3, 64, True, None),      # odd heads
     (1, 200, 333, 6, 2, 128, True, 100),      # ragged tiles
+    (2, 1, 300, 6, 2, 128, True, None),       # one query
+    (1, 1, 129, 3, 1, 64, False, None),       # one query, bidirectional
+    (1, 100, 100, 4, 1, 64, True, 33),        # Sq % 64 != 0, G = 4
     (2, 2048, 2048, 24, 8, 128, True, None),  # llama3.2-3b prefill
 ]
 RMSNORM_SWEEP = [(8, 64), (37, 512), (300, 128), (1, 1024), (4096, 3072)]
@@ -95,11 +106,11 @@ def test_decode_kernel_matches_plain(card, dtype, bs, g, window):
     _assert_close(got, want, dtype)
 
 
-def _int8_pools(card, rng, n_blocks, bs):
+def _int8_pools(card, rng, n_blocks, bs, dh=DH):
     """Two int8 code pools and their (n_blocks, Kh) fp32 scales."""
     pools, scales = [], []
     for _ in range(2):
-        codes = rng.integers(-127, 128, size=(n_blocks, bs, KH, DH))
+        codes = rng.integers(-127, 128, size=(n_blocks, bs, KH, dh))
         pools.append(torch.from_numpy(codes.astype(np.int8)).to(card))
         scales.append(torch.from_numpy(rng.uniform(
             0.001, 0.05, size=(n_blocks, KH)).astype(np.float32)).to(card))
@@ -157,17 +168,17 @@ def test_decode_kernel_int8_refuses_bad_scales(card):
                                k_scale=ksc, v_scale=vsc)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype,dh", PREFILL_TYPES)
 @pytest.mark.parametrize("bs,g,npre,window", PREFILL)
-def test_prefill_kernel_matches_plain(card, dtype, bs, g, npre, window):
+def test_prefill_kernel_matches_plain(card, dtype, dh, bs, g, npre, window):
     rng = np.random.default_rng(bs * 100 + g * 10 + npre)
     b, sq = 3, 40                                   # ragged last tiles
     n_blocks = 2 + b * npre
-    pool = lambda: rng.normal(size=(n_blocks, bs, KH, DH)).astype(np.float32)
+    pool = lambda: rng.normal(size=(n_blocks, bs, KH, dh)).astype(np.float32)
     tables = rng.permutation(np.arange(1, n_blocks))[:b * npre]
-    arrays = (rng.normal(size=(b, sq, KH * g, DH)).astype(np.float32),
-              rng.normal(size=(b, sq, KH, DH)).astype(np.float32),
-              rng.normal(size=(b, sq, KH, DH)).astype(np.float32),
+    arrays = (rng.normal(size=(b, sq, KH * g, dh)).astype(np.float32),
+              rng.normal(size=(b, sq, KH, dh)).astype(np.float32),
+              rng.normal(size=(b, sq, KH, dh)).astype(np.float32),
               pool(), pool(), tables.reshape(b, npre).astype(np.int32))
     args = _on(card, dtype, *arrays)
     ops.reset_launch_counts()
@@ -179,9 +190,9 @@ def test_prefill_kernel_matches_plain(card, dtype, bs, g, npre, window):
     _assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype,dh", PREFILL_TYPES)
 @pytest.mark.parametrize("bs,g,npre,window", PREFILL)
-def test_prefill_kernel_int8_pool_matches_plain(card, dtype, bs, g, npre,
+def test_prefill_kernel_int8_pool_matches_plain(card, dtype, dh, bs, g, npre,
                                                 window):
     """int8 pool codes and (n_blocks, Kh) scales, the same through both
     sides; the last row is a pad row on the trash block 0."""
@@ -191,11 +202,11 @@ def test_prefill_kernel_int8_pool_matches_plain(card, dtype, bs, g, npre,
     tables = rng.permutation(np.arange(1, n_blocks))[:b * npre]
     tables = tables.reshape(b, npre).astype(np.int32)
     tables[-1] = 0
-    arrays = (rng.normal(size=(b, sq, KH * g, DH)).astype(np.float32),
-              rng.normal(size=(b, sq, KH, DH)).astype(np.float32),
-              rng.normal(size=(b, sq, KH, DH)).astype(np.float32))
+    arrays = (rng.normal(size=(b, sq, KH * g, dh)).astype(np.float32),
+              rng.normal(size=(b, sq, KH, dh)).astype(np.float32),
+              rng.normal(size=(b, sq, KH, dh)).astype(np.float32))
     q, ks, vs = _on(card, dtype, *arrays)
-    pools, scales = _int8_pools(card, rng, n_blocks, bs)
+    pools, scales = _int8_pools(card, rng, n_blocks, bs, dh)
     tab = torch.from_numpy(tables).to(card)
     ops.reset_launch_counts()
     got = ops.paged_prefill_attention(q, ks, vs, *pools, tab, window=window,
@@ -207,6 +218,53 @@ def test_prefill_kernel_int8_pool_matches_plain(card, dtype, bs, g, npre,
                        tab, window=window, k_scale=scales[0],
                        v_scale=scales[1])
     _assert_close(got, want, dtype)
+
+
+def _prefill_case(card, dtype, rng, *, b, sq, g, npre, bs, int8):
+    """Prefill inputs (q, k/v suffix, k/v pools, tables) and the pools'
+    scales for an int8 case; the last row is a pad row on block 0."""
+    n_blocks = 1 + b * npre
+    tables = rng.permutation(np.arange(1, n_blocks)).reshape(b, npre)
+    tables[-1] = 0
+    q, ks, vs = _on(card, dtype, *(rng.normal(size=(b, sq, KH * n, DH))
+                                   .astype(np.float32) for n in (g, 1, 1)))
+    if int8:
+        pools, (ksc, vsc) = _int8_pools(card, rng, n_blocks, bs)
+        kw = dict(k_scale=ksc, v_scale=vsc)
+    else:
+        pools = _on(card, dtype, *(rng.normal(size=(n_blocks, bs, KH, DH))
+                                   .astype(np.float32) for _ in range(2)))
+        kw = {}
+    tab = torch.from_numpy(tables.astype(np.int32)).to(card)
+    return (q, ks, vs, *pools, tab), kw
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_kernel_ragged_row_tiles(card, dtype, int8):
+    """Sq = 150 at G = 3 (450 packed rows: a 64-row tile cuts query
+    positions between warps and tiles, the last holds 2 rows) behind
+    npre = 5 blocks of 16 (a partial 64-key prefix tile)."""
+    rng = np.random.default_rng(11 + int8)
+    args, kw = _prefill_case(card, dtype, rng, b=2, sq=150, g=3, npre=5,
+                             bs=16, int8=int8)
+    got = ops.paged_prefill_attention(*args, **kw)
+    _assert_close(got, _plain_fp32(ref.paged_prefill_attention_ref, *args,
+                                   **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_kernel_window_hides_prefix_tiles(card, dtype, int8):
+    """npre = 12 blocks of 16 (three 64-key prefix tiles), window 40: the
+    first two tiles are hidden from every row (skipped), and the rows
+    from query 40 on see no prefix key at all."""
+    rng = np.random.default_rng(13 + int8)
+    args, kw = _prefill_case(card, dtype, rng, b=2, sq=100, g=2, npre=12,
+                             bs=16, int8=int8)
+    got = ops.paged_prefill_attention(*args, window=40, **kw)
+    _assert_close(got, _plain_fp32(ref.paged_prefill_attention_ref, *args,
+                                   window=40, **kw), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -273,6 +331,43 @@ def test_kernels_raise_on_types_they_do_not_take(card):
     q = torch.ones(1, 8, 2, 48, device=card)      # no Dh=48 instance
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q)
+
+
+def test_bf16_kernels_raise_on_unaligned_or_uninstantiated(card):
+    """The tensor-core kernels copy 16-byte rows: a bf16 view that starts
+    off a 16-byte boundary, or whose strides are not whole 16 bytes,
+    raises rather than being copied; so do a bf16 head width with no
+    instance and a block size that is not a multiple of 8."""
+    bf = dict(device=card, dtype=torch.bfloat16)
+    q = torch.ones(1, 8, 2, 64, **bf)
+    shifted = torch.ones(1 * 8 * 2 * 64 + 1, **bf)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(shifted, q, q)
+    wide = torch.ones(1, 8, 2, 68, **bf)[..., :64]     # head stride 136 B
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, wide, wide)
+    odd = torch.ones(1, 8, 2, 65, **bf)[..., :64]      # head stride 130 B
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(odd, q, q)
+    q48 = torch.ones(1, 8, 2, 48, **bf)
+    with pytest.raises(ValueError, match="d_head"):
+        ops.flash_attention(q48, q48, q48)
+    tab = torch.tensor([[1]], dtype=torch.int32, device=card)
+
+    def prefill(dh, bs, shift=0):
+        pool = torch.ones(3 * bs * 2 * dh + shift, **bf)[shift:].view(
+            3, bs, 2, dh)
+        x = torch.ones(1, 8, 2, dh, **bf)
+        return ops.paged_prefill_attention(x, x, x, pool, pool, tab)
+
+    with pytest.raises(ValueError, match="d_head"):
+        prefill(48, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        prefill(64, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        prefill(64, 16, shift=1)
+    prefill(64, 8)                 # the smallest block size it takes
+    prefill(16, 16)
 
 
 def test_missing_kernel_raises_without_fallback(card, monkeypatch):
