@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-  python3 chip_smoke.py [--profile]
+  python3 chip_smoke.py [--profile | --times]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
-``HMMA.16816.F32.BF16`` in the library's SASS and spill no register, then
-runs six phases, any failure of which exits non-zero:
+``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
+decode kernel and both RMSNorm kernels spill no register in any
+instance, then runs six phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
      int8 pools) at full llama3.2-3b head shapes (H=24, Kh=8, Dh=128,
      bs=16, B=8) and the serve run's table widths, prefix depths and
-     suffix buckets; flash attention over the reference's SWEEP and a
+     suffix buckets, the decode also at B=1 (one sequence over many
+     splits), B=32 and with a window that hides whole splits; flash
+     attention over the reference's SWEEP and a
      2048-token llama3.2-3b prefill; RMSNorm over the reference's sweep
      and (4096, 3072): |kernel - plain| <= tol * (1 + |plain|). The
      plain version always runs in fp32 on the inputs upcast, its result
@@ -62,9 +65,30 @@ runs six phases, any failure of which exits non-zero:
      the one PyTorch call that computes the same function
      (``scaled_dot_product_attention``, ``rms_norm``; never used by the
      port), the least time the card could take and the kernel's TFLOP/s
-     (its operations over its time). The fp decode and
-     prefill rows count their launches in phase 2, the int8 decode row in
-     phase 2b, the others in phase 4.
+     (its operations over its time). ``ms`` is 50 back-to-back calls
+     between two events (host enqueue included, inputs warm in L2);
+     ``device_ms`` replays a CUDA graph of 20 captured calls between two
+     events, so the host drops out, and ``device_ms_cold`` the same over
+     calls that cycle through copies of the inputs reading more than
+     twice the card's 50 MB L2, so each call finds its inputs in device
+     memory, as the serve path's 28 layers of pools do; the library call
+     gets both too (``library_device_ms``, ``library_device_ms_cold``).
+     SDPA reads K/V gathered to the whole 64-column table; the decode
+     rows also time it on K/V cut to the longest sequence's blocks
+     (``library_cut_device_ms``, ``library_cut_device_ms_cold``), the
+     least a dense call over this batch must read.
+     The decode and RMSNorm rows add the wrapper's host time per call
+     (``host_us``: the host clock around 1000 calls, no synchronise, on
+     inputs that take the same wrapper path with a short kernel: every
+     decode length 1, 8 RMSNorm rows; the least of three rounds).
+     The fp decode and prefill rows count their launches in phase 2, the
+     int8 decode row in phase 2b, the others in phase 4.
+
+``--times`` builds and runs phase 5 alone and prints its rows as a
+``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
+(neither is measured there), and no result line: for timing another
+tree's kernels with this script's method, by copying the script into
+that tree's root.
 
 The output ends with three lines: a JSON object with one entry per
 kernel, the card's name and power limit as ``nvidia-smi`` gives them,
@@ -74,7 +98,9 @@ repository around it, the script fails and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -116,6 +142,15 @@ INT8 = "paged_prefill_attention[int8]"
 #: instruction each must issue
 MMA_KERNELS = ("flash_mma_kernel", "paged_prefill_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
+#: kernels whose every instance must spill nothing, besides MMA_KERNELS
+#: (names as mangled: length, then the name)
+NO_SPILL_KERNELS = ("paged_decode_kernel", "rmsnorm_vec_kernel",
+                    "rmsnorm_kernel")
+#: the port's kernels in a profiler table
+PORT_KERNELS = ("paged_decode_kernel", "paged_prefill", "flash_",
+                "rmsnorm")
+#: bytes the cold timing's input copies read per cycle: twice the L2
+COLD_BYTES = 100e6
 DECODE_INT8 = "paged_decode_attention[int8]"
 #: the int8 chunked serve's pool: two full slots of 64 blocks plus the
 #: trash block, for 8 slots (28 layers x 129 blocks x 16 x 8 x 128 x 2 B
@@ -138,7 +173,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back calls between two
+    events: the host's enqueue cost is in it where it exceeds the
+    kernel's."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -152,11 +189,74 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fns, calls: int, replays: int = 10) -> float:
+    """Device time per call: ``calls`` calls, cycling through ``fns``,
+    captured in one CUDA graph and replayed ``replays`` times between two
+    events, so no host work lies between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # warm up off the capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):   # the warmed-up stream
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def device_times(fn, args, kw, read_bytes: int) -> tuple:
+    """(warm, cold) device ms per call of ``fn(*args, **kw)``: warm on
+    these inputs, cold cycling through copies of them that read more
+    than ``COLD_BYTES`` a cycle."""
+    clone = lambda x: x.clone() if torch.is_tensor(x) else x
+    copies = max(2, math.ceil(COLD_BYTES / read_bytes))
+    sets = [(tuple(map(clone, args)), {k: clone(v) for k, v in kw.items()})
+            for _ in range(copies)]
+    warm = [functools.partial(fn, *args, **kw)]
+    cold = [functools.partial(fn, *a, **k) for a, k in sets]
+    return graph_ms(warm, 20), graph_ms(cold, 2 * copies)
+
+
+def host_us(fn, calls: int = 1000, rounds: int = 3) -> float:
+    """The host's time per call: the clock around ``calls`` calls, no
+    synchronise in between (what the serve step pays per call); the
+    least of ``rounds`` rounds, since the host's cores are shared. Give
+    ``fn`` inputs whose kernel is short, or a full launch queue makes
+    this read the card."""
+    best = math.inf
+    for _ in range(rounds):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / calls * 1e6
+
+
+def tensor_bytes(args, kw) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (*args, *kw.values()) if torch.is_tensor(t))
+
+
 def check_build(build) -> None:
     """The tensor-core kernels must issue ``HMMA`` (``mma.sync`` bf16 with
     fp32 accumulation) in the built library's SASS (``cuobjdump``, beside
     ``nvcc``) and spill no register (``ptxas -v`` in the build log); logs
-    both, and the registers, per kernel instance."""
+    both, and the registers, per kernel instance. Every instance of the
+    ``NO_SPILL_KERNELS`` must spill nothing either."""
     ptxas, name = {}, None
     for line in build.build_log().splitlines():
         if "Compiling entry function" in line:
@@ -192,6 +292,15 @@ def check_build(build) -> None:
             log(f"[build] {kernel}<Dh {dh}{pool}>: {c} x {HMMA} in SASS, "
                 f"{regs} registers, {spilled} bytes spilled")
             assert spilled == 0, (n, spilled)
+    for kernel in NO_SPILL_KERNELS:
+        found = {n: v for n, v in ptxas.items()
+                 if f"{len(kernel)}{kernel}I" in n}
+        assert found, (kernel, sorted(ptxas))
+        regs = sorted({r for _, r in found.values()})
+        spilled = {n: v[0] for n, v in found.items() if v[0]}
+        log(f"[build] {kernel}: {len(found)} instances, {regs[0]}-"
+            f"{regs[-1]} registers, spills {spilled or 0}")
+        assert not spilled, (kernel, spilled)
 
 
 # ---------------------------------------------------------------------------
@@ -280,12 +389,12 @@ def check_kernel(name: str, worst: dict, got, want, dtype, what: str):
 
 def phase_kernels(dev) -> dict:
     """Kernel vs plain version at main-path shapes: decode on fp and int8
-    pools over column slices of a 64-wide table (nb 8, 32, 64), prefill
-    on fp and int8
-    pools at the serve run's prefix depths (1, 4, 16 blocks) and suffix
-    buckets (16, 128, 256), flash attention over ``FLASH_SWEEP`` and
-    RMSNorm over ``RMSNORM_SWEEP``. Returns the largest bf16 error per
-    kernel."""
+    pools over column slices of a 64-wide table (nb 8, 32, 64) and at the
+    split kernel's edges (one sequence over many splits, 32 slots, a
+    window that hides whole splits), prefill on fp and int8 pools at the
+    serve run's prefix depths (1, 4, 16 blocks) and suffix buckets (16,
+    128, 256), flash attention over ``FLASH_SWEEP`` and RMSNorm over
+    ``RMSNORM_SWEEP``. Returns the largest bf16 error per kernel."""
     from repro_torch.bench.workloads.kernels import plain_fp32
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(0)
@@ -309,6 +418,19 @@ def phase_kernels(dev) -> dict:
                                    window=window, **kw), dtype,
                         f"nb={nb}/64 window={window} "
                         f"lengths={lengths.tolist()}")
+        for lengths, window in (([900], None), ([900], 40),
+                                (rng.integers(1, 1025, size=32), None),
+                                ([1024, 1000, 513, 512, 65, 64, 17, 1], 40)):
+            for name, int8 in (("paged_decode_attention", False),
+                               (DECODE_INT8, True)):
+                args, kw = decode_case(rng, lengths, dtype, dev, int8=int8)
+                check_kernel(
+                    name, worst,
+                    ops.paged_decode_attention(*args, window=window, **kw),
+                    plain_fp32(ref.paged_decode_attention_ref, *args,
+                               window=window, **kw), dtype,
+                    f"B={len(lengths)} nb=64 window={window} "
+                    f"lengths={list(lengths)[:8]}")
         for npre in (1, 4, 16):
             for sq in (16, 128, 256):
                 for name, int8 in (("paged_prefill_attention", False),
@@ -549,6 +671,12 @@ def profile_serve(engine, reqs, tag: str) -> None:
     for e in rows[:12]:
         log(f"[profile {tag}] {e.self_device_time_total / 1e3:10.2f} ms "
             f"{e.count:7d}x  {e.key[:90]}")
+    for e in rows:
+        if any(k in e.key for k in PORT_KERNELS):
+            log(f"[profile {tag}] port kernel "
+                f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x "
+                f"({e.self_device_time_total / max(e.count, 1):.2f} us a "
+                f"call)  {e.key[:90]}")
 
 
 def _leaves(tree):
@@ -679,8 +807,10 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
                 errs: dict) -> list:
     """Each kernel at main-path shapes: its time, its plain version's,
     the library yardstick's, and the bound from the bytes and flops it
-    needs. ``counts`` are the fp serve run's launches, ``int8_counts``
-    the int8 chunked serve run's, ``bench_counts`` the bench run's."""
+    needs; the kernel's and the library's device time warm and cold
+    (``device_times``), and for decode and RMSNorm the wrapper's host
+    time. ``counts`` are the fp serve run's launches, ``int8_counts`` the
+    int8 chunked serve run's, ``bench_counts`` the bench run's."""
     import torch.nn.functional as F
     from repro_torch.bench.workloads.kernels import plain_fp32
     from repro_torch.kernels import ops, ref
@@ -688,6 +818,40 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     dtype = torch.bfloat16
     esize = 2
     rows = []
+
+    def measure(kernel, args, kw, read_bytes, lib, lib_args, lib_kw, *,
+                host_args=None) -> dict:
+        """Device times of the kernel and the library call; with
+        ``host_args``, light inputs that take the same wrapper path, the
+        wrapper's host time too."""
+        warm, cold = device_times(kernel, args, kw, read_bytes)
+        lwarm, lcold = device_times(lib, lib_args, lib_kw,
+                                    tensor_bytes(lib_args, lib_kw))
+        out = {"device_ms": warm, "device_ms_cold": cold,
+               "library_device_ms": lwarm, "library_device_ms_cold": lcold}
+        if host_args is not None:
+            out["host_us"] = host_us(lambda: kernel(*host_args, **kw))
+        return out
+
+    def sdpa_cut(qd, gather, lens, dev_t) -> None:
+        """SDPA on K/V cut to the longest sequence's table columns
+        (``gather(cols)`` gives them), beside the full-table yardstick."""
+        cols = -(-int(lens.max()) // BS)
+        kc, vc = gather(cols)
+        cut_kw = dict(attn_mask=(torch.arange(cols * BS, device=dev)[None]
+                                 < lens[:, None]).reshape(B, 1, 1, -1),
+                      enable_gqa=True)
+        warm, cold = device_times(F.scaled_dot_product_attention,
+                                  (qd, kc, vc), cut_kw,
+                                  tensor_bytes((qd, kc, vc), cut_kw))
+        dev_t.update(library_cut_device_ms=warm,
+                     library_cut_device_ms_cold=cold,
+                     library_cut_keys=cols * BS)
+
+    def one_token(args):
+        """Decode inputs with every length 1: the same wrapper path (B,
+        table width, splits), a kernel of a few microseconds."""
+        return (*args[:4], torch.ones_like(args[4]))
 
     # decode: B=8 slots of a serve mix (prompt 64-512 + up to 64 tokens)
     lengths = rng.integers(64, 577, size=B)
@@ -705,16 +869,24 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     mask = (torch.arange(nb * BS, device=dev)[None, :]
             < lens[:, None]).reshape(B, 1, 1, nb * BS)
     qd = q.reshape(B, H, 1, DH)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    sdpa_kw = dict(attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                         **sdpa_kw))
     tok = int(lengths.sum())
     nbytes = (2 * B * H * DH * esize + 2 * tok * KH * DH * esize
               + sum(-(-int(n) // BS) for n in lengths) * 4 + B * 4)
+    dev_t = measure(ops.paged_decode_attention, (q, kp, vp, tables, lens),
+                    {}, nbytes, F.scaled_dot_product_attention,
+                    (qd, kd, vd), sdpa_kw,
+                    host_args=one_token((q, kp, vp, tables, lens)))
+    sdpa_cut(qd, lambda c: tuple(
+        p[tables[:, :c].long()].reshape(B, c * BS, KH, DH).transpose(1, 2)
+        for p in (kp, vp)), lens, dev_t)
     flops = 4 * tok * H * DH
     rows.append(_row("paged_decode_attention", "decode_attention", counts,
                      errs, ms, plain, lib, nbytes, flops, dtype,
                      f"B={B} H={H} Kh={KH} Dh={DH} bs={BS} nb={nb} "
-                     f"lengths={lengths.tolist()}"))
+                     f"lengths={lengths.tolist()}", dev_t))
 
     # the same decode on an int8 pool; SDPA runs on K/V gathered and
     # dequantized beforehand (not timed)
@@ -729,15 +901,24 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     deq = lambda p, s: ref.dequantize_pool(p, tables, s).reshape(
         B, nb * BS, KH, DH).transpose(1, 2).to(dtype)
     kd, vd = deq(kp, kw["k_scale"]), deq(vp, kw["v_scale"])
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q.reshape(B, H, 1, DH), kd, vd, attn_mask=mask, enable_gqa=True))
+    qd = q.reshape(B, H, 1, DH)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                         **sdpa_kw))
     n_read = sum(-(-int(n) // BS) for n in lengths)
     nbytes = (2 * B * H * DH * esize + 2 * tok * KH * DH
               + 2 * n_read * KH * 4 + n_read * 4 + B * 4)
+    dev_t = measure(ops.paged_decode_attention, args, kw, nbytes,
+                    F.scaled_dot_product_attention, (qd, kd, vd), sdpa_kw,
+                    host_args=one_token(args))
+    sdpa_cut(qd, lambda c: tuple(
+        ref.dequantize_pool(p, tables[:, :c], sc).reshape(
+            B, c * BS, KH, DH).transpose(1, 2).to(dtype)
+        for p, sc in ((kp, kw["k_scale"]), (vp, kw["v_scale"]))), lens,
+        dev_t)
     rows.append(_row(DECODE_INT8, "decode_attention", int8_counts, errs, ms,
                      plain, lib, nbytes, flops, dtype,
                      f"B={B} H={H} Kh={KH} Dh={DH} bs={BS} nb={nb} "
-                     f"lengths={lengths.tolist()}, int8 pool",
+                     f"lengths={lengths.tolist()}, int8 pool", dev_t,
                      source="src/repro_torch/csrc/paged_decode_attention.cu"))
 
     # prefill: a prefix-cache hit of the serve mix, 16 shared blocks +
@@ -759,16 +940,19 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     qd = q.transpose(1, 2).contiguous()
     mask = (torch.arange(pre + sq, device=dev)[None, :]
             <= torch.arange(sq, device=dev)[:, None] + pre)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    sdpa_kw = dict(attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                         **sdpa_kw))
     n_read = torch.unique(tables).numel()      # the pad row reads block 0
     nbytes = (2 * B * sq * H * DH * esize + 2 * B * sq * KH * DH * esize
               + 2 * n_read * BS * KH * DH * esize + B * npre * 4)
+    dev_t = measure(ops.paged_prefill_attention, args, {}, nbytes,
+                    F.scaled_dot_product_attention, (qd, kd, vd), sdpa_kw)
     flops = 4 * H * DH * B * sum(pre + i + 1 for i in range(sq))
     rows.append(_row("paged_prefill_attention", "prefill_attention", counts,
                      errs, ms, plain, lib, nbytes, flops, dtype,
                      f"B={B} Sq={sq} npre={npre} H={H} Kh={KH} Dh={DH} "
-                     f"bs={BS}"))
+                     f"bs={BS}", dev_t))
 
     # the same prefix hit on an int8 pool; SDPA runs on the view
     # dequantized and gathered beforehand (not timed)
@@ -787,16 +971,18 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     vd = torch.cat([deq(vp, kw["v_scale"]), vs], 1).transpose(1, 2) \
         .contiguous()
     qd = q.transpose(1, 2).contiguous()
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                         **sdpa_kw))
     n_read = torch.unique(tables).numel()
     nbytes = (2 * B * sq * H * DH * esize + 2 * B * sq * KH * DH * esize
               + 2 * n_read * BS * KH * DH + 2 * n_read * KH * 4
               + B * npre * 4)
+    dev_t = measure(ops.paged_prefill_attention, args, kw, nbytes,
+                    F.scaled_dot_product_attention, (qd, kd, vd), sdpa_kw)
     rows.append(_row(INT8, "prefill_attention", bench_counts, errs, ms,
                      plain, lib, nbytes, flops, dtype,
                      f"B={B} Sq={sq} npre={npre} H={H} Kh={KH} Dh={DH} "
-                     f"bs={BS}, int8 pool",
+                     f"bs={BS}, int8 pool", dev_t,
                      source="src/repro_torch/csrc/paged_prefill_attention.cu"))
 
     # flash: a 2048-token causal prefill at llama3.2-3b width; SDPA runs
@@ -811,13 +997,16 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     ms = time_ms(lambda: ops.flash_attention(q, k, v))
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    sdpa_kw = dict(is_causal=True, enable_gqa=True)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         **sdpa_kw))
     nbytes = (2 * fb * s * H * DH + 2 * fb * s * KH * DH) * esize
+    dev_t = measure(ops.flash_attention, (q, k, v), {}, nbytes,
+                    F.scaled_dot_product_attention, (qt, kt, vt), sdpa_kw)
     flops = 4 * fb * H * DH * s * (s + 1) // 2
     rows.append(_row("flash_attention", "flash_attention", bench_counts,
                      errs, ms, plain, lib, nbytes, flops, dtype,
-                     f"B={fb} S={s} H={H} Kh={KH} Dh={DH} causal"))
+                     f"B={fb} S={s} H={H} Kh={KH} Dh={DH} causal", dev_t))
 
     # rmsnorm: 4096 tokens at d_model 3072, bf16 weight; its few
     # operations per element run in fp32 on the CUDA cores
@@ -831,9 +1020,11 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     plain = time_ms(lambda: ref.rmsnorm_ref(x, w), iters=10)
     lib = time_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=1e-5))
     nbytes = 2 * rn * d * esize + d * esize
+    dev_t = measure(ops.rmsnorm, (x, w), {}, rn * d * esize, F.rms_norm,
+                    (x, (d,)), dict(weight=w, eps=1e-5), host_args=(x[:8], w))
     rows.append(_row("rmsnorm", "rmsnorm", bench_counts, errs, ms, plain,
                      lib, nbytes, 4 * rn * d, torch.float32,
-                     f"rows={rn} d={d}"))
+                     f"rows={rn} d={d}", dev_t))
     return rows
 
 
@@ -848,24 +1039,38 @@ REPLACES = {
 
 
 def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
-         peak_dtype, shape, source=None):
+         peak_dtype, shape, dev_t, source=None):
     """One JSON row; the bound is the larger of the bytes over HBM rate
     and the operations over the peak rate of ``peak_dtype``; ``tflops``
-    is the operations over the kernel's time."""
+    is the operations over the kernel's device time, warm; ``dev_t`` the
+    device (and host) times of ``phase_times``."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[peak_dtype] * 1e3
     row = {"name": name, "route": "cuda",
            "source": source or f"src/repro_torch/csrc/{name}.cu",
-           "replaces": REPLACES[name], "launches": counts[name],
+           "replaces": REPLACES[name],
+           "launches": None if counts is None else counts[name],
            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": lib, "tflops": flops / ms / 1e9}
-    log(f"[times] {name} ({module}.py) at {shape}: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+           "library_ms": lib, **dev_t,
+           "tflops": flops / dev_t["device_ms"] / 1e9}
+    host = (f"; wrapper host {dev_t['host_us']:.2f} us a call"
+            if "host_us" in dev_t else "")
+    if "library_cut_device_ms" in dev_t:
+        host += (f"; library on K/V cut to {dev_t['library_cut_keys']} "
+                 f"keys {dev_t['library_cut_device_ms']:.4f} ms warm, "
+                 f"{dev_t['library_cut_device_ms_cold']:.4f} cold")
+    log(f"[times] {name} ({module}.py) at {shape}: kernel {ms:.4f} ms "
+        f"(events over 50 calls), device {dev_t['device_ms']:.4f} ms warm, "
+        f"{dev_t['device_ms_cold']:.4f} ms cold (bound / cold "
+        f"{row['bound_ms'] / dev_t['device_ms_cold']:.3f}); "
+        f"plain {plain:.4f} ms, library {lib:.4f} ms (device "
+        f"{dev_t['library_device_ms']:.4f} warm, "
+        f"{dev_t['library_device_ms_cold']:.4f} cold), bound "
         f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
         f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
-        f"{row['tflops']:.1f} TFLOP/s; launches {counts[name]}")
+        f"{row['tflops']:.2f} TFLOP/s{host}; launches {row['launches']}")
     return row
 
 
@@ -886,6 +1091,14 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "bytes stack" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    if "--times" in sys.argv[1:]:
+        rows = phase_times(dev, None, None, None,
+                           dict.fromkeys(REPLACES, 0.0))
+        for row in rows:            # neither is measured by phase 5 alone
+            del row["launches"], row["max_abs_err"]
+        print(json.dumps({"times": rows}), flush=True)
+        print(card_line(), flush=True)
+        return 0
     check_build(_build)
 
     errs = phase_kernels(dev)

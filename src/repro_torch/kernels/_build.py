@@ -41,10 +41,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 #: as long long
 SIGNATURES = {
     # q, k_pool, v_pool, tables, lengths, out, k_scale, v_scale,
-    # batch, kv_heads, group, d_head, block_size, n_table_cols,
-    # table_stride, window, scale, dtype, pool_dtype, stream
+    # scratch, tickets, batch, kv_heads, group, d_head, block_size,
+    # n_table_cols, table_stride, window, splits, chunk, scale, dtype,
+    # pool_dtype, stream
     "repro_paged_decode_attention":
-        [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
+        [_P] * 10 + [_I] * 10 + [_F, _I, _I, _P],
     # q, k_suffix, v_suffix, k_pool, v_pool, tables, out, k_scale,
     # v_scale, batch, sq, kv_heads, group, d_head, block_size, npre,
     # table_stride, window, scale, dtype, pool_dtype, stream
@@ -55,8 +56,9 @@ SIGNATURES = {
     # dtype, stream
     "repro_flash_attention":
         [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _I, _P],
-    # x, scale, out, rows, d, eps, dtype, scale_dtype, stream
-    "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [_F, _I, _I, _P],
+    # x, scale, out, rows, d, grid, eps, dtype, scale_dtype, vector,
+    # stream
+    "repro_rmsnorm": [_P] * 3 + [_I] * 3 + [_F, _I, _I, _I, _P],
     "repro_cuda_error_string": [_I],
 }
 
@@ -133,6 +135,12 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_char_p if name == "repro_cuda_error_string" \
             else ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

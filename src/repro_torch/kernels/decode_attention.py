@@ -7,6 +7,11 @@ file's note says how the design maps the TPU kernel onto Hopper and what
 bounds it. The plain version is ``kernels.ref.paged_decode_attention_ref``.
 ``paged_decode_attention.launches`` counts the kernel's launches and
 ``paged_decode_attention.launches_int8`` those of them on an int8 pool.
+
+The kernel splits each sequence's table columns across thread blocks
+(:func:`decode_splits` picks how many from host-known numbers only) and
+combines the splits in the same launch: one call is one launch. It takes
+head widths ``D_HEADS`` and 16-byte aligned q and pools.
 """
 from __future__ import annotations
 
@@ -18,22 +23,130 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODES, INT8_CODE
 
+#: head widths the kernel is instantiated for: every width of the
+#: configs (16 reduced, 64 gpt-117m, 96 gpt-800m, 128 llama3.2-3b) and 32;
+#: each is whole 16-byte vectors of bf16, fp32 and int8
+D_HEADS = (16, 32, 64, 96, 128)
+#: query heads one thread block carries (``kMaxG`` in the source: G = 3
+#: at llama3.2-3b width); a larger GQA group takes ceil(G / 3) blocks per
+#: KV head
+HEADS_PER_BLOCK = 3
+#: most splits of one sequence (``kMaxSplits`` in the source)
+MAX_SPLITS = 64
+#: blocks per SM that the split count aims at: several, since the splits
+#: past a sequence's length (the table is a power-of-two bucket of the
+#: longest one) exit at once
+TARGET_BLOCKS_PER_SM = 8
+#: B x Kh x head chunks at which the card counts as full without a split
+FULL_BLOCKS_PER_SM = 2
+
+
+def decode_splits(batch: int, kv_heads: int, nb: int, sms: int, *,
+                  group: int = 1) -> tuple[int, int]:
+    """(splits, chunk): how many blocks share one sequence's table of
+    ``nb`` columns, each owning ``chunk`` consecutive columns (the last
+    split may own fewer). Host-known numbers only (batch, KV heads, the
+    table width and the SM count), never the lengths, so choosing costs
+    no synchronisation. One split where B x Kh (x head chunks) already
+    fills the card; never more splits than columns."""
+    pairs = batch * kv_heads * -(-group // HEADS_PER_BLOCK)
+    if nb <= 1 or pairs >= FULL_BLOCKS_PER_SM * sms:
+        return 1, nb
+    splits = min(nb, MAX_SPLITS, -(-TARGET_BLOCKS_PER_SM * sms // pairs))
+    chunk = -(-nb // splits)
+    return -(-nb // chunk), chunk
+
+
+class _StreamState:
+    """What the wrapper keeps per (card, stream), so that a call pays for
+    none of it: the SM count, each shape's launch plan, the split tickets
+    (int32 counters that the kernel leaves at zero) and the partials'
+    scratch (written before it is read in every launch, so never
+    cleared), both grown on demand. Launches on one stream run one after
+    another, so they may share these; launches on two streams may run at
+    once, so each stream has its own. A graph captured on a stream uses
+    that stream's buffers: do not replay it beside calls on that stream.
+    Buffers that were outgrown stay allocated, since a captured graph may
+    still name them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.sms = _build.sm_count(device.index)
+        self.plans: dict = {}
+        self.tickets = torch.zeros(1024, dtype=torch.int32, device=device)
+        self.scratch = torch.empty(0, dtype=torch.float32, device=device)
+        self.outgrown: list = []
+
+    def plan(self, b: int, kh: int, g: int, dh: int, nb: int,
+             splits: Optional[int]) -> tuple:
+        """(splits, chunk, scratch pointer, tickets pointer) of a call."""
+        key = (b, kh, g, dh, nb, splits)
+        plan = self.plans.get(key)
+        if plan is None:
+            if splits is None:
+                splits, chunk = decode_splits(b, kh, nb, self.sms, group=g)
+            elif 1 <= splits <= MAX_SPLITS:
+                chunk = -(-nb // splits)
+            else:
+                raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got "
+                                 f"{splits}")
+            pairs = b * kh * -(-g // HEADS_PER_BLOCK)
+            if pairs > self.tickets.numel():
+                _refuse_in_capture(f"{pairs} ticket counters (this stream "
+                                   f"has {self.tickets.numel()})")
+                self.outgrown.append(self.tickets)
+                self.tickets = torch.zeros(2 * pairs, dtype=torch.int32,
+                                           device=self.device)
+            need = pairs * splits * HEADS_PER_BLOCK * (dh + 2) \
+                if splits > 1 else 0
+            if need > self.scratch.numel():
+                self.outgrown.append(self.scratch)
+                self.scratch = torch.empty(2 * need, dtype=torch.float32,
+                                           device=self.device)
+            plan = self.plans[key] = (splits, chunk,
+                                      self.scratch.data_ptr() if need
+                                      else None, self.tickets.data_ptr())
+        return plan
+
+
+def _refuse_in_capture(what: str) -> None:
+    """Ticket counters must be zeroed outside a CUDA graph: zeroed inside
+    one they would hold garbage until its first replay."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"paged_decode_attention needs {what} while the stream is "
+            f"capturing a CUDA graph; call it once with these shapes on "
+            f"the capture stream before capturing")
+
+
+_STATES: dict[tuple[int, int], _StreamState] = {}
+
+
+def _stream_state(q: torch.Tensor, stream: int) -> _StreamState:
+    state = _STATES.get((q.get_device(), stream))
+    if state is None:
+        _refuse_in_capture("its first call on this stream")
+        state = _STATES[q.get_device(), stream] = _StreamState(q.device)
+    return state
+
 
 def check_kv_inputs(q: torch.Tensor, pools, index_tensors) -> None:
-    """Shared argument checks of the paged kernels' wrappers."""
-    if q.device.type != "cuda":
+    """Shared argument checks of the paged kernels' wrappers (devices
+    compared by index: -1 off the card)."""
+    if not q.is_cuda:
         raise ValueError(f"CUDA kernel called with a tensor on {q.device}")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"unsupported dtype {q.dtype}; the kernels take "
                         f"{sorted(map(str, DTYPE_CODES))}")
+    dev = q.get_device()
     for t in pools:
-        if t.device != q.device or t.dtype != q.dtype:
+        if t.get_device() != dev or t.dtype != q.dtype:
             raise TypeError(f"KV tensor {t.dtype} on {t.device} does not "
                             f"match q {q.dtype} on {q.device}")
         if not t.is_contiguous():
             raise ValueError("KV tensors must be contiguous")
     for t in index_tensors:
-        if t.device != q.device or t.dtype != torch.int32:
+        if t.get_device() != dev or t.dtype != torch.int32:
             raise TypeError(f"index tensor must be int32 on {q.device}, "
                             f"got {t.dtype} on {t.device}")
         if t.stride(-1) != 1:
@@ -57,8 +170,9 @@ def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise TypeError(f"pools {k_pool.dtype} / {v_pool.dtype} with scales:"
                         f" need int8 or q's {q.dtype}")
     want = (k_pool.shape[0], k_pool.shape[2])
+    dev = q.get_device()
     for t in (k_pool, v_pool, k_scale, v_scale):
-        if t.device != q.device or not t.is_contiguous():
+        if t.get_device() != dev or not t.is_contiguous():
             raise ValueError(f"pools and scales must be contiguous tensors "
                              f"on {q.device}, got a {tuple(t.shape)} tensor "
                              f"on {t.device} with strides {t.stride()}")
@@ -81,6 +195,17 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     column slice of a wider table is fine: rows may be strided);
     lengths: (B,) int32 KV length including the current token. Returns
     (B, H, Dh) in q.dtype."""
+    return _paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                   window, k_scale, v_scale, None)
+
+
+def _paged_decode_attention(q, k_pool, v_pool, tables, lengths, window,
+                            k_scale, v_scale,
+                            splits: Optional[int]) -> torch.Tensor:
+    """:func:`paged_decode_attention` with ``splits`` (1 to
+    ``MAX_SPLITS``; the chunk is ceil(nb / splits)) in place of
+    :func:`decode_splits`' choice when given: the card tests reach the
+    split kernel's edges through it."""
     if not q.is_contiguous() or q.dim() != 3:
         raise ValueError(f"q must be a contiguous (B, H, Dh), got "
                          f"{tuple(q.shape)}")
@@ -94,17 +219,30 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {b}")
+    if dh not in D_HEADS:
+        raise ValueError(f"the decode kernel takes d_head in {D_HEADS}, got "
+                         f"{dh}")
+    # contiguous rows of whole 16-byte vectors (Dh in D_HEADS): only the
+    # start can be off
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"the decode kernel needs 16-byte aligned q and "
+                         f"pools, got addresses {q.data_ptr():#x}, "
+                         f"{k_pool.data_ptr():#x}, {v_pool.data_ptr():#x}")
     out = torch.empty_like(q)
-    lib = _build.load_library()
-    err = lib.repro_paged_decode_attention(
+    if b == 0:
+        return out
+    g, nb = h // kh, tables.shape[1]
+    stream = torch.cuda.current_stream(q.get_device()).cuda_stream
+    splits, chunk, scratch, tickets = _stream_state(q, stream).plan(
+        b, kh, g, dh, nb, splits)
+    err = _build.load_library().repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
-        None if v_scale is None else v_scale.data_ptr(),
-        b, kh, h // kh, dh, bs, tables.shape[1], tables.stride(0),
-        -1 if window is None else int(window), 1.0 / math.sqrt(dh),
-        DTYPE_CODES[q.dtype], pool_code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None if v_scale is None else v_scale.data_ptr(), scratch, tickets,
+        b, kh, g, dh, bs, nb, tables.stride(0),
+        -1 if window is None else int(window), splits, chunk,
+        1.0 / math.sqrt(dh), DTYPE_CODES[q.dtype], pool_code, stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     if pool_code == INT8_CODE:

@@ -42,6 +42,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     _decode.paged_decode_attention.launches_int8 = 0
     _prefill.paged_prefill_attention.launches_int8 = 0
+    _rmsnorm.rmsnorm.launches_vector = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

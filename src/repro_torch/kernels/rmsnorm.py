@@ -4,7 +4,14 @@ Counterpart of ``src/repro/kernels/rmsnorm.py::rmsnorm`` (Pallas kernel
 ``_rmsnorm_kernel``); the source file's note says how the design maps
 the TPU kernel onto Hopper and what bounds it. The plain version is
 ``kernels.ref.rmsnorm_ref``. ``rmsnorm.launches`` counts the kernel's
-launches.
+launches and ``rmsnorm.launches_vector`` those of them on the vector
+kernel.
+
+Two hand-written kernels, chosen by the tensors' shape and addresses
+(:func:`takes_vector_kernel`), never by a failure: rows of whole 16-byte
+vectors at 16-byte aligned addresses (and D up to
+``MAX_VECTORS_PER_THREAD`` x 128 vectors) take the vector kernel, every
+other input the scalar one.
 """
 from __future__ import annotations
 
@@ -12,6 +19,24 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODES
+
+#: the vector kernel's threads per block and vectors per thread at most
+#: (``kVecThreads`` and the largest ``kVpt`` instance in the source)
+VECTOR_THREADS = 128
+MAX_VECTORS_PER_THREAD = 16
+#: blocks per SM of the vector kernel's grid; each walks a share of rows
+BLOCKS_PER_SM = 8
+
+
+def takes_vector_kernel(x: torch.Tensor, scale: torch.Tensor,
+                        out: torch.Tensor) -> bool:
+    """Whole 16-byte vectors per row at 16-byte aligned addresses, few
+    enough to stay in registers."""
+    d = x.shape[-1]
+    n = 16 // x.element_size()
+    return (d % n == 0 and d <= MAX_VECTORS_PER_THREAD * VECTOR_THREADS * n
+            and not (x.data_ptr() % 16 or out.data_ptr() % 16
+                     or scale.data_ptr() % 16))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
@@ -35,14 +60,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     rows = x2.numel() // d if d else 0
     if rows == 0:
         return out
-    lib = _build.load_library()
-    err = lib.repro_rmsnorm(
-        x2.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    vector = takes_vector_kernel(x2, scale, out)
+    dev = x.get_device()
+    per_block = -(-rows // (BLOCKS_PER_SM * _build.sm_count(dev)))
+    err = _build.load_library().repro_rmsnorm(
+        x2.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
+        -(-rows // per_block), float(eps), DTYPE_CODES[x.dtype],
+        DTYPE_CODES[scale.dtype], int(vector),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rmsnorm")
     rmsnorm.launches += 1
+    if vector:
+        rmsnorm.launches_vector += 1
     return out
 
 
 rmsnorm.launches = 0
+rmsnorm.launches_vector = 0

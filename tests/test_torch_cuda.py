@@ -1,14 +1,21 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 Paged decode and paged prefill (fp and int8 pools) over block sizes,
-GQA groups, prefix depths and windows, the prefill in bf16 also at the
+GQA groups, prefix depths and windows, the decode also at B = 1 (one
+sequence over many splits) and B = 64 (few splits), at head widths 16
+and 96 and at GQA groups of 4, 7 and 8 (several head chunks per KV
+head), on split boundaries, with a window that hides whole splits,
+giving equal bits on two calls, on two streams at once and in a CUDA
+graph, the prefill in bf16 also at the
 configs' head widths (16, 64, 96, 128), with ragged packed-row tiles and
 with a window that hides whole prefix tiles; flash attention over the
 reference's SWEEP (``tests/test_kernels.py``) in both types, one-query
 and ragged cases, strided inputs and the llama3.2-3b prefill width; the
 bf16 (tensor-core) kernels refusing unaligned views, head widths
 without an instance and block sizes that are not a multiple of 8; RMSNorm over the reference's
-sweep, mixed scale types, leading dims and the (4096, 3072) width; and
+sweep, D not whole 16-byte vectors (100, 3073, the scalar kernel), D =
+8192, an offset unaligned view, mixed scale types, leading dims and the
+(4096, 3072) width; and
 no fallback: a kernel missing from the library, or a type a kernel does
 not take, raises. The serve engine on the card (kernels) against the CPU
 (plain versions): fp and int8 pools, phased and chunked with
@@ -35,9 +42,11 @@ import torch
 
 from repro_torch.bench.workloads.kernels import plain_fp32 as _plain_fp32
 from repro_torch.configs import get_config
-from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels import _build, decode_attention, ops, ref
+from repro_torch.kernels.decode_attention import decode_splits, \
+    paged_decode_attention
 from repro_torch.kernels.prefill_attention import paged_prefill_attention
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.requests import Request
@@ -46,7 +55,13 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -7}
 DTYPES = [torch.float32, torch.bfloat16]
-DECODE = list(itertools.product([8, 16], [1, 2, 3], [None, 24]))
+#: block size, GQA group (1-3 fit one thread block; 4 and 8 take two and
+#: three head chunks per KV head, the last one partial), window
+DECODE = list(itertools.product([8, 16], [1, 2, 3, 4, 8], [None, 24]))
+#: (batch, d_head) of the decode cases: B = 5 at llama3.2-3b's width, one
+#: sequence (split over many blocks), 64 (B x Kh = 256 blocks, so few
+#: splits), the reduced and the gpt-800m head widths
+DECODE_SHAPES = [(5, 128), (1, 128), (64, 128), (5, 16), (5, 96)]
 PREFILL = list(itertools.product([8, 16], [1, 2, 3], [1, 3], [None, 24]))
 KH, DH = 4, 128
 #: (dtype, d_head) of the prefill cases: fp32 (the FMA kernel) at 128,
@@ -69,7 +84,10 @@ FLASH_SWEEP = [
     (1, 100, 100, 4, 1, 64, True, 33),        # Sq % 64 != 0, G = 4
     (2, 2048, 2048, 24, 8, 128, True, None),  # llama3.2-3b prefill
 ]
-RMSNORM_SWEEP = [(8, 64), (37, 512), (300, 128), (1, 1024), (4096, 3072)]
+#: the reference's sweep, (4096, 3072), D not whole 16-byte vectors (the
+#: scalar kernel) and D = 8192, the top of the reference's stated range
+RMSNORM_SWEEP = [(8, 64), (37, 512), (300, 128), (1, 1024), (4096, 3072),
+                 (7, 100), (5, 3073), (16, 8192)]
 
 
 @pytest.fixture
@@ -86,16 +104,18 @@ def _on(card, dtype, *arrays):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bs,g,window", DECODE)
-def test_decode_kernel_matches_plain(card, dtype, bs, g, window):
+@pytest.mark.parametrize("b,dh", DECODE_SHAPES)
+def test_decode_kernel_matches_plain(card, dtype, bs, g, window, b, dh):
     rng = np.random.default_rng(bs * 10 + g)
-    b, nb = 5, 256 // bs
+    nb = 256 // bs
     n_blocks = 1 + b * nb
-    pool = lambda: rng.normal(size=(n_blocks, bs, KH, DH)).astype(np.float32)
+    pool = lambda: rng.normal(size=(n_blocks, bs, KH, dh)).astype(np.float32)
     tables = rng.permutation(np.arange(1, n_blocks)).reshape(b, nb)
     lengths = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
-    lengths[0] = 1
-    tables[0, 1:] = 0                               # unowned -> trash block
-    q = rng.normal(size=(b, KH * g, DH)).astype(np.float32)
+    if b > 1:
+        lengths[0] = 1
+        tables[0, 1:] = 0                           # unowned -> trash block
+    q = rng.normal(size=(b, KH * g, dh)).astype(np.float32)
     args = _on(card, dtype, q, pool(), pool(), tables.astype(np.int32),
                lengths)
     ops.reset_launch_counts()
@@ -119,20 +139,23 @@ def _int8_pools(card, rng, n_blocks, bs, dh=DH):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bs,g,window", DECODE)
-def test_decode_kernel_int8_pool_matches_plain(card, dtype, bs, g, window):
+@pytest.mark.parametrize("b,dh", DECODE_SHAPES)
+def test_decode_kernel_int8_pool_matches_plain(card, dtype, bs, g, window, b,
+                                               dh):
     """int8 pool codes and (n_blocks, Kh) scales, the same through both
     sides; row 0 reads only the trash block 0 past its one token."""
     rng = np.random.default_rng(bs * 10 + g + 7)
-    b, nb = 5, 256 // bs
+    nb = 256 // bs
     n_blocks = 1 + b * nb
     tables = rng.permutation(np.arange(1, n_blocks)).reshape(b, nb)
     lengths = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
-    lengths[0] = 1
-    tables[0, 1:] = 0
+    if b > 1:
+        lengths[0] = 1
+        tables[0, 1:] = 0
     q, tab, lens = _on(card, dtype,
-                       rng.normal(size=(b, KH * g, DH)).astype(np.float32),
+                       rng.normal(size=(b, KH * g, dh)).astype(np.float32),
                        tables.astype(np.int32), lengths)
-    pools, scales = _int8_pools(card, rng, n_blocks, bs)
+    pools, scales = _int8_pools(card, rng, n_blocks, bs, dh)
     kw = dict(window=window, k_scale=scales[0], v_scale=scales[1])
     ops.reset_launch_counts()
     got = ops.paged_decode_attention(q, *pools, tab, lens, **kw)
@@ -142,6 +165,154 @@ def test_decode_kernel_int8_pool_matches_plain(card, dtype, bs, g, window):
     want = _plain_fp32(ref.paged_decode_attention_ref, q, *pools, tab, lens,
                        **kw)
     _assert_close(got, want, dtype)
+
+
+def _decode_forced(args, kw, *, window=None, splits=None):
+    """The decode wrapper with its split count forced (its private entry;
+    None keeps ``decode_splits``' choice)."""
+    return decode_attention._paged_decode_attention(
+        *args, window, kw.get("k_scale"), kw.get("v_scale"), splits)
+
+
+def _decode_case(card, dtype, rng, lengths, *, nb, bs=16, g=3, int8):
+    """Decode inputs whose tables own ceil(length / bs) blocks, the rest
+    pointing at the trash block 0, and the int8 pools' scales."""
+    b = len(lengths)
+    n_blocks = 1 + b * nb
+    perm = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((b, nb), np.int32)
+    for i, n in enumerate(lengths):
+        need = -(-n // bs)
+        tables[i, :need] = perm[i * nb:i * nb + need]
+    q, tab, lens = _on(card, dtype,
+                       rng.normal(size=(b, KH * g, DH)).astype(np.float32),
+                       tables, np.asarray(lengths, np.int32))
+    if int8:
+        pools, (ksc, vsc) = _int8_pools(card, rng, n_blocks, bs)
+        return (q, *pools, tab, lens), dict(k_scale=ksc, v_scale=vsc)
+    pools = _on(card, dtype, *(rng.normal(size=(n_blocks, bs, KH, DH))
+                               .astype(np.float32) for _ in range(2)))
+    return (q, *pools, tab, lens), {}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernel_split_boundaries_and_windows(card, dtype, int8):
+    """Four splits of 4 blocks of 16 keys: lengths at and one past a split
+    boundary, and windows that hide whole splits (of the longest rows)
+    or all but the last key's split."""
+    rng = np.random.default_rng(21 + int8)
+    edge = 4 * 16
+    args, kw = _decode_case(card, dtype, rng,
+                            [edge, edge + 1, 2 * edge, 3 * edge + 1, 1,
+                             4 * edge], nb=16, int8=int8)
+    for window in (None, 20, edge, 100):
+        for splits in (4, 3, 16):
+            ops.reset_launch_counts()
+            got = _decode_forced(args, kw, window=window, splits=splits)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["paged_decode_attention"] == 1
+            want = _plain_fp32(ref.paged_decode_attention_ref, *args,
+                               window=window, **kw)
+            _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernel_gives_equal_bits_on_two_calls(card, int8):
+    """The splits combine in split order, with no float atomics: two
+    calls on the same inputs give the same bits (the default split count
+    at B = 8, and the most splits)."""
+    rng = np.random.default_rng(33)
+    args, kw = _decode_case(card, torch.bfloat16, rng,
+                            rng.integers(1, 1025, size=8).tolist(), nb=64,
+                            int8=int8)
+    splits, _ = decode_splits(8, KH, 64, _build.sm_count(card.index or 0),
+                              group=3)
+    assert splits > 1
+    for n in (None, 64):
+        a = _decode_forced(args, kw, splits=n)
+        b = _decode_forced(args, kw, splits=n)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g", [4, 7, 8])
+def test_decode_kernel_head_chunks_over_splits(card, dtype, int8, g):
+    """A GQA group of more than 3 heads takes ceil(G / 3) blocks per KV
+    head, the last one partial (G = 4: 3 + 1, 7: 3 + 3 + 1, 8: 3 + 3 +
+    2), each with its own partials and ticket: lengths at and past split
+    boundaries, windows that hide whole splits, several split counts."""
+    rng = np.random.default_rng(50 + g + int8)
+    edge = 4 * 16
+    args, kw = _decode_case(card, dtype, rng,
+                            [edge, edge + 1, 3 * edge + 1, 1, 4 * edge],
+                            nb=16, g=g, int8=int8)
+    for window in (None, 20, 100):
+        for splits in (None, 1, 4, 3, 16):
+            ops.reset_launch_counts()
+            got = _decode_forced(args, kw, window=window, splits=splits)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["paged_decode_attention"] == 1
+            want = _plain_fp32(ref.paged_decode_attention_ref, *args,
+                               window=window, **kw)
+            _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernel_on_two_streams_and_in_a_graph(card, int8,
+                                                     monkeypatch):
+    """Each stream has its own partials and tickets: calls on two streams
+    at once give the bits of the same calls on one stream. A graph
+    captured on a stream after a call there replays to the same bits; a
+    stream's first call inside a capture raises (its tickets would be
+    zeroed inside the graph)."""
+    monkeypatch.setattr(decode_attention, "_STATES", {})
+    rng = np.random.default_rng(40 + int8)
+    cases = [_decode_case(card, torch.bfloat16, rng,
+                          rng.integers(513, 1025, size=2).tolist(), nb=64,
+                          int8=int8) for _ in range(2)]
+    want = [paged_decode_attention(*a, **k) for a, k in cases]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, ((a, k), s) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(s):
+                got[i].append(paged_decode_attention(*a, **k))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(x, want[i]) for x in got[i])
+    a, k = cases[0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=streams[0]):
+        out = paged_decode_attention(*a, **k)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want[0])
+    fresh = torch.cuda.Stream()
+    monkeypatch.setattr(decode_attention, "_STATES", {})
+    with pytest.raises(RuntimeError, match="capturing"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            paged_decode_attention(*a, **k)
+    torch.cuda.synchronize()
+
+
+def test_decode_kernel_raises_on_widths_and_views_it_does_not_take(card):
+    bf = dict(device=card, dtype=torch.bfloat16)
+    tab = torch.tensor([[1]], dtype=torch.int32, device=card)
+    lens = torch.tensor([3], dtype=torch.int32, device=card)
+    q48, pool48 = torch.ones(1, KH, 48, **bf), torch.ones(2, 16, KH, 48, **bf)
+    with pytest.raises(ValueError, match="d_head"):
+        paged_decode_attention(q48, pool48, pool48, tab, lens)
+    pool = torch.ones(2, 16, KH, DH, **bf)
+    shifted = torch.ones(KH * DH + 1, **bf)[1:].view(1, KH, DH)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(shifted, pool, pool, tab, lens)
+    q = torch.ones(1, KH, DH, **bf)
+    with pytest.raises(ValueError, match="splits"):
+        _decode_forced((q, pool, pool, tab, lens), {}, splits=65)
 
 
 def test_decode_kernel_int8_refuses_bad_scales(card):
@@ -307,6 +478,31 @@ def test_rmsnorm_kernel_matches_plain(card, dtype, rows, d):
     got = ops.rmsnorm(x, s)
     torch.cuda.synchronize()
     assert ops.launch_counts()["rmsnorm"] == 1
+    # whole 16-byte vectors take the vector kernel, other widths the scalar
+    assert rmsnorm_kernel.launches_vector == int(d % (16 // x.element_size())
+                                                 == 0)
+    _assert_close(got, _plain_fp32(ref.rmsnorm_ref, x, s), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_on_an_unaligned_view(card, dtype):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    scalar kernel; the same rows aligned take the vector kernel."""
+    rng = np.random.default_rng(9)
+    rows, d = 33, 3072
+    buf = torch.from_numpy((rng.normal(size=rows * d + 1) * 3).astype(
+        np.float32)).to(card, dtype)
+    x = buf[1:].view(rows, d)
+    s = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        card, dtype)
+    ops.reset_launch_counts()
+    got = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rmsnorm_kernel.launches == 1 and rmsnorm_kernel.launches_vector == 0
+    _assert_close(got, _plain_fp32(ref.rmsnorm_ref, x, s), dtype)
+    got = ops.rmsnorm(x.clone(), s)
+    torch.cuda.synchronize()
+    assert rmsnorm_kernel.launches_vector == 1
     _assert_close(got, _plain_fp32(ref.rmsnorm_ref, x, s), dtype)
 
 
