@@ -8,7 +8,7 @@ sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs six phases, any failure of which exits non-zero:
+instance, then runs seven phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -28,8 +28,9 @@ instance, then runs six phases, any failure of which exits non-zero:
      does, while a wrong conversion moves about half of them;
   2. serve — full-width, full-depth llama3.2-3b (bf16, seeded random
      weights) through ``ServeEngine(cache="paged", sched="phased",
-     prefix_cache=True)`` with NVML power: 16 requests, half behind a
-     shared 256-token system prompt; every request must finish, both
+     prefix_cache=True)`` with NVML's energy counter: 16 requests, half
+     behind a shared 256-token system prompt; every request must finish,
+     both
      kernels must have launched (decode once per layer and step), and
      the pool must drain clean (``--profile`` serves the set once more
      under ``torch.profiler`` and prints the device-busy share and the
@@ -40,7 +41,8 @@ instance, then runs six phases, any failure of which exits non-zero:
      depend on the card's speed), through ``ServeEngine(cache="paged",
      sched="chunked", kv_dtype="int8", prefix_cache=True,
      chunk_tokens=32)`` on an oversubscribed pool of ``INT8_POOL_BLOCKS``
-     blocks (two full slots plus the trash block), with NVML power:
+     blocks (two full slots plus the trash block), with NVML's energy
+     counter:
      every request must finish its budget, the scheduler must preempt at
      least once and replay at least one token,
      every decode micro-step must launch the decode kernel's int8 path
@@ -82,7 +84,31 @@ instance, then runs six phases, any failure of which exits non-zero:
      inputs that take the same wrapper path with a short kernel: every
      decode length 1, 8 RMSNorm rows; the least of three rounds).
      The fp decode and prefill rows count their launches in phase 2, the
-     int8 decode row in phase 2b, the others in phase 4.
+     int8 decode row in phase 2b, the others in phase 4;
+  6. serve workloads — the port's ``serve`` and ``serve_slo`` workloads,
+     ``python -m repro_torch.bench run --suite serve`` (then
+     ``serve_slo``, twice) ``--smoke --power auto`` in process, at full
+     llama3.2-3b width on NVML's energy counter, narrowed by
+     ``SERVE_POINTS`` and ``SLO_POINTS`` to the main-path cell
+     (``cache=paged, policy=continuous, sched=phased, kv_dtype=fp32``)
+     with its slotted, fixed (measured on demand), int8 and chunked
+     twins, and the ``long_prefill`` (both schedulers) and
+     ``shared_prefix`` traces: every record must be ``ok`` and labelled
+     ``nvml_energy``; every paged cell must launch the decode kernel once
+     per layer and micro-step, on the int8 path exactly when its pool is
+     int8, and the prefill kernel once per layer and prefill over pool
+     blocks; slotted cells launch no paged kernel (the reference's
+     design); ``long_prefill`` under ``chunked`` must preempt, launch the
+     prefill kernel, emit its phased twin's token count and agree with
+     its streams as phase 3's do (its chunks after the first take the
+     prefill kernel's fp32 scores where phased takes bf16 ``sdpa``, so
+     a near-tie may flip and the hashes differ; they are equal on the
+     CPU), while the serve workload's fp chunked cell, whose arithmetic
+     is its phased twin's, must give equal streams;
+     ``shared_prefix`` under ``paged+prefix`` must hit the prefix index
+     and launch the prefill kernel. One line per record gives its cell
+     and headline columns (``--profile`` also traces the main-path cell
+     and prints its device-busy share: ~11 min more).
 
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
@@ -118,6 +144,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-3}
 MAX_BF16_MISMATCH_SHARE = 1e-2
+#: least LCP agreement of two greedy stream sets whose arithmetic differs
+#: only in summation order or rounding (a near-tie may flip)
+STREAM_AGREEMENT = 0.95
 H, KH, DH, BS, B = 24, 8, 128, 16, 8
 #: the reference's flash SWEEP (tests/test_kernels.py:11-21), a ragged
 #: case and a 2048-token llama3.2-3b prefill: b, sq, skv, h, kh, dh,
@@ -159,6 +188,15 @@ DECODE_INT8 = "paged_decode_attention[int8]"
 #: monotonically: run the phase on the CPU with a reduced model to
 #: check another size)
 INT8_POOL_BLOCKS = 129
+#: phase 6's ``--points``: the serve workload's main-path cell with its
+#: slotted and int8 twins (chunked and int8 x chunked follow from the
+#: kv_dtype and sched axes, the fixed twin is measured on demand inside
+#: each continuous cell); serve_slo's long_prefill trace on the plain
+#: fp pool under both schedulers, and its shared_prefix trace phased,
+#: with and without the prefix cache (two runs of the CLI)
+SERVE_POINTS = "cache=slotted,cache=paged,policy=continuous"
+SLO_POINTS = ("trace=long_prefill,cache=paged,kv_dtype=fp32",
+              "trace=shared_prefix,kv_dtype=fp32,sched=phased")
 
 
 def log(msg: str) -> None:
@@ -507,6 +545,16 @@ def check_served(c, engine, out, reqs) -> None:
     assert paged.free_blocks == paged.n_blocks - 1
 
 
+def mean_watts(out) -> float:
+    """Mean board power over a serve run's samples: the counter's
+    difference over their span (energy samples), or the samples' mean
+    (power samples)."""
+    ts, ws = out.sample_ts, out.sample_ws
+    if out.sample_kind == "energy":
+        return (ws[-1] - ws[0]) / max(ts[-1] - ts[0], 1e-9)
+    return float(np.mean(ws))
+
+
 def log_serve(tag: str, out, wall: float, power) -> None:
     from repro_torch.core.metrics import percentile
     s = out.summary
@@ -522,16 +570,16 @@ def log_serve(tag: str, out, wall: float, power) -> None:
         f"ttft_p99_ms={percentile(ttfts, 99) * 1e3:.1f} "
         f"tpot_p50_ms={percentile([r.tpot_s for r in out.results], 50) * 1e3:.2f} "
         f"occupancy={s.mean_occupancy:.3f} wh_per_token={s.wh_per_token:.3e} "
-        f"power_source={power.name} mean_w={np.mean(out.sample_ws):.1f} "
+        f"power_source={power.name} mean_w={mean_watts(out):.1f} "
         f"wall_s={wall:.2f}")
 
 
 def phase_serve(dev, c, params, profile: bool = False) -> dict:
     from repro_torch.kernels import ops
-    from repro_torch.power.methods import NvmlPower
+    from repro_torch.power.methods import NvmlEnergy
     from repro_torch.serve.engine import ServeEngine
 
-    power = NvmlPower(dev.index or 0)
+    power = NvmlEnergy(dev.index or 0)
     engine = ServeEngine(c, params, n_slots=8, max_len=1024, block_size=16,
                          prefix_cache=True, device=dev,
                          power_methods=[power])
@@ -579,14 +627,14 @@ def phase_serve_int8(dev, c, params, profile: bool = False) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.prefill_attention import paged_prefill_attention
-    from repro_torch.power.methods import NvmlPower
+    from repro_torch.power.methods import NvmlEnergy
     from repro_torch.serve.engine import ServeEngine
 
     reqs = [dataclasses.replace(r, arrival_s=0.0)
             for r in serve_requests(c.vocab)]
     runs = {}
     for kv, tag in (("int8", "int8"), ("fp32", "bf16-twin")):
-        power = NvmlPower(dev.index or 0)
+        power = NvmlEnergy(dev.index or 0)
         engine = ServeEngine(c, params, n_slots=8, max_len=1024,
                              block_size=16, n_blocks=INT8_POOL_BLOCKS,
                              prefix_cache=True, kv_dtype=kv,
@@ -751,7 +799,7 @@ def phase_agreement(dev) -> None:
         agree = agreement(streams[a], streams[b])
         log(f"[agreement] reduced fp32 {c.name}: {b} vs {a} stream "
             f"agreement {agree:.4f} over {len(reqs)} requests")
-        assert agree >= 0.95, (a, b, agree)
+        assert agree >= STREAM_AGREEMENT, (a, b, agree)
 
 
 def _to(tree, dev):
@@ -801,6 +849,145 @@ def phase_bench() -> dict:
                  INT8):
         assert counts[name] > 0, (name, counts)
     return counts
+
+
+def run_workload(name: str, points: str, out: str) -> list:
+    """One serve workload through the port's bench CLI on the card (its
+    smoke preset narrowed by ``points``); returns its records."""
+    from repro_torch.bench import cli
+    from repro_torch.bench.records import load_records
+    t0 = time.perf_counter()
+    rc = cli.main(["run", "--suite", name, "--smoke", "--points", points,
+                   "--device", "cuda", "--power", "auto", "--out", out,
+                   "--quiet"])
+    log(f"[{name}] --points {points}: rc {rc} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert rc == 0, (name, rc)
+    return load_records(f"{out}/{name}/results.json")
+
+
+def log_record(name: str, r) -> None:
+    """A record's cell and headline columns on one line."""
+    m = r.metrics
+    cell = "/".join(f"{k}={v}" for k, v in r.point.items() if k != "arch")
+    cols = ["decode_tok_s", "ttft_s", "ttft_p99", "tpot_p99", "goodput",
+            "wh_per_token", "wh_per_slo_request", "occupancy",
+            "preemptions", "kv_stream_prefix_agreement"]
+    cols += sorted(k for k in m if k.startswith(("speedup_vs_",
+                                                 "ttft_p99_vs_",
+                                                 "wh_per_slo_vs_",
+                                                 "goodput_vs_",
+                                                 "stream_agreement_")))
+    vals = " ".join(f"{k}={m[k]:.6g}" for k in cols if k in m)
+    log(f"[{name}] {cell}: {vals} n_tokens={m['n_tokens']} "
+        f"micro_steps={m['decode_micro_steps']} launches decode "
+        f"{m['decode_launches']} (int8 {m['decode_launches_int8']}) "
+        f"prefill {m['prefill_launches']} (int8 "
+        f"{m['prefill_launches_int8']}) wall_s={m['wall_s']:.3f} "
+        f"rel_spread={r.noise['rel_std']} power_source={r.power_source} "
+        f"model_scale={m['model_scale']} n_params={m['n_params']}")
+
+
+def check_workload_record(name: str, r, n_layers: int) -> None:
+    """The kernels a record's measured run must (and must not) have
+    launched, by its cell."""
+    m, pt = r.metrics, r.point
+    assert r.status == "ok", (name, pt, r.error)
+    assert r.power_source == "nvml_energy", (name, pt, r.power_source)
+    assert m["model_scale"] == "full", (name, pt)
+    if pt.get("cache", "paged").startswith("paged"):
+        int8 = pt["kv_dtype"] == "int8"
+        assert m["decode_launches"] == n_layers * m["decode_micro_steps"] \
+            > 0, (name, pt, m)
+        assert m["decode_launches_int8"] == (m["decode_launches"] if int8
+                                             else 0), (name, pt, m)
+        assert m["prefill_launches"] == n_layers * m["paged_prefills"], \
+            (name, pt, m)
+        assert m["prefill_launches_int8"] == (m["prefill_launches"] if int8
+                                              else 0), (name, pt, m)
+    else:                       # slotted: sdpa over dense rows, no kernel
+        assert m["decode_launches"] == m["prefill_launches"] == 0, (name, pt)
+
+
+def phase_workloads(dev, c, profile: bool = False) -> dict:
+    """The serve and serve_slo workloads through the port's bench CLI at
+    full width (see the module docstring); returns the launches counted
+    over the phase, per kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.prefill_attention import paged_prefill_attention
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_launch_counts()
+        records = {"serve": run_workload("serve", SERVE_POINTS, out),
+                   "serve_slo": [r for i, pts in enumerate(SLO_POINTS)
+                                 for r in run_workload("serve_slo", pts,
+                                                       f"{out}/{i}")]}
+        counts = dict(ops.launch_counts())
+        counts[DECODE_INT8] = paged_decode_attention.launches_int8
+        counts[INT8] = paged_prefill_attention.launches_int8
+    for name, recs in records.items():
+        for r in recs:
+            log_record(name, r)
+    for name, recs in records.items():
+        for r in recs:
+            check_workload_record(name, r, c.n_layers)
+    cells = {(r.point["cache"], r.point["policy"], r.point["kv_dtype"],
+              r.point["sched"]) for r in records["serve"]}
+    assert {("paged", "continuous", "fp32", "phased"),
+            ("slotted", "continuous", "fp32", "phased"),
+            ("paged", "continuous", "int8", "phased"),
+            ("paged", "continuous", "fp32", "chunked")} <= cells, cells
+    assert all("speedup_vs_fixed" in r.metrics for r in records["serve"])
+    slo = {(r.point["trace"], r.point["cache"], r.point["sched"]): r.metrics
+           for r in records["serve_slo"]}
+    chunked = slo["long_prefill", "paged", "chunked"]
+    phased = slo["long_prefill", "paged", "phased"]
+    hits = slo["shared_prefix", "paged+prefix", "phased"]
+    log(f"[workloads] long_prefill stream_hash phased "
+        f"{phased['stream_hash']} chunked {chunked['stream_hash']}, "
+        f"agreement {chunked['stream_agreement_vs_phased']:.4f}; "
+        f"shared_prefix paged+prefix vs paged agreement "
+        f"{hits['stream_agreement_vs_paged']:.4f}")
+    assert chunked["preemptions"] >= 1, chunked
+    assert chunked["prefill_launches"] > 0, chunked
+    assert chunked["n_tokens"] == phased["n_tokens"], (chunked, phased)
+    # the chunks after the first run the prefill kernel (fp32 scores)
+    # where phased runs bf16 sdpa over the whole prompt, so in bf16 a
+    # near-tie may flip (equal hashes hold on the CPU, in the tests): the
+    # streams are held to phase 3's agreement instead of equal hashes
+    assert chunked["stream_agreement_vs_phased"] >= STREAM_AGREEMENT, chunked
+    # where both schedulers run the same arithmetic (every serve prompt
+    # fits one chunk, no preemption) the streams are equal, bit for bit
+    serve_chunked = [r.metrics for r in records["serve"]
+                     if r.point["cache"] == "paged"
+                     and r.point["kv_dtype"] == "fp32"
+                     and r.point["sched"] == "chunked"]
+    assert serve_chunked and all(m["stream_agreement_vs_phased"] == 1.0
+                                 for m in serve_chunked), serve_chunked
+    assert hits["prefix_hit_requests"] > 0 and hits["prefill_launches"] > 0
+    for name in ("paged_decode_attention", DECODE_INT8,
+                 "paged_prefill_attention"):
+        assert counts[name] > 0, (name, counts)
+    log(f"[workloads] {sum(map(len, records.values()))} records ok; "
+        f"launches {counts}")
+    if profile:
+        profile_main_cell(dev)
+    return counts
+
+
+def profile_main_cell(dev) -> None:
+    """The serve workload's main-path cell (its engine and requests)
+    under ``torch.profiler``: its device-busy share beside its wall."""
+    from repro_torch.bench.context import RunContext
+    from repro_torch.bench.workloads import serve as wl
+    from repro_torch.serve.requests import poisson_requests
+    ctx = RunContext(device=dev, smoke=True)
+    c, engine = wl._engine(ctx, "llama3.2-3b", 4, "paged")
+    reqs = poisson_requests(wl.N_REQUESTS_SMOKE, 300.0, c.vocab,
+                            prompt_len=wl.PROMPT_LEN, seed=wl.SEED)
+    profile_serve(engine, reqs, "serve cell paged/continuous/phased/fp32")
+    del engine, ctx
+    torch.cuda.empty_cache()
 
 
 def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
@@ -1111,6 +1298,7 @@ def main() -> int:
     phase_agreement(dev)
     bench_counts = phase_bench()
     rows = phase_times(dev, counts, int8_counts, bench_counts, errs)
+    phase_workloads(dev, c, profile="--profile" in sys.argv[1:])
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,15 @@
 
   python -m repro_torch.bench list [--suite a,b] [--tags t1,t2]
   python -m repro_torch.bench run [--suite a,b] [--tags smoke] [--smoke]
-                            [--points k=v,...] [--power auto|synthetic|none]
+                            [--points k=v,...]
+                            [--power auto|nvml|synthetic|none]
                             [--warmup N] [--iters N] [--retries N]
                             [--out DIR] [--device cuda|cpu] [--quiet]
   python -m repro_torch.bench report [--suite a,b] [--out DIR]
 
 Port of ``src/repro/bench/cli.py`` (``list``, ``run``, ``report``; the
-``compare`` command and ``--promote`` wait for the compare item of
-ROADMAP Queue 1). ``run`` runs on the card unless given ``--device cpu``
+``compare`` command and ``--promote`` wait for ROADMAP Queue 1 item 2).
+``run`` runs on the card unless given ``--device cpu``
 and raises when there is none; ``--smoke`` (or the ``smoke`` tag, as in
 the reference) selects each workload's reduced point set. One process
 runs every selected workload on one device, so there is no device-count
@@ -183,8 +184,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p_run.add_argument("--points", help="axis overrides, k=v,k2=v2 "
                                         "(repeat k for multiple values)")
     p_run.add_argument("--power", default="auto", choices=POWER_CHOICES,
-                       help="power backend (default: auto = NVML on the "
-                            "card; raises elsewhere)")
+                       help="power backend (default: auto = the card's "
+                            "NVML energy counter; nvml = NVML's board "
+                            "power reading; both raise off the card)")
     p_run.add_argument("--warmup", type=int, default=1)
     p_run.add_argument("--iters", type=int, default=3)
     p_run.add_argument("--retries", type=int, default=1)

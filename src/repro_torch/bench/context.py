@@ -6,7 +6,7 @@ cross-point memo. Where the reference blocks on ``jax.block_until_ready``
 the port calls ``torch.cuda.synchronize(device)`` when the run is on the
 card (PyTorch returns before the card has finished). The context carries
 the run's explicit ``device``; the reference's ``mesh()`` has no port
-(one device only, ROADMAP Queue 1 item 12).
+(one device only, ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 

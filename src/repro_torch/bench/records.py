@@ -11,8 +11,8 @@ layout under ``artifacts/bench_torch/<workload>/`` is
 
 written through :mod:`repro_torch.core.results` so the files are atomic
 and a partially-interrupted sweep never truncates completed points. The
-reference's scaling metrics and ``compare_metrics`` wait for the
-multi-device and compare items of ROADMAP Queue 1.
+reference's scaling metrics and ``compare_metrics`` wait for ROADMAP
+Queue 1 items 8 (multi-device) and 2 (compare).
 """
 from __future__ import annotations
 

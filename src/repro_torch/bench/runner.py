@@ -7,7 +7,7 @@ with retries and straggler detection, and persist normalized
 ``ResultRecord``s incrementally + a manifest.
 
 The port runs on one device. A point whose placement spans more than one
-device raises ``NotImplementedError`` (ROADMAP Queue 1 item 12), where
+device raises ``NotImplementedError`` (ROADMAP Queue 1 item 8), where
 the reference renders a Slurm script for the cluster; the reference's
 environment tuning (``envtune``) has no port.
 """
@@ -32,7 +32,7 @@ def check_placement(placement: Placement) -> None:
         raise NotImplementedError(
             f"placement {placement.label} spans {placement.n_devices} "
             f"devices; the port runs on one device so far (ROADMAP Queue 1 "
-            f"item 12: parallel and placement)")
+            f"item 8: parallel and placement)")
 
 
 class WorkloadRunner:

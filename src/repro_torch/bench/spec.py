@@ -16,7 +16,7 @@ workload.
 ``Placement`` names a device mesh by parallelism axis (``{"dp": 4}``,
 ``{"dp": 2, "tp": 2}``), as in the reference; the port runs one device
 only so far, and the runner raises on a placement of more than one
-(ROADMAP Queue 1 item 12). The reference's jax mesh-axis mapping has no
+(ROADMAP Queue 1 item 8). The reference's jax mesh-axis mapping has no
 port.
 """
 from __future__ import annotations
@@ -142,6 +142,9 @@ class WorkloadSpec:
     smoke_axes: Optional[dict] = None  # axis overrides for smoke runs
     result_columns: Optional[list] = None
     primary_metric: Optional[str] = None  # headline column for emit lines
+    #: per-metric relative tolerances for the records' compare gate
+    #: (kept for the compare command, ROADMAP Queue 1 item 2)
+    compare_tols: Optional[dict] = None
     description: str = ""
 
     def placement_for(self, pt: dict) -> Placement:
@@ -192,7 +195,8 @@ def workload(name: str, *, analog: str, space: Space,
              placement: Union[int, str, dict, Placement, None] = None,
              tags: Iterable[str] = (), smoke: Optional[dict] = None,
              result_columns: Optional[list] = None,
-             primary_metric: Optional[str] = None):
+             primary_metric: Optional[str] = None,
+             compare_tols: Optional[dict] = None):
     """Decorator: register ``build(point, ctx)`` as a WorkloadSpec.
 
     ``placement`` names the default device mesh (``{"dp": 2, "tp": 2}``,
@@ -205,7 +209,7 @@ def workload(name: str, *, analog: str, space: Space,
             placement=Placement.of(placement),
             tags=frozenset(tags), smoke_axes=smoke,
             result_columns=result_columns, primary_metric=primary_metric,
-            description=(build.__doc__ or "").strip().splitlines()[0]
+            compare_tols=compare_tols, description=(build.__doc__ or "").strip().splitlines()[0]
             if build.__doc__ else ""))
 
     return deco

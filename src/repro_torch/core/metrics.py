@@ -6,9 +6,18 @@ Copy of the serving part of ``src/repro/core/metrics.py``:
 imports its roofline package, so the port keeps its own copy.
 
 The serve engine records per-step windows (``StepRecord``) plus
-synchronous power samples; ``attribute_energy`` integrates the sampled
-power over each step window and splits it across the requests that
-received tokens in that window, yielding Wh/token and Wh/request.
+synchronous samples; ``attribute_energy`` takes each step window's
+energy from them and splits it across the requests that received tokens
+in that window, yielding Wh/token and Wh/request.
+
+Samples are of one of two kinds (``PowerMethod.kind``): ``"power"``
+(watts; a window's energy is the trapezoid of the linearly interpolated
+power, as in the reference) or ``"energy"`` (a cumulative counter in
+joules, which the port adds for NVML's energy counter: a window's energy
+is the counter's difference across it, the counter interpolated
+linearly between the sample times at which its value changed, see
+:func:`counter_energy_wh`). Either way the windows of a run sum exactly
+to its total.
 """
 from __future__ import annotations
 
@@ -65,16 +74,59 @@ def window_energy_wh(ts: Sequence[float], ws: Sequence[float],
     return joules / J_PER_WH
 
 
-def attribute_energy(steps, ts: Sequence[float],
-                     ws: Sequence[float]) -> dict:
+def counter_nodes(ts: Sequence[float],
+                  js: Sequence[float]) -> tuple[list, list]:
+    """The points a stepped cumulative counter is interpolated through:
+    the first sample, each sample whose reading differs from the one
+    before it (the first time a new value was seen), and the last
+    sample. Between two updates the counter holds its value, so only
+    these samples say when energy arrived."""
+    if not len(ts):
+        return [], []
+    nt, nj = [ts[0]], [js[0]]
+    for i in range(1, len(ts)):
+        if js[i] != js[i - 1] or i == len(ts) - 1:
+            nt.append(ts[i])
+            nj.append(js[i])
+    return nt, nj
+
+
+def counter_energy_wh(ts: Sequence[float], js: Sequence[float],
+                      t0: float, t1: float) -> float:
+    """Energy over [t0, t1] from cumulative counter samples (joules):
+    the difference of the counter interpolated linearly between the
+    times at which its value changed (:func:`counter_nodes`), clamped
+    to the first and last samples. Windows that tile the samples' span
+    sum exactly to ``js[-1] - js[0]``."""
+    if t1 <= t0 or len(ts) < 2:
+        return 0.0
+    nt, nj = counter_nodes(ts, js)
+    return (_power_at(nt, nj, t1) - _power_at(nt, nj, t0)) / J_PER_WH
+
+
+def energy_wh(ts: Sequence[float], vals: Sequence[float], t0: float,
+              t1: float, kind: str = "power") -> float:
+    """Energy over [t0, t1] from samples of ``kind`` ``"power"`` (watts,
+    :func:`window_energy_wh`) or ``"energy"`` (cumulative joules,
+    :func:`counter_energy_wh`)."""
+    if kind == "energy":
+        return counter_energy_wh(ts, vals, t0, t1)
+    if kind != "power":
+        raise ValueError(f"sample kind {kind!r}: power or energy")
+    return window_energy_wh(ts, vals, t0, t1)
+
+
+def attribute_energy(steps, ts: Sequence[float], ws: Sequence[float],
+                     kind: str = "power") -> dict:
     """Per-request energy (Wh): each step window's energy splits equally
     across its ``rids`` (one entry per token credited). Energy outside
-    any window stays unattributed (``ServeSummary.overhead_wh``)."""
+    any window stays unattributed (``ServeSummary.overhead_wh``).
+    ``ws`` are samples of ``kind`` (see :func:`energy_wh`)."""
     out: dict = {}
     for s in steps:
         if not s.rids:
             continue
-        share = window_energy_wh(ts, ws, s.t0, s.t1) / len(s.rids)
+        share = energy_wh(ts, ws, s.t0, s.t1, kind) / len(s.rids)
         for rid in s.rids:
             out[rid] = out.get(rid, 0.0) + share
     return out
@@ -118,13 +170,15 @@ class ServeSummary:
 
 
 def serve_summary(results, steps, ts, ws,
-                  n_slots: Optional[int] = None) -> ServeSummary:
-    """Build the aggregate summary from per-request results + step log."""
+                  n_slots: Optional[int] = None,
+                  kind: str = "power") -> ServeSummary:
+    """Build the aggregate summary from per-request results + step log;
+    ``ws`` are samples of ``kind`` (see :func:`energy_wh`)."""
     results = list(results)
     ttfts = sorted(r.ttft_s for r in results) or [0.0]
     wall = (max(r.finish_s for r in results)
             - min(r.admitted_s for r in results)) if results else 0.0
-    total = window_energy_wh(ts, ws, ts[0], ts[-1]) if len(ts) > 1 else 0.0
+    total = energy_wh(ts, ws, ts[0], ts[-1], kind) if len(ts) > 1 else 0.0
     decode = [s for s in steps if s.kind == "decode"]
     micro = sum(getattr(s, "n_steps", 1) for s in decode)
     occupancy = (sum(s.n_tokens for s in decode) / (n_slots * micro)

@@ -1,12 +1,13 @@
 """Serving CLI of the port (``src/repro/launch/serve.py``, scheduled
-paged path): continuous-batching or fixed-batch service of synthetic
-Poisson load over the paged KV cache, with energy per token.
+path): continuous-batching or fixed-batch service of synthetic Poisson
+load over the paged (default) or slotted KV cache, with energy per
+token.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --preset full --mode continuous --slots 8 --requests 32 --rate 50
 
-Runs on the CUDA card by default (power from NVML); ``--device cpu``
-runs the plain PyTorch path with synthetic power.
+Runs on the CUDA card by default (energy from NVML's counter);
+``--device cpu`` runs the plain PyTorch path with synthetic power.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.power.methods import NvmlPower, SyntheticPower
+from repro_torch.power.methods import NvmlEnergy, SyntheticPower
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.requests import poisson_requests
 
@@ -29,7 +30,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mode", choices=["continuous", "fixed"],
                     default="continuous")
-    ap.add_argument("--cache", choices=["paged"], default="paged")
+    ap.add_argument("--cache", choices=["slotted", "paged"], default="paged")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -50,13 +51,13 @@ def main(argv=None):
     params = lm.init(c, torch.Generator(device=dev).manual_seed(args.seed),
                      dev)
     if dev.type == "cuda":
-        methods, source = [NvmlPower(dev.index or 0)], "nvml"
+        methods, source = [NvmlEnergy(dev.index or 0)], "nvml_energy"
     else:
         methods, source = [SyntheticPower()], "synthetic"
     max_len = args.prompt_len + args.gen + 1
     max_len = -(-max_len // args.block_size) * args.block_size
     engine = ServeEngine(c, params, n_slots=args.slots, max_len=max_len,
-                         block_size=args.block_size,
+                         cache=args.cache, block_size=args.block_size,
                          prefix_cache=args.prefix_cache, device=dev,
                          power_methods=methods)
     engine.warmup(prompt_len=args.prompt_len)

@@ -8,12 +8,13 @@ weights are cast back to q.dtype before the PV product.
 Ported: ``qkv_proj``, ``make_causal_mask``, ``sdpa`` (the reference's
 ``impl="repeat"`` formulation), ``out_proj``, ``attend`` (unchunked),
 ``prefill_attention`` (dense and paged-prefix branches),
-``_quantized_block_write`` and ``decode_attention`` (paged branch), each
-paged branch on fp pools and on int8 pools with their scales. The paged
-branches call ``repro_torch.kernels.ops``, which launches the CUDA
-kernels for CUDA tensors. Not yet ported, each raising
-``NotImplementedError``: the q-chunked path (``sdpa_chunked_q``) and the
-slotted and scalar-position decode branches.
+``_quantized_block_write`` and ``decode_attention`` (its paged branch,
+and its dense per-row and shared-position branches), each paged branch
+on fp pools and on int8 pools with their scales. The paged branches call
+``repro_torch.kernels.ops``, which launches the CUDA kernels for CUDA
+tensors; the dense branches go through ``sdpa``, as in the reference.
+Not yet ported, raising ``NotImplementedError``: the q-chunked path
+(``sdpa_chunked_q``).
 """
 from __future__ import annotations
 
@@ -117,7 +118,7 @@ def attend(c: ModelConfig, q, k, v, *, causal: bool) -> torch.Tensor:
     if b * c.n_heads * s * t > CHUNK_THRESHOLD:
         raise NotImplementedError(
             "sdpa_chunked_q (score tensors above CHUNK_THRESHOLD) is not "
-            "ported yet: ROADMAP Queue 1 item 3")
+            "ported yet: ROADMAP Queue 1 item 5")
     mask = None
     if causal:
         mask = make_causal_mask(s, t, c.attn_window, device=q.device)[None, None]
@@ -176,32 +177,39 @@ def _quantized_block_write(pool: torch.Tensor, scale: torch.Tensor,
 
 def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     pos: torch.Tensor, *,
+                     pos, *,
                      block_tables: Optional[torch.Tensor] = None,
                      n_kv_blocks: Optional[int] = None,
                      cache_k_scale: Optional[torch.Tensor] = None,
                      cache_v_scale: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """One-token decode against the paged KV pool.
+    """One-token decode against a KV cache, which is UPDATED IN PLACE
+    (the reference returns new caches instead). x: (B, 1, D). Returns
+    out (B, 1, D).
 
-    x: (B, 1, D); cache_k/v: one layer's pools ``(n_blocks, bs, Kh, Dh)``,
-    UPDATED IN PLACE: the new token's K/V is written at
-    ``(block_tables[b, pos // bs], pos % bs)`` (the reference returns new
-    pools instead). pos: (B,) int per-slot positions; idle slots park at a
-    position whose table column is the trash block 0. Attention walks the
-    first ``n_kv_blocks`` table columns, masked by true length pos + 1.
-    ``cache_k_scale``/``cache_v_scale`` (n_blocks, Kh) fp32 mark an int8
-    pool: the token goes in through :func:`_quantized_block_write` (the
-    scales updated in place too) and the kernel dequantizes with them.
-    Returns out (B, 1, D).
+    Paged (``block_tables`` given): cache_k/v are one layer's pools
+    ``(n_blocks, bs, Kh, Dh)``; the new token's K/V is written at
+    ``(block_tables[b, pos // bs], pos % bs)``. pos: (B,) per-slot
+    positions; idle slots park at a position whose table column is the
+    trash block 0. Attention walks the first ``n_kv_blocks`` table
+    columns through ``kernels.ops.paged_decode_attention``, masked by true
+    length pos + 1. ``cache_k_scale``/``cache_v_scale`` (n_blocks, Kh)
+    fp32 mark an int8 pool: the token goes in through
+    :func:`_quantized_block_write` (the scales updated in place too) and
+    the kernel dequantizes with them.
+
+    Dense (no tables): cache_k/v ``(B, T, Kh, Dh)``, through :func:`sdpa`
+    as in the reference, where no kernel carries it. ``pos`` is a (B,)
+    tensor of per-row positions (the slotted serve engine: a row
+    scatter, and a (B, T) mask that also applies the window), or one
+    position shared by every row (an int or a 0-d tensor: a slice write,
+    and with a window shorter than T attention over the window's slice
+    only).
     """
     if block_tables is None:
-        raise NotImplementedError(
-            "slotted decode is not ported yet: ROADMAP Queue 1 item 3")
+        return _dense_decode(c, p, x, cache_k, cache_v, pos)
     if pos.ndim != 1:
-        raise NotImplementedError(
-            "scalar-position decode is not ported yet: ROADMAP Queue 1 "
-            "item 3")
+        raise ValueError("paged decode needs per-slot positions (B,)")
     q, k_new, v_new = qkv_proj(c, p, x, pos[:, None] if c.use_rope else None)
     bs = cache_k.shape[1]
     nb = n_kv_blocks if n_kv_blocks is not None else block_tables.shape[1]
@@ -219,3 +227,43 @@ def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
                                       k_scale=cache_k_scale,
                                       v_scale=cache_v_scale)
     return out_proj(p, out[:, None].to(q.dtype))
+
+
+def _dense_decode(c: ModelConfig, p: Params, x: torch.Tensor,
+                  cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  pos) -> torch.Tensor:
+    """The reference's two dense branches of ``decode_attention``
+    (``src/repro/models/attention.py:440-470``), writing in place."""
+    b = x.shape[0]
+    t = cache_k.shape[1]
+    w = c.attn_window
+    per_slot = torch.is_tensor(pos) and pos.ndim == 1
+    if per_slot:
+        positions = pos.long()[:, None]                           # (B, 1)
+    else:
+        pos = int(pos)
+        positions = torch.full((b, 1), pos, dtype=torch.long,
+                               device=x.device)
+    q, k_new, v_new = qkv_proj(c, p, x, positions if c.use_rope else None)
+    if per_slot:
+        # independent write position per batch row (slot): row scatter
+        rows = torch.arange(b, device=x.device)
+        cache_k[rows, positions[:, 0]] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[rows, positions[:, 0]] = v_new[:, 0].to(cache_v.dtype)
+        kpos = torch.arange(t, device=x.device)[None, :]
+        m = kpos <= positions                                     # (B, T)
+        if w is not None and w < t:
+            # per-row starts preclude a shared slice; mask instead
+            m = m & (kpos > positions - w)
+        return out_proj(p, sdpa(q, cache_k, cache_v, m[:, None, None, :]))
+    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    if w is not None and w < t:
+        start = min(max(pos - w + 1, 0), t - w)
+        k_att, v_att = cache_k[:, start:start + w], cache_v[:, start:start + w]
+        kpos = torch.arange(start, start + w, device=x.device)
+    else:
+        k_att, v_att = cache_k, cache_v
+        kpos = torch.arange(t, device=x.device)
+    mask = (kpos <= pos)[None, None, None, :]
+    return out_proj(p, sdpa(q, k_att, v_att, mask))

@@ -4,9 +4,10 @@ Port of ``src/repro/models/blocks.py`` (``stack_prefill`` and
 ``stack_decode``). The reference scans over the stacked layer leaves;
 here a Python loop indexes them. Parameters keep the reference's tree,
 ``{"slot0": {...}}`` with leading axis ``n_layers`` (a dense stack has a
-period of one layer). Paged caches stay stacked as
+period of one layer). Caches stay stacked, as paged pools
 ``(L, n_blocks, bs, Kh, Dh)`` (int8 pools with ``(L, n_blocks, Kh)``
-scale leaves beside them) and decode updates them in place.
+scale leaves beside them) or dense slotted rows ``(L, B, T, Kh, Dh)``,
+and decode updates them in place.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ def check_family(c: ModelConfig) -> None:
     if c.family != "dense":
         raise NotImplementedError(
             f"family {c.family!r} is not ported yet: ROADMAP Queue 1 "
-            "item 10 (the port runs dense decoders)")
+            "item 6 (the port runs dense decoders)")
 
 
 def layer(tree: Params, i: int) -> Params:
@@ -80,9 +81,10 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
                  block_tables: Optional[torch.Tensor] = None,
                  n_kv_blocks: Optional[int] = None):
     """One-token decode through the stack; every layer writes its token
-    into its own pool slice (and, on an int8 pool, its scale slice) and
-    reads the same ``(B, max_blocks)`` block table. Returns (x, caches) —
-    the caches object itself, updated."""
+    into its own cache slice: with ``block_tables``, its pool (and, on
+    an int8 pool, its scale slice) through the same ``(B, max_blocks)``
+    table; without, its dense rows at ``pos`` (per row, or shared).
+    Returns (x, caches) — the caches object itself, updated."""
     check_family(c)
     stack = layers["slot0"]
     pool = caches["slot0"]

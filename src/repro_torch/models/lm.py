@@ -92,12 +92,19 @@ def prefill(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
 
 
 def decode_step(c: ModelConfig, p: Params, token: torch.Tensor,
-                caches: Params, pos: torch.Tensor, *,
+                caches: Params, pos, *,
                 block_tables: Optional[torch.Tensor] = None,
                 n_kv_blocks: Optional[int] = None):
-    """token: (B, 1); pos: (B,) per-slot positions. The paged pools in
-    ``caches`` are updated in place. Returns (logits, caches)."""
-    x = embed_tokens(c, p["embed"], token, pos[:, None])
+    """token: (B, 1); pos: (B,) per-slot positions, or one position
+    shared by every row (an int or a 0-d tensor; dense caches only).
+    ``block_tables`` selects the paged pools, else ``caches`` holds dense
+    rows (the slotted cache). The caches are updated in place. Returns
+    (logits, caches)."""
+    if torch.is_tensor(pos) and pos.ndim == 1:
+        positions = pos[:, None]
+    else:
+        positions = torch.full_like(token, int(pos))
+    x = embed_tokens(c, p["embed"], token, positions)
     x, caches = blocks.stack_decode(c, p["layers"], x, caches, pos,
                                     block_tables=block_tables,
                                     n_kv_blocks=n_kv_blocks)

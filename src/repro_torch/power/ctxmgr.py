@@ -12,8 +12,12 @@ Copy of ``src/repro/power/ctxmgr.py`` with imports rewritten. Usage
     energy_df, additional = measured_scope.energy()
 
 A background thread samples every method periodically; at exit, samples are
-trapezoid-integrated to energy (Wh). ``df_suffix`` supports ``%q{VAR}``
-environment interpolation for per-rank files, as in jpwr.
+trapezoid-integrated to energy (Wh). A method of ``kind == "energy"`` (a
+cumulative counter, the port's ``NvmlEnergy``) has its column read as
+the counter's difference between the first and last samples instead,
+and a failed read of such a method is raised by ``energy()`` rather than
+skipped. ``df_suffix`` supports ``%q{VAR}`` environment interpolation
+for per-rank files, as in jpwr.
 """
 from __future__ import annotations
 
@@ -44,9 +48,16 @@ class MeasuredScope:
         self.interval = interval_ms / 1000.0
         self.clock = clock
         cols = ["t"]
+        #: columns that hold a cumulative energy counter (joules)
+        self.counter_cols: set = set()
         for m in self.methods:
-            cols += [f"{m.name}:{d}" for d in m.devices()]
+            names = [f"{m.name}:{d}" for d in m.devices()]
+            cols += names
+            if m.kind == "energy":
+                self.counter_cols.update(names)
         self.df = Frame(cols)
+        #: failed reads of counter methods: (method name, exception)
+        self.counter_errors: list = []
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.t0 = 0.0
@@ -59,8 +70,11 @@ class MeasuredScope:
             try:
                 for d, w in m.read().items():
                     row[f"{m.name}:{d}"] = w
-            except Exception:
-                pass  # a failing backend must not kill the measurement loop
+            except Exception as e:  # noqa: BLE001 - the loop keeps running
+                # a failing power backend must not kill the measurement
+                # loop; a failing counter is raised by energy()
+                if m.kind == "energy":
+                    self.counter_errors.append((m.name, e))
         self.df.append(row)
 
     def _loop(self):
@@ -86,17 +100,26 @@ class MeasuredScope:
         """Returns (energy_df, additional_data) like jpwr.
 
         energy_df rows: device, energy_wh, avg_power_w, duration_s.
+        A counter column's energy is its last reading less its first.
         """
+        if self.counter_errors:
+            name, e = self.counter_errors[0]
+            raise RuntimeError(f"energy counter {name!r} failed to read "
+                               f"({len(self.counter_errors)} times): {e}")
         ts = self.df.col("t")
         records = []
         additional = {"samples": self.df}
         for col in self.df.columns[1:]:
             ws = self.df.col(col)
             joules = 0.0
-            for i in range(1, len(ts)):
-                if ws[i] is None or ws[i - 1] is None:
-                    continue
-                joules += 0.5 * (ws[i] + ws[i - 1]) * (ts[i] - ts[i - 1])
+            if col in self.counter_cols:
+                if len(ws) > 1:
+                    joules = ws[-1] - ws[0]
+            else:
+                for i in range(1, len(ts)):
+                    if ws[i] is None or ws[i - 1] is None:
+                        continue
+                    joules += 0.5 * (ws[i] + ws[i - 1]) * (ts[i] - ts[i - 1])
             dur = ts[-1] - ts[0] if len(ts) > 1 else 0.0
             records.append({
                 "device": col,

@@ -1,24 +1,33 @@
-"""Paged KV cache: device block pools, host allocator, prefix index.
+"""KV caches: the slotted row pool, and the paged block pools with their
+host allocator and prefix index.
 
-Port of the paged part of ``src/repro/serve/cache.py``:
-``PagedKVCache`` (trash block 0, host free list, ``ensure``/``free``/
-``adopt``/``make_writable``, the prefix-cache methods,
-``device_tables`` and the int8 pool layout), ``_quantize_block``,
-``insert_paged_prefill``, ``copy_blocks`` and a copy of
-``PrefixIndex``.
+Port of ``src/repro/serve/cache.py``: the slotted-cache ops
+(``grow_caches``, ``slotted_cache``, ``insert_slot``, ``reset_slot``,
+``insert_rows``, ``compact_slots``), ``PagedKVCache`` (trash block 0,
+host free list, ``ensure``/``free``/``adopt``/``make_writable``, the
+prefix-cache methods, ``device_tables`` and the int8 pool layout),
+``_quantize_block``, ``insert_paged_prefill``, ``copy_blocks`` and a
+copy of ``PrefixIndex``.
 
-Attention K/V lives in fixed-size blocks inside one shared pool per
-layer, addressed through per-slot block tables. Block 0 is the *trash
+The slotted cache keeps one dense row of ``max_len`` positions per slot:
+k/v leaves ``(L, n_slots, max_len, Kh, Dh)`` in the model's activation
+dtype. Decode writes a slot's token at its own position and attends over
+the whole row under a position mask (``models.attention.
+decode_attention``), so no kernel carries it, in the reference as here.
+
+In the paged layout attention K/V lives in fixed-size blocks inside one
+shared pool per layer, addressed through per-slot block tables. Block 0 is the *trash
 block*: every unowned table column points at it, so idle slots riding
 along in a batched decode step write their dead tokens there.
 
-Where the reference rebuilds its pools functionally under donation, the
-port updates the pool tensors in place. The reference also relies on
-JAX's ``mode="drop"`` scatter to discard the engine's padding rows
-(pad block ids are ``n_blocks``); torch would raise on such indices, so
-the port masks them out explicitly on the host before scattering.
+Where the reference rebuilds its caches functionally under donation, the
+port updates the tensors in place. The reference also relies on JAX's
+``mode="drop"`` scatter to discard the engine's padding rows (pad block
+ids are ``n_blocks``, pad slot ids ``n_slots``); torch would raise on
+such indices, so the port masks them out explicitly on the host before
+scattering.
 
-Cache tree: ``{"slot0": {"k", "v"}}`` with leaves
+Paged cache tree: ``{"slot0": {"k", "v"}}`` with leaves
 ``(L, n_blocks, block_size, Kh, Dh)`` in the model's activation dtype;
 with ``kv_dtype="int8"`` the k/v leaves hold int8 codes and
 ``"k_scale"``/``"v_scale"`` leaves ``(L, n_blocks, Kh)`` fp32 hold their
@@ -54,6 +63,81 @@ def _rows_to_blocks(small: torch.Tensor, block_size: int) -> torch.Tensor:
         s += pad
     return small.reshape((l, kp * (s // block_size), block_size)
                          + tuple(small.shape[3:]))
+
+
+def grow_caches(caches: Params, max_len: int) -> Params:
+    """A new tree with every k/v leaf's T axis (axis 2) zero-padded up to
+    ``max_len`` rows (the fixed-batch policy grows prompt caches for
+    decode with it, and slot insertion a prefill row to slot
+    capacity)."""
+    out = {}
+    for slot, tree in caches.items():
+        out[slot] = {}
+        for name, leaf in tree.items():
+            pad = max_len - leaf.shape[2]
+            if pad < 0:
+                raise ValueError(f"{name} has {leaf.shape[2]} rows > "
+                                 f"max_len {max_len}")
+            out[slot][name] = torch.nn.functional.pad(
+                leaf, (0, 0, 0, 0, 0, pad))
+    return out
+
+
+def slotted_cache(c: ModelConfig, n_slots: int, max_len: int, *,
+                  device: torch.device) -> Params:
+    """Zero cache pool of ``n_slots`` rows of ``max_len`` capacity:
+    ``{"slot0": {"k", "v"}}`` with leaves ``(L, n_slots, max_len, Kh,
+    Dh)`` in the model's activation dtype, then only updated in place."""
+    check_family(c)
+    shape = (c.n_layers, n_slots, max_len, c.n_kv_heads, c.d_head)
+    return {"slot0": {name: torch.zeros(shape, dtype=dtype_of(c),
+                                        device=device)
+                      for name in ("k", "v")}}
+
+
+def insert_slot(caches: Params, row: Params, slot: int) -> Params:
+    """Write a batch-1 cache tree into batch row ``slot`` of the pool, in
+    place: its leaves fill the row from position 0 (the old content past
+    them stays, masked by position until decode overwrites it)."""
+    for name, small in row["slot0"].items():
+        big = caches["slot0"][name]
+        big[:, slot:slot + 1, :small.shape[2]] = small.to(big.dtype)
+    return caches
+
+
+def reset_slot(caches: Params, slot: int) -> Params:
+    """Zero batch row ``slot`` of every leaf, in place."""
+    for leaf in caches["slot0"].values():
+        leaf[:, slot] = 0
+    return caches
+
+
+def insert_rows(caches: Params, rows: Params, slots) -> Params:
+    """Batched :func:`insert_slot`, in place: ``rows`` holds ``Kp``
+    prefill results (k/v leaves ``(L, Kp, S, Kh, Dh)``, ``S <= max_len``)
+    and ``slots`` (host, ``(Kp,)`` ints) their pool rows; rows
+    ``[S, max_len)`` of a target keep what they held. Slot ids out of
+    range — the pad rows of the batched prefill carry ``n_slots`` — are
+    DROPPED, as the reference's ``mode="drop"`` scatter drops them; torch
+    would raise on them, so they are masked out here."""
+    slots = np.asarray(slots).reshape(-1)
+    for name, small in rows["slot0"].items():
+        big = caches["slot0"][name]
+        keep = np.nonzero((slots >= 0) & (slots < big.shape[1]))[0]
+        if not len(keep):
+            continue
+        dst = _idx(slots[keep], big)
+        big[:, dst, :small.shape[2]] = small[:, _idx(keep, small)].to(
+            big.dtype)
+    return caches
+
+
+def compact_slots(caches: Params, perm) -> Params:
+    """Gather batch rows by ``perm`` (``(n_slots,)``), in place: row ``i``
+    takes what row ``perm[i]`` held (packs active slots to the front)."""
+    for leaf in caches["slot0"].values():
+        leaf.copy_(leaf.index_select(1, _idx(np.asarray(perm), leaf)))
+    return caches
 
 
 def _quantize_block(blk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

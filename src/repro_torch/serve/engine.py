@@ -1,12 +1,18 @@
-"""Serving engine: continuous and fixed-batch policies over the paged KV
-cache, with energy-per-token accounting.
+"""Serving engine: continuous and fixed-batch policies over the paged or
+slotted KV cache, with energy-per-token accounting.
 
-Port of ``src/repro/serve/engine.py`` (``ServeEngine``) for
-``cache="paged"``: both schedulers (``sched="phased"`` and
-``"chunked"``), both pool layouts (``kv_dtype="fp32"`` and ``"int8"``)
-and the prefix cache off or on. The decode hot path keeps the
+Port of ``src/repro/serve/engine.py`` (``ServeEngine``): both cache
+layouts (``cache="paged"`` and ``"slotted"``), both schedulers
+(``sched="phased"`` and ``"chunked"``, the latter paged only), both pool
+layouts (``kv_dtype="fp32"`` and ``"int8"``, the latter paged only) and
+the prefix cache off or on (paged only). The decode hot path keeps the
 reference's mechanisms:
 
+  * **slotted KV** — ``serve.cache.slotted_cache``: one dense
+    ``max_len`` row per slot; a prefill batch lands through
+    ``insert_rows`` and decode writes each slot's token at its own
+    position and attends over the row under a position mask (``sdpa``;
+    no kernel carries it, in the reference as here);
   * **paged KV** — ``serve.cache.PagedKVCache``: fixed-size blocks in a
     shared pool addressed by per-slot block tables; decode attention
     walks only the first ``nb`` table columns (``nb`` bucketed to the
@@ -43,10 +49,11 @@ Two scheduler modes share the loop (``sched=``):
     never-preempted one.
 
 The reference's JIT programs become eager calls and its donated buffers
-become in-place updates of the pool. Energy: every step window is
-bracketed by synchronous ``PowerMethod`` samples and
-``core.metrics.attribute_energy`` integrates over it (Wh/token,
-Wh/request).
+become in-place updates of the cache. Energy: every step window is
+bracketed by synchronous ``PowerMethod`` samples — board power in watts,
+or a cumulative energy counter in joules (NVML's, ``power_source=
+"nvml_energy"``) — and ``core.metrics.attribute_energy`` takes each
+window's energy from them (Wh/token, Wh/request).
 
 Beyond the reference, the engine counts ``replayed_tokens`` (forced
 decode inputs of resumed requests) and ``paged_prefills`` (batched
@@ -54,8 +61,8 @@ prefill calls that attended over pool blocks: prefix hits and chunks
 after the first) in the last ``serve()``.
 
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
-item: the slotted cache, deadlines and shedding, slot faults, the
-scripted (callable-driven) mode, and ``generate``/``BatchedServer``.
+item: deadlines and shedding, slot faults, the scripted (callable-driven)
+mode, and ``generate``/``BatchedServer``.
 """
 from __future__ import annotations
 
@@ -74,7 +81,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.blocks import check_family
 from repro_torch.serve.cache import (
-    CacheOOM, PagedKVCache, copy_blocks, insert_paged_prefill,
+    CacheOOM, PagedKVCache, copy_blocks, insert_paged_prefill, insert_rows,
+    slotted_cache,
 )
 from repro_torch.serve.requests import Request, RequestResult
 from repro_torch.serve.scheduler import Scheduler, Slot, StepRecord
@@ -92,25 +100,32 @@ class ServeRunResult:
 
     results: list                 # RequestResult, completion order
     steps: list                   # StepRecord log (energy attribution)
-    sample_ts: list               # synchronous power sample times
-    sample_ws: list               # total watts at each sample
+    sample_ts: list               # synchronous sample times
+    #: the readings summed over the engine's methods at each sample:
+    #: watts (``sample_kind == "power"``) or cumulative joules
+    #: (``"energy"``)
+    sample_ws: list
     summary: ServeSummary
+    sample_kind: str = "power"
 
     def by_rid(self) -> dict:
         return {r.rid: r for r in self.results}
 
 
 class ServeEngine:
-    """Serving engine over the paged KV cache (see module docstring).
+    """Serving engine over the paged or slotted KV cache (see module
+    docstring).
 
     ``params`` is the model's parameter tree (``lm.init`` or
     ``bridge.params_from_numpy``) on ``device`` — the CUDA card unless
     the caller passes ``device="cpu"``. ``max_len`` is the total
-    per-slot capacity (prompt + generated tokens); ``decode_window`` caps
-    how many decode steps a fused run keeps in flight (1 syncs every
-    token). ``kv_dtype`` picks the pool layout (``"fp32"``: the model's
-    activation dtype; ``"int8"``: codes + scales); ``sched`` and
-    ``chunk_tokens`` are the default scheduler of ``serve()``.
+    per-slot capacity (prompt + generated tokens); ``cache`` the layout
+    (``"paged"``, the port's default, or ``"slotted"``, the reference's);
+    ``decode_window`` caps how many decode steps a fused run keeps in
+    flight (1 syncs every token). ``kv_dtype`` picks the pool layout
+    (``"fp32"``: the model's activation dtype; ``"int8"``: codes +
+    scales); ``sched`` and ``chunk_tokens`` are the default scheduler of
+    ``serve()``. ``power_methods`` must all be of one ``kind``.
     """
 
     def __init__(self, c: ModelConfig, params: Params, *,
@@ -123,15 +138,26 @@ class ServeEngine:
                  prefill_fn: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None,
                  power_methods: Sequence = ()):
-        if cache != "paged":
-            raise _todo(f"cache={cache!r}", "Queue 1 item 6 (slotted cache)")
+        if cache not in ("slotted", "paged"):
+            raise ValueError(f"cache {cache!r}: slotted or paged")
         if sched not in ("phased", "chunked"):
             raise ValueError(f"sched {sched!r}: phased or chunked")
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: fp32 or int8")
+        if prefix_cache and cache != "paged":
+            raise ValueError("prefix caching shares KV blocks: it needs "
+                             "cache='paged'")
+        if kv_dtype != "fp32" and cache != "paged":
+            raise ValueError("int8 KV quantizes pool blocks: it needs "
+                             "cache='paged'")
         if prefill_fn is not None or decode_fn is not None:
             raise _todo("scripted mode (prefill_fn/decode_fn)",
-                        "Queue 1 item 7")
+                        "Queue 1 item 4")
+        power_methods = list(power_methods)
+        kinds = {m.kind for m in power_methods}
+        if len(kinds) > 1:
+            raise ValueError(f"power methods of mixed kinds {sorted(kinds)}: "
+                             "watts and joules cannot be summed")
         check_family(c)
         self.device = resolve_device(device)
         leaf = params["embed"]["tok"]
@@ -140,6 +166,7 @@ class ServeEngine:
                              f"{self.device}")
         self.c, self.params = c, params
         self.n_slots, self.max_len = n_slots, max_len
+        self.cache_kind = cache
         self.block_size = block_size
         self._n_blocks = n_blocks
         self.prefix_cache = prefix_cache
@@ -151,7 +178,8 @@ class ServeEngine:
         self.replayed_tokens = 0      # replayed decode inputs, last serve()
         self.paged_prefills = 0       # prefill calls over pool blocks
         self.clock = time.monotonic
-        self.power_methods = list(power_methods)
+        self.power_methods = power_methods
+        self.power_kind = kinds.pop() if kinds else "power"
         self.prefix_stats: dict = self._blank_prefix_stats()
         self._paged: Optional[PagedKVCache] = None
         #: admission-control ledger: slot -> reserved block demand
@@ -160,7 +188,7 @@ class ServeEngine:
         #: available-block count snapshotted when admission last deferred
         #: the queue head; admission retries only once it changes
         self._defer_free_blocks: Optional[int] = None
-        self.caches: Params = None   # the pool tree, allocated on first use
+        self.caches: Params = None   # the cache tree, allocated on first use
 
     # ------------------------------------------------------------------
     # Cache + bucketing
@@ -168,6 +196,10 @@ class ServeEngine:
 
     def _ensure_cache(self):
         if self.caches is not None:
+            return
+        if self.cache_kind == "slotted":
+            self.caches = slotted_cache(self.c, self.n_slots, self.max_len,
+                                        device=self.device)
             return
         self._paged = PagedKVCache(self.c, self.n_slots, self.max_len,
                                    block_size=self.block_size,
@@ -205,6 +237,10 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def _free_paged_slot(self, slot_index: int) -> None:
+        """Return a finished slot's blocks (a slotted row needs no
+        freeing: the next prefill overwrites it)."""
+        if self._paged is None:
+            return
         self._paged.free(slot_index)
         self._slot_cap.pop(slot_index, None)
 
@@ -347,8 +383,10 @@ class ServeEngine:
         group's first tokens. With the prefix cache on, each prompt is
         matched against the index first: a hit of ``npre`` full blocks
         adopts them (shared, refcounted) and prefills only the suffix.
-        Every prompt then registers its own full blocks."""
+        Every prompt then registers its own full blocks. A slotted cache
+        takes the rows into the slots' own rows (``insert_rows``)."""
         bs = self.block_size
+        paged = self._paged is not None
         groups: dict[tuple, list] = {}
         for slot in admitted:
             pre: list = []
@@ -375,16 +413,22 @@ class ServeEngine:
                 if npre:
                     pre_blocks[i] = pre
             first, rows = self._prefill(tokens, last, npre, pre_blocks)
-            blocks = np.full((kp, -(-bucket // bs)), self._paged.n_blocks,
-                             np.int64)                       # pad: dropped
-            for i, (slot, pre) in enumerate(entries):
-                plen = slot.request.prompt_len
-                if npre:
-                    self._paged.adopt(slot.index, pre)
-                self._paged.ensure(slot.index, plen)
-                own = self._paged.block_ids(slot.index, plen)[npre:]
-                blocks[i, :len(own)] = own
-            insert_paged_prefill(self.caches, rows, blocks, block_size=bs)
+            if paged:
+                blocks = np.full((kp, -(-bucket // bs)),
+                                 self._paged.n_blocks, np.int64)  # pad: dropped
+                for i, (slot, pre) in enumerate(entries):
+                    plen = slot.request.prompt_len
+                    if npre:
+                        self._paged.adopt(slot.index, pre)
+                    self._paged.ensure(slot.index, plen)
+                    own = self._paged.block_ids(slot.index, plen)[npre:]
+                    blocks[i, :len(own)] = own
+                insert_paged_prefill(self.caches, rows, blocks,
+                                     block_size=bs)
+            else:
+                slot_ids = np.full((kp,), self.n_slots)      # pad: dropped
+                slot_ids[:len(entries)] = [s.index for s, _pre in entries]
+                insert_rows(self.caches, rows, slot_ids)
             if self.prefix_cache:
                 st = self.prefix_stats
                 st["hit_requests" if npre else "miss_requests"] += len(entries)
@@ -552,13 +596,12 @@ class ServeEngine:
         k = min(k, min(self.max_len - s.pos for s in active))
         return max(1, min(k, self.decode_window))
 
-    def _model_decode_run(self, sched: Scheduler, active, k: int, results,
-                          steps, ts, ws, allow_preempt: bool = False):
-        """Run ``k`` decode steps with the token stream chained on the
-        device, then drain all outputs in one ``.cpu()``. Under the
-        chunked scheduler (``allow_preempt``) growth past the optimistic
-        reservation preempts younger slots, oldest first; a replaying
-        slot consumes its forced inputs and emits only after the last."""
+    def _grow_for_decode(self, sched: Scheduler, active, k: int, results,
+                         allow_preempt: bool) -> list:
+        """Grow every active slot's blocks to cover ``k`` more tokens
+        (preempting younger slots, oldest first, under the chunked
+        scheduler) and copy out any shared block under a write cursor.
+        Returns the slots still decoding."""
         if allow_preempt:
             for s in sorted(active, key=lambda s: (s.request.arrival_s
                                                    if s.request else 0.0,
@@ -567,8 +610,6 @@ class ServeEngine:
                     continue    # preempted by an older slot's growth
                 self._ensure_with_preempt(sched, s, s.pos + k, results)
             active = [s for s in active if s.decoding]
-            if not active:
-                return
         else:
             for s in active:
                 self._paged.ensure(s.index, s.pos + k)
@@ -584,8 +625,25 @@ class ServeEngine:
                 dsts += dc
             if srcs:
                 copy_blocks(self.caches, srcs, dsts)
-        tables = self._paged.device_tables()
-        nb = self._nb_bucket(self._paged.max_owned())
+        return active
+
+    def _model_decode_run(self, sched: Scheduler, active, k: int, results,
+                          steps, ts, ws, allow_preempt: bool = False):
+        """Run ``k`` decode steps with the token stream chained on the
+        device, then drain all outputs in one ``.cpu()``. Under the
+        chunked scheduler (``allow_preempt``) growth past the optimistic
+        reservation preempts younger slots, oldest first; a replaying
+        slot consumes its forced inputs and emits only after the last.
+        A slotted cache needs no growth and no tables."""
+        paged_kw = {}
+        if self._paged is not None:
+            active = self._grow_for_decode(sched, active, k, results,
+                                           allow_preempt)
+            if not active:
+                return
+            paged_kw = dict(block_tables=self._paged.device_tables(),
+                            n_kv_blocks=self._nb_bucket(
+                                self._paged.max_owned()))
         tok = self._tensor(sched.input_tokens())
         pos0 = self._tensor(sched.positions(), torch.int32)
         adv = self._tensor(sched.active_mask(), torch.int32)  # idle rows park
@@ -596,7 +654,7 @@ class ServeEngine:
         for i in range(k):
             logits, _ = lm.decode_step(self.c, self.params, tok[:, None],
                                        self.caches, pos0 + i * adv,
-                                       block_tables=tables, n_kv_blocks=nb)
+                                       **paged_kw)
             tok = logits[:, -1].argmax(-1)
             outs.append(tok)
         outs_np = torch.stack(outs).cpu().numpy()   # pipeline drain: one sync
@@ -636,10 +694,11 @@ class ServeEngine:
 
     def warmup(self, prompt_len: int = 8,
                requests: Optional[Sequence[Request]] = None,
-               repeat: int = 1):
-        """Serve a throwaway request set with power sampling detached, so
-        first-call set-up (CUDA context, library handles, allocator)
-        stays outside measured runs; the prefix index is cleared after."""
+               repeat: int = 1, sched: Optional[str] = None):
+        """Serve a throwaway request set (under ``sched``, default the
+        engine's) with power sampling detached, so first-call set-up
+        (CUDA context, library handles, allocator) stays outside measured
+        runs; the prefix index is cleared after."""
         if requests is None:
             budget = max(self.max_len - prompt_len, 1)
             requests = [Request(rid=-(i + 1),
@@ -650,7 +709,7 @@ class ServeEngine:
         self.power_methods = []
         try:
             for _ in range(max(int(repeat), 1)):
-                self.serve(requests, policy="continuous")
+                self.serve(requests, policy="continuous", sched=sched)
         finally:
             self.power_methods = saved
             self.reset_prefix_cache()
@@ -666,6 +725,9 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def _sample_power(self, ts: list, ws: list):
+        """One sample of every power method, summed (watts, or joules of
+        a cumulative counter). A failing read raises: no reading is
+        substituted."""
         if not self.power_methods:
             return
         w = sum(sum(m.read().values()) for m in self.power_methods)
@@ -679,20 +741,24 @@ class ServeEngine:
         (``continuous`` or ``fixed``). ``arrival_s`` is relative to the
         run start; the engine sleeps while the queue is empty and slots
         are idle. ``sched`` overrides the engine's scheduler for this
-        run; a chunked run needs ``chunk_tokens`` to be a positive
-        multiple of ``block_size`` (chunk edges land on block edges)."""
+        run; a chunked run needs the paged cache (preemption reclaims
+        blocks) and ``chunk_tokens`` a positive multiple of
+        ``block_size`` (chunk edges land on block edges)."""
         mode = sched or self.sched
         if mode not in ("phased", "chunked"):
             raise ValueError(f"sched {mode!r}: phased or chunked")
+        if mode == "chunked" and self.cache_kind != "paged":
+            raise ValueError("chunked prefill and preemption need "
+                             "block-granular reclaim (cache='paged')")
         ct = self.chunk_tokens
         if mode == "chunked" and (ct <= 0 or ct % self.block_size):
             raise ValueError(f"chunk_tokens {ct} must be a positive "
                              f"multiple of block_size {self.block_size}")
         if faults is not None:
             raise _todo("fault schedules (overload shedding, slot faults)",
-                        "Queue 1 item 7.6")
+                        "Queue 1 item 4")
         if any(r.deadline_s is not None for r in requests):
-            raise _todo("deadlines and shedding", "Queue 1 item 7.6")
+            raise _todo("deadlines and shedding", "Queue 1 item 4")
         with torch.no_grad():
             return self._serve(requests, policy, poll_s, mode == "chunked",
                                ct)
@@ -724,7 +790,7 @@ class ServeEngine:
             else:
                 self._defer_free_blocks = None
                 admitted = sched.refill(now_rel)
-                if admitted:
+                if admitted and self._paged is not None:
                     admitted = self._admit_paged(sched, admitted, results,
                                                  chunked=chunked)
             if chunked:
@@ -755,15 +821,17 @@ class ServeEngine:
 
         self._sample_power(ts, ws)
         out_results = sorted(results.values(), key=lambda r: r.finish_s)
-        for rid, wh in attribute_energy(steps, ts, ws).items():
+        kind = self.power_kind
+        for rid, wh in attribute_energy(steps, ts, ws, kind).items():
             results[rid].energy_wh = wh
         return ServeRunResult(
             results=out_results, steps=steps, sample_ts=ts, sample_ws=ws,
             summary=serve_summary(out_results, steps, ts, ws,
-                                  n_slots=self.n_slots))
+                                  n_slots=self.n_slots, kind=kind),
+            sample_kind=kind)
 
     def generate(self, *args, **kwargs):
-        raise _todo("fixed-batch generate()", "Queue 1 item 7")
+        raise _todo("fixed-batch generate()", "Queue 1 item 4")
 
 
 class BatchedServer:
@@ -771,4 +839,4 @@ class BatchedServer:
     ported)."""
 
     def __init__(self, *args, **kwargs):
-        raise _todo("BatchedServer", "Queue 1 item 7")
+        raise _todo("BatchedServer", "Queue 1 item 4")

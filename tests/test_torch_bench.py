@@ -189,7 +189,7 @@ def test_multi_device_placement_raises():
 
     try:
         assert Placement.of("dp2").n_devices == 2
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             WorkloadRunner(build, device=torch.device("cpu"), power="none")
     finally:
         unregister("_two_devices")

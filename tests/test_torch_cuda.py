@@ -19,7 +19,10 @@ sweep, D not whole 16-byte vectors (100, 3073, the scalar kernel), D =
 no fallback: a kernel missing from the library, or a type a kernel does
 not take, raises. The serve engine on the card (kernels) against the CPU
 (plain versions): fp and int8 pools, phased and chunked with
-preemption.
+preemption, and the slotted cache (no kernel: ``sdpa`` over dense rows,
+op by op and in the engine). NVML's energy counter against the
+trapezoid of NVML's power reading over a steady matmul load, and the
+counter's update interval (both printed: run with ``-s``).
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -35,6 +38,7 @@ fp32 (summation order); in bf16 at most 1 % of the outputs may differ
 at all (a wrong conversion moves about half of them).
 """
 import itertools
+import time
 
 import numpy as np
 import pytest
@@ -47,7 +51,9 @@ from repro_torch.kernels.decode_attention import decode_splits, \
     paged_decode_attention
 from repro_torch.kernels.prefill_attention import paged_prefill_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
-from repro_torch.models import lm
+from repro_torch.models import attention, blocks, lm
+from repro_torch.power.ctxmgr import get_power
+from repro_torch.power.methods import NvmlEnergy, NvmlPower
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.requests import Request
 
@@ -650,6 +656,115 @@ def test_chunked_engine_with_preemption_on_card_matches_cpu(card):
     assert engines["cuda"].replayed_tokens >= 1
     assert engines["cuda"].preemptions == engines["cpu"].preemptions
     assert agree >= 0.95
+
+
+def test_slotted_engine_on_card_matches_cpu(card):
+    """The slotted cache on the card serves the CPU's greedy streams and
+    launches no paged kernel (dense rows go through ``sdpa``)."""
+    c = get_config("llama3.2-3b").reduced(dtype="float32",
+                                          param_dtype="float32")
+    params = lm.init(c, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, c.vocab, size=5 + 3 * i)
+                    .astype(np.int32), max_new_tokens=12) for i in range(8)]
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to(params, card)
+        eng = ServeEngine(c, p, n_slots=4, max_len=64, cache="slotted",
+                          block_size=16, device=dev)
+        ops.reset_launch_counts()
+        out = eng.serve(reqs)
+        assert all(r.n_tokens == 12 for r in out.results)
+        streams[dev] = {r.rid: r.tokens for r in out.results}
+    assert sum(ops.launch_counts().values()) == 0
+    assert _agreement(streams["cpu"], streams["cuda"]) >= 0.95
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("per_row", [True, False])
+def test_dense_decode_attention_on_card_matches_cpu(card, window, per_row):
+    """Both dense decode branches (per-row positions, one shared
+    position) on the card against their CPU run, fp32, caches included,
+    at the fp32 card gate."""
+    import dataclasses
+    c = dataclasses.replace(get_config("llama3.2-3b").reduced(
+        dtype="float32", param_dtype="float32"), attn_window=window)
+    p = blocks.layer(lm.init(c, torch.Generator().manual_seed(0),
+                             "cpu")["layers"]["slot0"]["attn"], 0)
+    rng = np.random.default_rng(1)
+    b, t = 3, 24
+    x = torch.from_numpy(rng.normal(size=(b, 1, c.d_model))
+                         .astype(np.float32))
+    kv = [torch.from_numpy(rng.normal(size=(b, t, c.n_kv_heads, c.d_head))
+                           .astype(np.float32)) for _ in range(2)]
+    pos = torch.tensor([0, 7, 23], dtype=torch.int32) if per_row else 17
+    want_kv = [a.clone() for a in kv]
+    want = attention.decode_attention(c, p, x, *want_kv, pos)
+    got_kv = [a.to(card) for a in kv]
+    got = attention.decode_attention(
+        c, _to(p, card), x.to(card), *got_kv,
+        pos.to(card) if per_row else pos)
+    _assert_close(got.cpu(), want, torch.float32)
+    for g, w in zip(got_kv, want_kv):
+        _assert_close(g.cpu(), w, torch.float32)
+
+
+def _matmul_load(card, seconds: float, n: int = 8192):
+    """Back-to-back bf16 matmuls on the card for about ``seconds``."""
+    a = torch.randn(n, n, device=card, dtype=torch.bfloat16)
+    t_end = time.monotonic() + seconds
+    while time.monotonic() < t_end:
+        for _ in range(20):
+            a = (a @ a).clamp_(-1, 1)
+        torch.cuda.synchronize()
+
+
+def test_nvml_energy_counter_matches_power_trapezoid(card):
+    """Over 10 s of steady matmul load (after 2 s of warm-up), the energy
+    counter's difference and the trapezoid of the board power reading
+    (a one-second average) agree within 5 %."""
+    _matmul_load(card, 2.0)
+    power, energy = NvmlPower(card.index or 0), NvmlEnergy(card.index or 0)
+    with get_power([power, energy], interval_ms=20) as scope:
+        _matmul_load(card, 10.0)
+    rows = {r["device"]: r for r in scope.energy()[0].records()}
+    by_power = rows["nvml:nvml:0"]
+    by_counter = rows["nvml_energy:nvml:0"]
+    print(f"\nnvml power trapezoid {by_power['energy_wh']:.6f} Wh "
+          f"({by_power['avg_power_w']:.1f} W), nvml_energy counter "
+          f"{by_counter['energy_wh']:.6f} Wh ({by_counter['avg_power_w']:.1f}"
+          f" W) over {by_power['duration_s']:.2f} s, "
+          f"{len(scope.df)} samples")
+    assert by_power["duration_s"] >= 10.0
+    assert by_counter["energy_wh"] > 0
+    assert abs(by_counter["energy_wh"] / by_power["energy_wh"] - 1) <= 0.05
+    power.close()
+    energy.close()
+
+
+def test_nvml_energy_counter_update_interval(card):
+    """Read the counter in a tight loop while the card runs queued
+    matmuls: it advances in steps; print their interval."""
+    energy = NvmlEnergy(card.index or 0)
+    a = torch.randn(16384, 16384, device=card, dtype=torch.bfloat16)
+    for _ in range(200):                  # ~2-3 s of queued work
+        torch.mm(a, a)
+    changes, reads = [], 0
+    last = energy.read()["nvml:0"]
+    t_end = time.monotonic() + 2.0
+    while time.monotonic() < t_end:
+        v = energy.read()["nvml:0"]
+        reads += 1
+        if v != last:
+            changes.append(time.monotonic())
+            last = v
+    torch.cuda.synchronize()
+    gaps = np.diff(changes) * 1e3
+    assert len(gaps) >= 3, (len(changes), reads)
+    print(f"\nnvml_energy counter: {reads} reads in 2 s, {len(changes)} "
+          f"changes; update interval median {np.median(gaps):.2f} ms, min "
+          f"{gaps.min():.2f} ms, max {gaps.max():.2f} ms")
+    energy.close()
 
 
 def _assert_close(got, want, dtype):

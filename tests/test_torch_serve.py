@@ -11,10 +11,12 @@ the port's engine on the CPU, with the prefix cache off and on.
   * inside the port, prefix-hit streams equal cold streams and fused
     decode windows equal per-token decode, bit for bit;
   * the pool drains clean, the pad rows of a batched prefill are dropped
-    (not written, not an error), and unported options raise.
+    (not written, not an error), and unported options (the scripted
+    mode, deadlines, ``generate``/``BatchedServer``) raise.
 
-The int8 pool and the chunked scheduler have their own files
-(``test_torch_int8_kv.py``, ``test_torch_chunked_serve.py``).
+The int8 pool, the chunked scheduler and the slotted cache have their
+own files (``test_torch_int8_kv.py``, ``test_torch_chunked_serve.py``,
+``test_torch_slotted_serve.py``).
 """
 import dataclasses
 
@@ -216,8 +218,8 @@ def test_copy_blocks_in_place():
     torch.testing.assert_close(caches["slot0"]["k"][:, 3], want)
 
 
-@pytest.mark.parametrize("kw", [dict(cache="slotted"),
-                                dict(prefill_fn=lambda s, p: 0)])
+@pytest.mark.parametrize("kw", [dict(prefill_fn=lambda s, p: 0),
+                                dict(decode_fn=lambda t, p, a: t)])
 def test_unported_engine_options_raise(setup, kw):
     _, c, _, p, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
