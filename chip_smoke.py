@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-  python3 chip_smoke.py [--profile | --times]
+  python3 chip_smoke.py [--profile | --times | --train [--profile]]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs seven phases, any failure of which exits non-zero:
+instance, then runs eight phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -109,22 +109,47 @@ instance, then runs seven phases, any failure of which exits non-zero:
      and launch the prefill kernel. One line per record gives its cell
      and headline columns (``--profile`` also traces the main-path cell
      and prints its device-busy share: ~11 min more).
+  7. train — the training path at full width, in process, on NVML's
+     energy counter: (a) the ``llm_train`` workload, ``python -m
+     repro_torch.bench run --suite llm_train --points placement=dp1
+     --power auto --iters TRAIN_ITERS``, its whole Space at dp1 (global
+     batch 16, 32, 64 x grad_sync fp32, int8) on full-width gpt-800m
+     (bf16, fp32 master weights, 4 microbatches, full remat): every
+     record ``ok``, ``nvml_energy``, ``model_scale=full``, with falling
+     loss and finite tokens/Wh; one line per cell with tok/s, ms/step,
+     Wh/step, tokens/Wh, peak GB and the model-FLOP share (8 N tokens,
+     full remat, over the step time against the card's dense bf16 peak);
+     (b) a reduced fp32 gpt-800m trains three AdamW steps (4
+     microbatches) on the card and on the CPU from the same weights:
+     losses agree at rtol 1e-4, and the params' largest difference is
+     printed; (c) the ``resilience`` smoke preset at full gpt-117m
+     width: every record ``ok``, ``loss_bitmatch == 1.0`` (the resumed
+     loss trace equals the uninterrupted twin's, element for element),
+     ``crash_mid`` restarts at least once. ``--profile`` also traces one
+     gpt-800m step at global batch 64 under ``torch.profiler``: the
+     device-busy share and the device time split into GEMMs, optimizer,
+     elementwise (and reductions) and copies, beside the optimizer's
+     bound from its bytes (~2 min more).
 
+``--train`` runs phase 7 alone (no kernel is built: the training path
+launches none) and prints no result line.
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
 (neither is measured there), and no result line: for timing another
 tree's kernels with this script's method, by copying the script into
 that tree's root.
 
-The output ends with three lines: a JSON object with one entry per
-kernel, the card's name and power limit as ``nvidia-smi`` gives them,
-and ``{"ok": true, "device": {...}}``. Without a card, or without the
-repository around it, the script fails and prints no result.
+The output ends with the script's wall time and three lines: a JSON
+object with one entry per kernel, the card's name and power limit as
+``nvidia-smi`` gives them, and ``{"ok": true, "device": {...}}``.
+Without a card, or without the repository around it, the script fails
+and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -197,6 +222,15 @@ INT8_POOL_BLOCKS = 129
 SERVE_POINTS = "cache=slotted,cache=paged,policy=continuous"
 SLO_POINTS = ("trace=long_prefill,cache=paged,kv_dtype=fp32",
               "trace=shared_prefix,kv_dtype=fp32,sched=phased")
+#: phase 7's measured steps per llm_train cell: two windows of two
+#: ~0.9 s steps, many times the NVML energy counter's ~100 ms update
+#: interval
+TRAIN_ITERS = 4
+#: AdamW's least HBM traffic per parameter: read the fp32 grad, m, v and
+#: master, write m, v and master (fp32) and the bf16 param
+ADAMW_BYTES_PER_PARAM = 4 * 4 + 3 * 4 + 2
+#: phase 7's profiler ranges (train/step.py, grad_sync.py, optimizer.py)
+TRAIN_RANGES = ("forward_backward", "grad_sync", "optimizer")
 
 
 def log(msg: str) -> None:
@@ -990,6 +1024,224 @@ def profile_main_cell(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def model_flop_share(n_params: int, tokens: int, seconds: float) -> float:
+    """8 N tokens (forward, backward and the full-remat forward again)
+    over the step time, against the card's dense bf16 peak."""
+    return 8 * n_params * tokens / seconds / PEAK_FLOPS[torch.bfloat16]
+
+
+def phase_train(dev, profile: bool = False) -> None:
+    """The training path at full width (see the module docstring)."""
+    from repro_torch.bench import cli
+    from repro_torch.bench.records import load_records
+    t_phase = t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rc = cli.main(["run", "--suite", "llm_train", "--points",
+                       "placement=dp1", "--device", "cuda", "--power",
+                       "auto", "--iters", str(TRAIN_ITERS), "--out", out,
+                       "--quiet"])
+        records = load_records(f"{out}/llm_train/results.json")
+    log(f"[train] llm_train dp1 Space: rc {rc}, {len(records)} records in "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert rc == 0, rc
+    assert sorted((r.point["global_batch"], r.point["grad_sync"])
+                  for r in records) == [(gb, g) for gb in (16, 32, 64)
+                                        for g in ("fp32", "int8")], records
+    for r in records:
+        m, pt = r.metrics, r.point
+        tokens = pt["global_batch"] * pt["seq"]
+        log(f"[train] llm_train gb={pt['global_batch']} seq={pt['seq']} "
+            f"grad_sync={pt['grad_sync']} k={m.get('microbatches')}: "
+            f"tokens_per_s={m.get('tokens_per_s', 0):.1f} "
+            f"ms_per_step={m.get('ms_per_step', 0):.3f} "
+            f"energy_wh_per_step={m.get('energy_wh_per_step', 0):.6e} "
+            f"tokens_per_wh={m.get('tokens_per_wh', 0):.1f} "
+            f"peak_mem_gb={m.get('peak_mem_gb', 0):.2f} "
+            f"model_flop_share="
+            f"{model_flop_share(m['n_params'], tokens, m['seconds']):.4f} "
+            f"loss {m.get('loss_first', 0):.4f} -> "
+            f"{m.get('loss_last', 0):.4f} rel_spread={r.noise['rel_std']} "
+            f"power_source={r.power_source} model_scale="
+            f"{m.get('model_scale')} n_params={m.get('n_params')}")
+    for r in records:
+        m = r.metrics
+        assert r.status == "ok", (r.point, r.error)
+        assert r.power_source == "nvml_energy", (r.point, r.power_source)
+        assert m["model_scale"] == "full", r.point
+        assert m["loss_last"] < m["loss_first"], (r.point, m)
+        assert math.isfinite(m["tokens_per_wh"]) and m["tokens_per_wh"] > 0
+    del records
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_agreement(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rc = cli.main(["run", "--suite", "resilience", "--smoke", "--device",
+                       "cuda", "--power", "auto", "--out", out, "--quiet"])
+        records = load_records(f"{out}/resilience/results.json")
+    log(f"[train] resilience smoke: rc {rc}, {len(records)} records in "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert rc == 0, rc
+    for r in records:
+        m = r.metrics
+        log(f"[train] resilience {r.point['fault_preset']} ckpt_every="
+            f"{r.point['ckpt_every']}: final_step={m.get('final_step')} "
+            f"restarts={m.get('restarts')} recovery_s={m.get('recovery_s')} "
+            f"backoff_s={m.get('backoff_s')} wasted_tokens="
+            f"{m.get('wasted_tokens')} goodput_tokens_per_s="
+            f"{m.get('goodput_tokens_per_s', 0):.1f} energy_wh="
+            f"{m.get('energy_wh', 0):.6e} wh_overhead_resilience="
+            f"{m.get('wh_overhead_resilience', 0):.6e} twin_wall_s="
+            f"{m.get('twin_wall_s', 0):.3f} loss_bitmatch="
+            f"{m.get('loss_bitmatch')} final_loss={m.get('final_loss')} "
+            f"schedule_hash={m.get('schedule_hash')} power_source="
+            f"{r.power_source} model_scale={m.get('model_scale')} "
+            f"n_params={m.get('n_params')}")
+    for r in records:
+        assert r.status == "ok", (r.point, r.error)
+        assert r.power_source == "nvml_energy", (r.point, r.power_source)
+        assert r.metrics["model_scale"] == "full", r.point
+        assert r.metrics["loss_bitmatch"] == 1.0, (r.point, r.metrics)
+    crash = [r.metrics for r in records
+             if r.point["fault_preset"] == "crash_mid"]
+    assert crash and all(m["restarts"] >= 1 for m in crash), crash
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[wall] phase 7 {time.perf_counter() - t_phase:.1f} s")
+    if profile:
+        profile_train_step(dev)
+
+
+def train_agreement(dev) -> None:
+    """Reduced fp32 gpt-800m, three AdamW steps of 4 microbatches from
+    the same weights and batches on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch.train import make_data_fn
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (StepConfig, init_train_state,
+                                        make_train_step)
+    c = get_config("gpt-800m").reduced(dtype="float32",
+                                       param_dtype="float32")
+    oc = OptConfig(warmup=2, total_steps=1000)
+    step = make_train_step(c, oc, StepConfig(microbatches=4))
+    cpu = torch.device("cpu")
+    state = {cpu: init_train_state(c, oc, torch.Generator().manual_seed(0),
+                                   cpu)}
+    state[dev] = tree.tree_map(lambda t: t.to(dev), state[cpu])
+    losses = {}
+    for d in (cpu, dev):
+        p, o = state[d]
+        data = make_data_fn(c, 8, 64, seed=0, device=d)
+        losses[d] = []
+        for i in range(3):
+            p, o, m = step(p, o, data(i))
+            losses[d].append(float(m["loss"]))
+    diffs = [(a.cpu() - b).abs() for a, b in
+             zip(tree.leaves(state[dev][0]), tree.leaves(state[cpu][0]))]
+    worst = max(d.max().item() for d in diffs)
+    share = (sum((d > 1e-6).sum().item() for d in diffs)
+             / sum(d.numel() for d in diffs))
+    log(f"[train] reduced fp32 {c.name}, 3 AdamW steps: card losses "
+        f"{losses[dev]}, cpu {losses[cpu]}; params max |diff| "
+        f"{worst:.3e}, share of elements differing by > 1e-6 {share:.3e}")
+    np.testing.assert_allclose(losses[dev], losses[cpu], rtol=1e-4)
+
+
+def _subtree_kernels(e) -> list:
+    out = list(e.kernels)
+    for ch in e.cpu_children:
+        out += _subtree_kernels(ch)
+    return out
+
+
+def _kernel_kind(name: str) -> str:
+    n = name.lower()
+    if n.startswith(("memcpy", "memset")) or "copy_kernel" in n:
+        return "copies"
+    if any(k in n for k in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
+        return "gemms"
+    return "elementwise"
+
+
+def profile_train_step(dev) -> None:
+    """One full-width gpt-800m step at global batch 64 (the llm_train
+    fp32 cell: 4 microbatches, overlapped bucket sync) under
+    ``torch.profiler``: the device-busy share of its wall, and its
+    device time by kind (kernels launched inside the ``optimizer`` range
+    count as optimizer), beside the optimizer's bound from its bytes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.parallel import grad_sync as gs
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import StepConfig, init_train_state
+    c = get_config("gpt-800m")
+    oc = OptConfig(warmup=2, total_steps=1000)
+    p, o = init_train_state(c, oc, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    n_params = sum(t.numel() for t in tree.leaves(p))
+    sync = gs.default_sync("fp32", dev)
+    step = gs.make_dp_train_step(c, oc, StepConfig(microbatches=4),
+                                 sync=sync)
+    s = gs.init_sync_state(p, sync)
+    gb, seq = 64, 128
+    toks = torch.from_numpy(synthetic_tokens(gb, seq, c.vocab)[:, :seq])
+    batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1)
+             .to(dev)}
+    for _ in range(2):                      # warm: allocator, handles
+        p, o, s, m = step(p, o, s, batch)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        p, o, s, m = step(p, o, s, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in TRAIN_RANGES]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_kind = dict.fromkeys(("gemms", "elementwise", "copies"), 0.0)
+    for e in kernels:
+        by_kind[_kernel_kind(e.name)] += e.time_range.elapsed_us() / 1e3
+    ranges = {}
+    for name in TRAIN_RANGES:
+        ks = [k for e in events if e.name == name
+              and e.device_type == DeviceType.CPU
+              for k in _subtree_kernels(e)]
+        ranges[name] = sum(k.duration for k in ks) / 1e3
+        if name == "optimizer":
+            for k in ks:                      # optimizer counts apart
+                by_kind[_kernel_kind(k.name)] -= k.duration / 1e3
+    by_kind["optimizer"] = ranges["optimizer"]
+    opt_bound = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    log(f"[profile train] gpt-800m gb={gb} seq={seq} k=4 fp32 sync: wall "
+        f"{wall * 1e3:.2f} ms (profiled), device busy {busy:.2f} ms = "
+        f"{busy / 1e3 / wall:.4f} of wall, {len(kernels)} device events; "
+        f"model-FLOP share over the profiled wall "
+        f"{model_flop_share(n_params, gb * seq, wall):.4f}")
+    log("[profile train] device ms by kind: " + ", ".join(
+        f"{k} {v:.2f} ({v / busy:.3f})" for k, v in by_kind.items()))
+    log("[profile train] device ms by range: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ranges.items())
+        + f"; optimizer bound from its bytes "
+          f"({ADAMW_BYTES_PER_PARAM} B x {n_params / 1e6:.1f}M params) "
+          f"{opt_bound:.2f} ms")
+    rows = prof.key_averages()
+    rows = sorted((e for e in rows if e.device_type == DeviceType.CUDA
+                   and e.key not in TRAIN_RANGES),
+                  key=lambda e: -e.self_device_time_total)
+    for e in rows[:15]:
+        log(f"[profile train] {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:6d}x  {e.key[:100]}")
+    del p, o, s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
                 errs: dict) -> list:
     """Each kernel at main-path shapes: its time, its plain version's,
@@ -1272,6 +1524,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
+    if "--train" in sys.argv[1:]:
+        phase_train(dev, profile="--profile" in sys.argv[1:])
+        log(f"[wall] phase 7 alone {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[build] nvcc sm_90a build + load {time.perf_counter() - t0:.1f} s")
@@ -1299,6 +1557,9 @@ def main() -> int:
     bench_counts = phase_bench()
     rows = phase_times(dev, counts, int8_counts, bench_counts, errs)
     phase_workloads(dev, c, profile="--profile" in sys.argv[1:])
+    phase_train(dev, profile="--profile" in sys.argv[1:])
+    log(f"[wall] chip_smoke {time.perf_counter() - t_start:.1f} s, the "
+        f"kernels' build included")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,15 @@ layout under ``artifacts/bench_torch/<workload>/`` is
   manifest.json  host/torch/device provenance (core.manifest)
 
 written through :mod:`repro_torch.core.results` so the files are atomic
-and a partially-interrupted sweep never truncates completed points. The
-reference's scaling metrics and ``compare_metrics`` wait for ROADMAP
-Queue 1 items 8 (multi-device) and 2 (compare).
+and a partially-interrupted sweep never truncates completed points.
+``stamp_scaling_metrics`` is the reference's, less its emulated-device
+cap (the port has no forced host-platform devices); ``compare_metrics``
+waits for ROADMAP Queue 1 item 2 (compare).
 """
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 from dataclasses import asdict, dataclass, field, fields
 from typing import Optional
@@ -173,3 +175,73 @@ def load_records(path) -> list:
         return [ResultRecord.from_dict(d) for d in doc["records"]]
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
+
+
+#: throughput metrics the scaling derivation reads, in preference order
+THROUGHPUT_METRICS = ("tokens_per_s", "images_per_s", "decode_tok_s")
+#: energy-efficiency metrics (higher is better) the wh/token scaling
+#: ratio derives from
+EFFICIENCY_METRICS = ("tokens_per_wh", "images_per_wh")
+
+
+def scaling_base_key(rec: ResultRecord) -> tuple:
+    """The join key of a record's own sweep, placement stripped: the
+    1-device cell every scaled cell's efficiency is measured against."""
+    params = tuple(sorted((k, str(v)) for k, v in rec.point.items()
+                          if k != "placement"))
+    return (rec.workload, params, rec.power_source)
+
+
+def stamp_scaling_metrics(records: list) -> None:
+    """Derive the cross-placement scaling metrics for one result set.
+
+    Every ok record with a throughput metric gains ``tok_s_per_device``
+    (throughput / mesh size — the paper's per-accelerator figure);
+    multi-device records whose sweep also measured the 1-device cell of
+    the same point gain ``scaling_efficiency`` (per-device throughput
+    relative to 1 device: 1.0 = linear scaling) and
+    ``wh_per_token_scaling`` (energy per token relative to 1 device:
+    1.0 = energy parity).
+    """
+    ones = {}
+    for r in records:
+        if r.ok and r.n_devices == 1:
+            ones.setdefault(scaling_base_key(r), r)
+    for r in records:
+        if not r.ok:
+            continue
+        tp_name = next((m for m in THROUGHPUT_METRICS if m in r.metrics),
+                       None)
+        if tp_name is None:
+            continue
+        try:
+            tp = float(r.metrics[tp_name])
+        except (TypeError, ValueError):
+            continue
+        if not math.isfinite(tp):
+            continue
+        n = max(r.n_devices, 1)
+        r.metrics.setdefault("tok_s_per_device", tp / n)
+        if n == 1:
+            continue
+        base = ones.get(scaling_base_key(r))
+        if base is None:
+            continue
+        try:
+            base_tp = float(base.metrics.get(tp_name))
+        except (TypeError, ValueError):
+            continue
+        if math.isfinite(base_tp) and base_tp > 0.0:
+            r.metrics["scaling_efficiency"] = (tp / n) / base_tp
+        eff_name = next((m for m in EFFICIENCY_METRICS
+                         if m in r.metrics and m in base.metrics), None)
+        if eff_name is None:
+            continue
+        try:
+            cur_eff = float(r.metrics[eff_name])
+            base_eff = float(base.metrics[eff_name])
+        except (TypeError, ValueError):
+            continue
+        if all(math.isfinite(v) and v > 0.0 for v in (cur_eff, base_eff)):
+            # (Wh/token at n devices) / (Wh/token at 1) == eff_1 / eff_n
+            r.metrics["wh_per_token_scaling"] = base_eff / cur_eff

@@ -7,9 +7,14 @@ with retries and straggler detection, and persist normalized
 ``ResultRecord``s incrementally + a manifest.
 
 The port runs on one device. A point whose placement spans more than one
-device raises ``NotImplementedError`` (ROADMAP Queue 1 item 8), where
-the reference renders a Slurm script for the cluster; the reference's
-environment tuning (``envtune``) has no port.
+device is not an error, as in the reference: it becomes a record with
+``status="deferred"`` whose ``error`` names the mesh, the device count
+and ROADMAP Queue 1 item 8, and the sweep's one-device cells still
+measure (the reference also renders a Slurm script for such a point,
+which waits for ``launch/slurm``, Queue 1 item 9). The runner stamps the
+cross-placement scaling metrics (``records.stamp_scaling_metrics``)
+into every sweep. The reference's environment tuning (``envtune``) has
+no port.
 """
 from __future__ import annotations
 
@@ -20,19 +25,17 @@ from typing import Optional
 import torch
 
 from repro_torch.bench.context import RunContext
-from repro_torch.bench.records import ResultRecord, save_records
-from repro_torch.bench.spec import Placement, WorkloadSpec
+from repro_torch.bench.records import (
+    ResultRecord, save_records, stamp_scaling_metrics,
+)
+from repro_torch.bench.spec import WorkloadSpec
 from repro_torch.core.manifest import git_sha, write_manifest
 from repro_torch.core.runner import StragglerWatchdog, run_attempts
 from repro_torch.power.methods import select_power_methods
 
 
-def check_placement(placement: Placement) -> None:
-    if placement.n_devices > 1:
-        raise NotImplementedError(
-            f"placement {placement.label} spans {placement.n_devices} "
-            f"devices; the port runs on one device so far (ROADMAP Queue 1 "
-            f"item 8: parallel and placement)")
+#: devices one port process drives
+DEVICES = 1
 
 
 class WorkloadRunner:
@@ -49,8 +52,6 @@ class WorkloadRunner:
         self.out = pathlib.Path(out_dir) / spec.name
         self.smoke = smoke
         self.point_overrides = point_overrides
-        check_placement(Placement.of(spec.max_devices(smoke,
-                                                      point_overrides)))
         self.power_methods, self.power_source = select_power_methods(
             power, device)
         self.warmup = warmup
@@ -82,6 +83,9 @@ class WorkloadRunner:
             if verbose:
                 print(f"[{spec.name}] {i + 1}/{len(points)} {rec.flat()}",
                       flush=True)
+            # scaling metrics join cells across the sweep, so re-derive
+            # over the whole record list before each incremental save
+            stamp_scaling_metrics(self.records)
             save_records(self.records, self.out)
         return self.records
 
@@ -89,11 +93,17 @@ class WorkloadRunner:
         spec = self.spec
         ctx.last_measurement = None
         placement = spec.placement_for(pt)
-        check_placement(placement)
         rec = ResultRecord(workload=spec.name, point=dict(pt),
                            power_source=self.power_source,
                            placement=placement.dict(),
                            git_sha=git_sha())
+        if placement.n_devices > DEVICES:
+            rec.status = "deferred"
+            rec.error = (f"mesh {placement.label} needs "
+                         f"{placement.n_devices} devices, process has "
+                         f"{DEVICES} ({self.device}); multi-device "
+                         f"placement is ROADMAP Queue 1 item 8")
+            return rec
         ctx.placement = placement
         t0 = time.perf_counter()
         backoff_total = 0.0

@@ -15,9 +15,9 @@ workload.
 
 ``Placement`` names a device mesh by parallelism axis (``{"dp": 4}``,
 ``{"dp": 2, "tp": 2}``), as in the reference; the port runs one device
-only so far, and the runner raises on a placement of more than one
-(ROADMAP Queue 1 item 8). The reference's jax mesh-axis mapping has no
-port.
+only so far, and the runner records a point whose placement spans more
+than one as ``deferred`` (ROADMAP Queue 1 item 8). The reference's jax
+mesh-axis mapping has no port.
 """
 from __future__ import annotations
 

@@ -5,5 +5,7 @@ populates the WorkloadSpec registry; the modules stay side-effect-free
 beyond registration (no device access, no kernel build at import time).
 """
 from repro_torch.bench.workloads import kernels  # noqa: F401 - registration
+from repro_torch.bench.workloads import llm_train  # noqa: F401 - registration
+from repro_torch.bench.workloads import resilience  # noqa: F401 - registration
 from repro_torch.bench.workloads import serve  # noqa: F401 - registration
 from repro_torch.bench.workloads import serve_slo  # noqa: F401 - registration

@@ -2,7 +2,8 @@
 
 Copy of the serving part of ``src/repro/core/metrics.py``:
 ``percentile``, ``window_energy_wh``, ``attribute_energy``,
-``ServeSummary`` and ``serve_summary``. The reference module also
+``ServeSummary`` and ``serve_summary``; and of ``tokens_per_s``, the
+training throughput. The reference module also
 imports its roofline package, so the port keeps its own copy.
 
 The serve engine records per-step windows (``StepRecord``) plus
@@ -27,6 +28,10 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 J_PER_WH = 3600.0
+
+
+def tokens_per_s(global_batch: int, seq_len: int, iter_time_s: float) -> float:
+    return global_batch * seq_len / max(iter_time_s, 1e-12)
 
 
 def percentile(xs: Sequence[float], q: float) -> float:

@@ -7,7 +7,8 @@ weights are cast back to q.dtype before the PV product.
 
 Ported: ``qkv_proj``, ``make_causal_mask``, ``sdpa`` (the reference's
 ``impl="repeat"`` formulation), ``out_proj``, ``attend`` (unchunked),
-``prefill_attention`` (dense and paged-prefix branches),
+``self_attention`` (the training path), ``prefill_attention`` (dense and
+paged-prefix branches),
 ``_quantized_block_write`` and ``decode_attention`` (its paged branch,
 and its dense per-row and shared-position branches), each paged branch
 on fp pools and on int8 pools with their scales. The paged branches call
@@ -123,6 +124,16 @@ def attend(c: ModelConfig, q, k, v, *, causal: bool) -> torch.Tensor:
     if causal:
         mask = make_causal_mask(s, t, c.attn_window, device=q.device)[None, None]
     return sdpa(q, k, v, mask)
+
+
+def self_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
+                   causal: bool = True,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training self-attention over the full sequence."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = qkv_proj(c, p, x, positions if c.use_rope else None)
+    return out_proj(p, attend(c, q, k, v, causal=causal))
 
 
 def prefill_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,

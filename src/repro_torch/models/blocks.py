@@ -1,19 +1,23 @@
 """Decoder blocks over layer-stacked parameters, dense family.
 
-Port of ``src/repro/models/blocks.py`` (``stack_prefill`` and
-``stack_decode``). The reference scans over the stacked layer leaves;
-here a Python loop indexes them. Parameters keep the reference's tree,
-``{"slot0": {...}}`` with leading axis ``n_layers`` (a dense stack has a
-period of one layer). Caches stay stacked, as paged pools
-``(L, n_blocks, bs, Kh, Dh)`` (int8 pools with ``(L, n_blocks, Kh)``
-scale leaves beside them) or dense slotted rows ``(L, B, T, Kh, Dh)``,
-and decode updates them in place.
+Port of ``src/repro/models/blocks.py`` (``stack_forward``,
+``stack_prefill`` and ``stack_decode``). The reference scans over the
+stacked layer leaves; here a Python loop indexes them. The training
+forward unbinds each stacked leaf once, so the backward stacks each
+leaf's gradient once (as the reference's scan writes one slice per
+layer) instead of adding one zero-padded full-stack gradient per layer.
+Parameters keep the reference's tree, ``{"slot0": {...}}`` with leading
+axis ``n_layers`` (a dense stack has a period of one layer). Caches stay
+stacked, as paged pools ``(L, n_blocks, bs, Kh, Dh)`` (int8 pools with
+``(L, n_blocks, Kh)`` scale leaves beside them) or dense slotted rows
+``(L, B, T, Kh, Dh)``, and decode updates them in place.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -40,6 +44,50 @@ def _ffn(c: ModelConfig, sp: Params, x: torch.Tensor) -> torch.Tensor:
     if c.d_ff:
         x = x + apply_mlp(c, sp["mlp"], apply_norm(c, sp["norm2"], x))
     return x
+
+
+def _unstack(tree: Params, n: int) -> list:
+    """Per-layer trees of views, from one ``unbind`` per stacked leaf."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _layer_forward(c: ModelConfig, sp: Params, x: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    h = attn.self_attention(c, sp["attn"], apply_norm(c, sp["norm1"], x),
+                            causal=causal)
+    return _ffn(c, sp, x + h)
+
+
+def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
+                  causal: bool = True, impl: str = "repeat",
+                  remat: str = "full"):
+    """Run the full layer stack, no caches. x: (B, S, D) -> (B, S, D),
+    aux_loss. ``remat="full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``), saving only the layer inputs;
+    ``"none"`` keeps every activation."""
+    check_family(c)
+    if impl != "repeat":
+        raise NotImplementedError(
+            f"impl={impl!r}: the port's sdpa is the reference's 'repeat' "
+            "formulation")
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs) is not ported: ROADMAP "
+            "Queue 1 item 5, what the training slice left")
+    if remat not in ("full", "none"):
+        raise ValueError(f"remat {remat!r}: full, dots or none")
+    stack = layers["slot0"]
+    for sp in _unstack(stack, stack["norm1"]["scale"].shape[0]):
+        if remat == "full":
+            # no op in a layer draws random numbers: no RNG state to keep
+            x = checkpoint(_layer_forward, c, sp, x, causal,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_forward(c, sp, x, causal)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,

@@ -2,7 +2,8 @@
 
 Port of ``src/repro/models/lm.py``: ``init`` (the port's own seeded
 initializer, drawing the reference's distributions from a
-``torch.Generator``), ``forward``, ``prefill`` and ``decode_step``.
+``torch.Generator``), ``forward`` (training: ``remat`` and ``impl`` as in
+the reference), ``prefill`` and ``decode_step``.
 Families other than ``dense`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -49,11 +50,14 @@ def _embed(c: ModelConfig, p: Params, tokens: torch.Tensor,
     return embed_tokens(c, p["embed"], tokens, positions)
 
 
-def forward(c: ModelConfig, p: Params, tokens: torch.Tensor):
-    """Full causal forward over (B, S) tokens -> (logits, aux_loss)."""
-    x, _ = blocks.stack_prefill(c, p["layers"], _embed(c, p, tokens))
+def forward(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
+            impl: str = "repeat", remat: str = "full"):
+    """Full causal forward over (B, S) tokens -> (logits, aux_loss), the
+    training path (``blocks.stack_forward``: no caches)."""
+    x, aux = blocks.stack_forward(c, p["layers"], _embed(c, p, tokens),
+                                  causal=True, impl=impl, remat=remat)
     x = apply_norm(c, p["final_norm"], x)
-    return unembed(c, p["embed"], x), torch.zeros((), device=x.device)
+    return unembed(c, p["embed"], x), aux
 
 
 def prefill(c: ModelConfig, p: Params, tokens: torch.Tensor, *,

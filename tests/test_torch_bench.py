@@ -181,15 +181,23 @@ def test_power_auto_on_cpu_raises_and_substitutes_nothing(tmp_path):
     assert select_power_methods("none", cpu) == ([], "none")
 
 
-def test_multi_device_placement_raises():
-    @workload("_two_devices", analog="test", space=Space({"x": [1]}),
-              placement="dp2")
+def test_multi_device_placement_raises(tmp_path):
+    """A point whose mesh spans more devices than the process drives is
+    recorded ``deferred`` (as the reference does), not raised, and the
+    sweep's one-device point still runs."""
+    @workload("_two_devices", analog="test",
+              space=Space({"placement": ["dp1", "dp2"]}))
     def build(pt, ctx):
-        return {}
+        return {"run": lambda: {"tokens_per_s": 10.0}}
 
     try:
         assert Placement.of("dp2").n_devices == 2
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            WorkloadRunner(build, device=torch.device("cpu"), power="none")
+        runner = WorkloadRunner(build, device=torch.device("cpu"),
+                                power="none", out_dir=str(tmp_path))
+        one, two = runner.run(verbose=False)
     finally:
         unregister("_two_devices")
+    assert one.status == "ok" and one.metrics["tok_s_per_device"] == 10.0
+    assert two.status == "deferred" and two.n_devices == 2
+    assert "dp2 needs 2 devices, process has 1" in two.error
+    assert "Queue 1 item 8" in two.error and not two.metrics

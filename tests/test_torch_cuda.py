@@ -22,7 +22,12 @@ not take, raises. The serve engine on the card (kernels) against the CPU
 preemption, and the slotted cache (no kernel: ``sdpa`` over dense rows,
 op by op and in the engine). NVML's energy counter against the
 trapezoid of NVML's power reading over a steady matmul load, and the
-counter's update interval (both printed: run with ``-s``).
+counter's update interval (both printed: run with ``-s``). Training on
+the card: three AdamW steps of a reduced fp32 gpt-800m against the CPU
+from the same weights, a checkpoint round trip of card tensors (the
+async snapshot taken before an in-place update), and two identical
+5-step runs of full-width gpt-117m giving element-equal loss traces and
+params (the ops torch's deterministic mode would flag are printed).
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -39,13 +44,16 @@ at all (a wrong conversion moves about half of them).
 """
 import itertools
 import time
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.bench.workloads.kernels import plain_fp32 as _plain_fp32
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get_config
+from repro_torch.core import tree
 from repro_torch.kernels import _build, decode_attention, ops, ref
 from repro_torch.kernels.decode_attention import decode_splits, \
     paged_decode_attention
@@ -56,6 +64,11 @@ from repro_torch.power.ctxmgr import get_power
 from repro_torch.power.methods import NvmlEnergy, NvmlPower
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.requests import Request
+from repro_torch.launch.train import make_data_fn
+from repro_torch.parallel import grad_sync as gs
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.step import (StepConfig, init_train_state,
+                                    make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -779,3 +792,119 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """Reduced fp32 gpt-800m, three AdamW steps of two microbatches from
+    the same weights and batches on the card and on the CPU: losses at
+    rtol 1e-4 (summation order differs). A step moves a leaf by at most
+    lr * (1 + wd * |p|), so the params may differ by at most twice the
+    sum of the three steps' moves; the measured difference is printed."""
+    c = get_config("gpt-800m").reduced(dtype="float32",
+                                       param_dtype="float32")
+    oc = OptConfig(warmup=2, total_steps=100)
+    step = make_train_step(c, oc, StepConfig(microbatches=2))
+    p0, o0 = init_train_state(c, oc, torch.Generator().manual_seed(0), "cpu")
+    p1, o1 = tree.tree_map(lambda t: t.to(card), (p0, o0))
+    data = {d: make_data_fn(c, 8, 64, seed=0, device=d) for d in ("cpu",
+                                                                 card)}
+    for i in range(3):
+        p0, o0, m0 = step(p0, o0, data["cpu"](i))
+        p1, o1, m1 = step(p1, o1, data[card](i))
+        np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
+                                   rtol=1e-4)
+    worst = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(tree.leaves(p1), tree.leaves(p0)))
+    moves = sum(oc.lr * (1 + oc.weight_decay * max(
+        b.abs().max().item() for b in tree.leaves(p0))) for _ in range(3))
+    print(f"\ntrain step card vs cpu: params max |diff| {worst:.3e} "
+          f"(bound {2 * moves:.3e})")
+    assert worst <= 2 * moves
+
+
+def test_checkpoint_round_trip_of_card_tensors(card, tmp_path):
+    """bf16, fp32 and 0-d int32 card tensors restore bit-exactly onto
+    the card; ``save_async`` returns only once its host snapshot is
+    taken, so an in-place update right after it stays out of the
+    checkpoint."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    t = {"w": torch.randn(64, 33, generator=gen, device=card)
+         .to(torch.bfloat16),
+         "m": torch.randn(1000, generator=gen, device=card),
+         "step": torch.tensor(7, dtype=torch.int32, device=card)}
+    want = tree.tree_map(lambda x: x.cpu().clone(), t)
+    mgr = ckpt.CheckpointManager(tmp_path)
+    mgr.save_async(t, 1)
+    for x in tree.leaves(t):
+        x.add_(1)                       # the next optimizer step, in place
+    mgr.wait()
+    got, manifest = ckpt.restore(t, tmp_path)
+    assert manifest["step"] == 1
+    for a, b, x in zip(tree.leaves(got), tree.leaves(want), tree.leaves(t)):
+        assert a.device == x.device and a.dtype == x.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+def _two_runs(build):
+    """Loss traces and final params of two identical 5-step runs, each
+    from ``build() -> (params, opt_state, sync_state, step, data)``."""
+    out = []
+    for _ in range(2):
+        losses, (p, o, s, step, data) = [], build()
+        for i in range(5):
+            if s is None:
+                p, o, m = step(p, o, data(i))
+            else:
+                p, o, s, m = step(p, o, s, data(i))
+            losses.append(m["loss"])
+        out.append(([float(x) for x in losses], p))
+    return out
+
+
+@pytest.mark.parametrize("path", ["train_step", "dp_int8_k4"])
+def test_train_step_on_card_is_deterministic(card, path):
+    """Full-width bf16 gpt-117m (8 x 128 zipf tokens: many repeated
+    token ids, so the embedding gradient sums many rows per id), five
+    steps twice from the same seed: element-equal loss traces and
+    params, through the plain step (the resilience workload's) and the
+    int8 dp step with four microbatches (the llm_train workload's).
+    Prints the ops that ``torch.use_deterministic_algorithms`` (warn
+    only) flags on one step."""
+    c = get_config("gpt-117m")
+    oc = OptConfig(warmup=2, total_steps=100)
+
+    def build():
+        p, o = init_train_state(c, oc, torch.Generator(device=card)
+                                .manual_seed(0), card)
+        data = make_data_fn(c, 8, 128, seed=0, device=card)
+        if path == "train_step":
+            return p, o, None, make_train_step(c, oc), data
+        sync = gs.default_sync("int8", card)
+        step = gs.make_dp_train_step(c, oc, StepConfig(microbatches=4),
+                                     sync=sync)
+        return p, o, gs.init_sync_state(p, sync), step, data
+
+    (l1, p1), (l2, p2) = _two_runs(build)
+    assert l1 == l2, (l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(p1),
+                                                 tree.leaves(p2)))
+    p, o, s, step, data = build()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if s is None:
+                step(p, o, data(0))
+            else:
+                step(p, o, s, data(0))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(". ")[0][:120] for w in caught})
+    print(f"\n{path}: losses {l1}; deterministic mode flags "
+          f"{flagged or 'nothing'}")
