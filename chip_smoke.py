@@ -8,7 +8,7 @@ sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs eight phases, any failure of which exits non-zero:
+instance, then runs nine phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -87,8 +87,10 @@ instance, then runs eight phases, any failure of which exits non-zero:
      int8 decode row in phase 2b, the others in phase 4;
   6. serve workloads — the port's ``serve`` and ``serve_slo`` workloads,
      ``python -m repro_torch.bench run --suite serve`` (then
-     ``serve_slo``, twice) ``--smoke --power auto`` in process, at full
-     llama3.2-3b width on NVML's energy counter, narrowed by
+     ``serve_slo``, twice) ``--smoke --power auto --layers SERVE_LAYERS``
+     in process, at full llama3.2-3b width cut to ``SERVE_LAYERS`` of its
+     28 layers (every record must say so: ``n_layers``,
+     ``model_scale=full_width``), on NVML's energy counter, narrowed by
      ``SERVE_POINTS`` and ``SLO_POINTS`` to the main-path cell
      (``cache=paged, policy=continuous, sched=phased, kv_dtype=fp32``)
      with its slotted, fixed (measured on demand), int8 and chunked
@@ -107,8 +109,9 @@ instance, then runs eight phases, any failure of which exits non-zero:
      is its phased twin's, must give equal streams;
      ``shared_prefix`` under ``paged+prefix`` must hit the prefix index
      and launch the prefill kernel. One line per record gives its cell
-     and headline columns (``--profile`` also traces the main-path cell
-     and prints its device-busy share: ~11 min more).
+     and headline columns, and the phase its wall time (``--profile``
+     also traces the main-path cell and prints its device-busy share:
+     ~6 min more).
   7. train — the training path at full width, in process, on NVML's
      energy counter: (a) the ``llm_train`` workload, ``python -m
      repro_torch.bench run --suite llm_train --points placement=dp1
@@ -129,10 +132,30 @@ instance, then runs eight phases, any failure of which exits non-zero:
      gpt-800m step at global batch 64 under ``torch.profiler``: the
      device-busy share and the device time split into GEMMs, optimizer,
      elementwise (and reductions) and copies, beside the optimizer's
-     bound from its bytes (~2 min more).
+     bound from its bytes (~2 min more);
+  8. resnet — ResNet50 v1.5 training at full width, in process, on
+     NVML's energy counter: (a) the ``resnet50`` workload, ``python -m
+     repro_torch.bench run --suite resnet50 --power auto --iters
+     RESNET_ITERS``, its whole Space: the dp1 cells (global batch 16,
+     32, 64 on full-width, full-depth ResNet50, bf16 params and compute,
+     fp32 master weights and moments) must be ``ok``, ``nvml_energy``,
+     ``model_scale=full`` with ``RESNET50_PARAMS`` parameters, a falling
+     loss and finite images/Wh, and the dp2 and dp4 cells ``deferred``;
+     one line per cell with images/s, ms/step, Wh/step, images/Wh, mean
+     W, peak GB and the model-FLOP share (three times the forward
+     convolutions' and head's operations over the step time against the
+     card's dense bf16 peak); (b) a reduced fp32 ResNet (width 16, 64 x
+     64 images) trains three AdamW steps on the card and on the CPU from
+     the same weights and batches, with TF32 off for the card's
+     convolutions (cuDNN takes TF32 for fp32 convolutions by default):
+     losses agree at rtol 1e-4, and the params' largest difference is
+     printed. ``--profile`` also traces one step at global batch 64: the
+     device-busy share, the launches, and the device time in
+     convolutions, BN and elementwise work, copies and casts, and the
+     optimizer (~1 min more).
 
-``--train`` runs phase 7 alone (no kernel is built: the training path
-launches none) and prints no result line.
+``--train`` runs phases 7 and 8 alone (no kernel is built: the training
+paths launch none) and prints no result line.
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
 (neither is measured there), and no result line: for timing another
@@ -222,6 +245,11 @@ INT8_POOL_BLOCKS = 129
 SERVE_POINTS = "cache=slotted,cache=paged,policy=continuous"
 SLO_POINTS = ("trace=long_prefill,cache=paged,kv_dtype=fp32",
               "trace=shared_prefix,kv_dtype=fp32,sched=phased")
+#: phase 6's depth (``bench run --layers``): llama3.2-3b's first 14 of
+#: its 28 layers at full width. The cells are host-bound, so their wall
+#: scales with the layers' launches: at full depth phase 6 took 558-815
+#: s of the script's 732-1087 s on the card machine's hosts
+SERVE_LAYERS = 14
 #: phase 7's measured steps per llm_train cell: two windows of two
 #: ~0.9 s steps, many times the NVML energy counter's ~100 ms update
 #: interval
@@ -229,8 +257,15 @@ TRAIN_ITERS = 4
 #: AdamW's least HBM traffic per parameter: read the fp32 grad, m, v and
 #: master, write m, v and master (fp32) and the bf16 param
 ADAMW_BYTES_PER_PARAM = 4 * 4 + 3 * 4 + 2
-#: phase 7's profiler ranges (train/step.py, grad_sync.py, optimizer.py)
+#: phase 7's and 8's profiler ranges (train/step.py, grad_sync.py,
+#: optimizer.py)
 TRAIN_RANGES = ("forward_backward", "grad_sync", "optimizer")
+#: phase 8's measured steps per resnet50 cell: two windows of ten
+#: ~75 ms steps, each window several times the NVML energy counter's
+#: ~100 ms update interval
+RESNET_ITERS = 20
+#: full-width ResNet50's parameters (the reference's init, counted)
+RESNET50_PARAMS = 25_557_032
 
 
 def log(msg: str) -> None:
@@ -887,13 +922,14 @@ def phase_bench() -> dict:
 
 def run_workload(name: str, points: str, out: str) -> list:
     """One serve workload through the port's bench CLI on the card (its
-    smoke preset narrowed by ``points``); returns its records."""
+    smoke preset narrowed by ``points``, the model cut to
+    ``SERVE_LAYERS`` layers); returns its records."""
     from repro_torch.bench import cli
     from repro_torch.bench.records import load_records
     t0 = time.perf_counter()
     rc = cli.main(["run", "--suite", name, "--smoke", "--points", points,
-                   "--device", "cuda", "--power", "auto", "--out", out,
-                   "--quiet"])
+                   "--device", "cuda", "--power", "auto", "--layers",
+                   str(SERVE_LAYERS), "--out", out, "--quiet"])
     log(f"[{name}] --points {points}: rc {rc} in "
         f"{time.perf_counter() - t0:.1f} s")
     assert rc == 0, (name, rc)
@@ -919,16 +955,19 @@ def log_record(name: str, r) -> None:
         f"prefill {m['prefill_launches']} (int8 "
         f"{m['prefill_launches_int8']}) wall_s={m['wall_s']:.3f} "
         f"rel_spread={r.noise['rel_std']} power_source={r.power_source} "
-        f"model_scale={m['model_scale']} n_params={m['n_params']}")
+        f"model_scale={m['model_scale']} n_layers={m['n_layers']} "
+        f"n_params={m['n_params']}")
 
 
-def check_workload_record(name: str, r, n_layers: int) -> None:
-    """The kernels a record's measured run must (and must not) have
-    launched, by its cell."""
+def check_workload_record(name: str, r) -> None:
+    """The record's depth, and the kernels its measured run must (and
+    must not) have launched, by its cell."""
     m, pt = r.metrics, r.point
     assert r.status == "ok", (name, pt, r.error)
     assert r.power_source == "nvml_energy", (name, pt, r.power_source)
-    assert m["model_scale"] == "full", (name, pt)
+    assert m["model_scale"] == "full_width", (name, pt)
+    n_layers = m["n_layers"]
+    assert n_layers == SERVE_LAYERS, (name, pt, n_layers)
     if pt.get("cache", "paged").startswith("paged"):
         int8 = pt["kv_dtype"] == "int8"
         assert m["decode_launches"] == n_layers * m["decode_micro_steps"] \
@@ -943,13 +982,14 @@ def check_workload_record(name: str, r, n_layers: int) -> None:
         assert m["decode_launches"] == m["prefill_launches"] == 0, (name, pt)
 
 
-def phase_workloads(dev, c, profile: bool = False) -> dict:
+def phase_workloads(dev, profile: bool = False) -> dict:
     """The serve and serve_slo workloads through the port's bench CLI at
-    full width (see the module docstring); returns the launches counted
-    over the phase, per kernel."""
+    full width, ``SERVE_LAYERS`` deep (see the module docstring);
+    returns the launches counted over the phase, per kernel."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.prefill_attention import paged_prefill_attention
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
         ops.reset_launch_counts()
         records = {"serve": run_workload("serve", SERVE_POINTS, out),
@@ -964,7 +1004,7 @@ def phase_workloads(dev, c, profile: bool = False) -> dict:
             log_record(name, r)
     for name, recs in records.items():
         for r in recs:
-            check_workload_record(name, r, c.n_layers)
+            check_workload_record(name, r)
     cells = {(r.point["cache"], r.point["policy"], r.point["kv_dtype"],
               r.point["sched"]) for r in records["serve"]}
     assert {("paged", "continuous", "fp32", "phased"),
@@ -1004,6 +1044,8 @@ def phase_workloads(dev, c, profile: bool = False) -> dict:
         assert counts[name] > 0, (name, counts)
     log(f"[workloads] {sum(map(len, records.values()))} records ok; "
         f"launches {counts}")
+    log(f"[wall] phase 6 {time.perf_counter() - t_phase:.1f} s "
+        f"({SERVE_LAYERS} layers)")
     if profile:
         profile_main_cell(dev)
     return counts
@@ -1015,7 +1057,7 @@ def profile_main_cell(dev) -> None:
     from repro_torch.bench.context import RunContext
     from repro_torch.bench.workloads import serve as wl
     from repro_torch.serve.requests import poisson_requests
-    ctx = RunContext(device=dev, smoke=True)
+    ctx = RunContext(device=dev, smoke=True, layers=SERVE_LAYERS)
     c, engine = wl._engine(ctx, "llama3.2-3b", 4, "paged")
     reqs = poisson_requests(wl.N_REQUESTS_SMOKE, 300.0, c.vocab,
                             prompt_len=wl.PROMPT_LEN, seed=wl.SEED)
@@ -1164,14 +1206,55 @@ def _kernel_kind(name: str) -> str:
     return "elementwise"
 
 
+def profile_step(tag: str, one_step, kind_of, kinds: tuple) -> dict:
+    """``one_step()`` once under ``torch.profiler`` (the caller warms it
+    up first): its wall, the device-busy ms and launches, the device ms
+    by kind (``kind_of(kernel name)`` in ``kinds``; kernels launched
+    inside the ``optimizer`` range count as ``optimizer``) and by range
+    (``TRAIN_RANGES``); logs the 15 kernels that took the most device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in TRAIN_RANGES]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_kind = dict.fromkeys(kinds, 0.0)
+    for e in kernels:
+        by_kind[kind_of(e.name)] += e.time_range.elapsed_us() / 1e3
+    ranges = {}
+    for name in TRAIN_RANGES:
+        ks = [k for e in events if e.name == name
+              and e.device_type == DeviceType.CPU
+              for k in _subtree_kernels(e)]
+        ranges[name] = sum(k.duration for k in ks) / 1e3
+        if name == "optimizer":
+            for k in ks:                      # optimizer counts apart
+                by_kind[kind_of(k.name)] -= k.duration / 1e3
+    by_kind["optimizer"] = ranges["optimizer"]
+    rows = prof.key_averages()
+    rows = sorted((e for e in rows if e.device_type == DeviceType.CUDA
+                   and e.key not in TRAIN_RANGES),
+                  key=lambda e: -e.self_device_time_total)
+    for e in rows[:15]:
+        log(f"[{tag}] {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:6d}x  {e.key[:100]}")
+    return {"wall": wall, "busy": busy, "launches": len(kernels),
+            "by_kind": by_kind, "ranges": ranges}
+
+
 def profile_train_step(dev) -> None:
     """One full-width gpt-800m step at global batch 64 (the llm_train
     fp32 cell: 4 microbatches, overlapped bucket sync) under
     ``torch.profiler``: the device-busy share of its wall, and its
-    device time by kind (kernels launched inside the ``optimizer`` range
-    count as optimizer), beside the optimizer's bound from its bytes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    device time by kind, beside the optimizer's bound from its bytes."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree
     from repro_torch.data.synthetic import synthetic_tokens
@@ -1186,58 +1269,200 @@ def profile_train_step(dev) -> None:
     sync = gs.default_sync("fp32", dev)
     step = gs.make_dp_train_step(c, oc, StepConfig(microbatches=4),
                                  sync=sync)
-    s = gs.init_sync_state(p, sync)
+    state = [p, o, gs.init_sync_state(p, sync)]
     gb, seq = 64, 128
     toks = torch.from_numpy(synthetic_tokens(gb, seq, c.vocab)[:, :seq])
     batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1)
              .to(dev)}
+
+    def one():
+        state[:] = step(*state, batch)[:3]
+
     for _ in range(2):                      # warm: allocator, handles
-        p, o, s, m = step(p, o, s, batch)
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        p, o, s, m = step(p, o, s, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.name not in TRAIN_RANGES]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_kind = dict.fromkeys(("gemms", "elementwise", "copies"), 0.0)
-    for e in kernels:
-        by_kind[_kernel_kind(e.name)] += e.time_range.elapsed_us() / 1e3
-    ranges = {}
-    for name in TRAIN_RANGES:
-        ks = [k for e in events if e.name == name
-              and e.device_type == DeviceType.CPU
-              for k in _subtree_kernels(e)]
-        ranges[name] = sum(k.duration for k in ks) / 1e3
-        if name == "optimizer":
-            for k in ks:                      # optimizer counts apart
-                by_kind[_kernel_kind(k.name)] -= k.duration / 1e3
-    by_kind["optimizer"] = ranges["optimizer"]
+        one()
+    r = profile_step("profile train", one, _kernel_kind,
+                     ("gemms", "elementwise", "copies"))
+    wall, busy, by_kind = r["wall"], r["busy"], r["by_kind"]
     opt_bound = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
     log(f"[profile train] gpt-800m gb={gb} seq={seq} k=4 fp32 sync: wall "
         f"{wall * 1e3:.2f} ms (profiled), device busy {busy:.2f} ms = "
-        f"{busy / 1e3 / wall:.4f} of wall, {len(kernels)} device events; "
+        f"{busy / 1e3 / wall:.4f} of wall, {r['launches']} device events; "
         f"model-FLOP share over the profiled wall "
         f"{model_flop_share(n_params, gb * seq, wall):.4f}")
     log("[profile train] device ms by kind: " + ", ".join(
         f"{k} {v:.2f} ({v / busy:.3f})" for k, v in by_kind.items()))
     log("[profile train] device ms by range: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in ranges.items())
+        f"{k} {v:.2f}" for k, v in r["ranges"].items())
         + f"; optimizer bound from its bytes "
           f"({ADAMW_BYTES_PER_PARAM} B x {n_params / 1e6:.1f}M params) "
           f"{opt_bound:.2f} ms")
-    rows = prof.key_averages()
-    rows = sorted((e for e in rows if e.device_type == DeviceType.CUDA
-                   and e.key not in TRAIN_RANGES),
-                  key=lambda e: -e.self_device_time_total)
-    for e in rows[:15]:
-        log(f"[profile train] {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:6d}x  {e.key[:100]}")
-    del p, o, s
+    del p, o, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: ResNet50 training
+# ---------------------------------------------------------------------------
+
+
+def phase_resnet(dev, profile: bool = False) -> None:
+    """ResNet50 training at full width (see the module docstring)."""
+    from repro_torch.bench import cli
+    from repro_torch.bench.records import load_records
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rc = cli.main(["run", "--suite", "resnet50", "--device", "cuda",
+                       "--power", "auto", "--iters", str(RESNET_ITERS),
+                       "--out", out, "--quiet"])
+        records = load_records(f"{out}/resnet50/results.json")
+    log(f"[resnet] resnet50 Space: rc {rc}, {len(records)} records in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    assert rc == 0, rc
+    measured = [r for r in records if r.point["placement"] == "dp1"]
+    deferred = [r for r in records if r.point["placement"] != "dp1"]
+    assert sorted(r.point["global_batch"] for r in measured) == \
+        [16, 32, 64], records
+    for r in measured:
+        m, gb = r.metrics, r.point["global_batch"]
+        log(f"[resnet] resnet50 gb={gb} dp1: images_per_s="
+            f"{m.get('images_per_s', 0):.2f} ms_per_step="
+            f"{m.get('ms_per_step', 0):.3f} energy_wh_per_step="
+            f"{m.get('energy_wh_per_step', 0):.6e} images_per_wh="
+            f"{m.get('images_per_wh', 0):.1f} mean_w="
+            f"{m.get('energy_wh_per_step', 0) * 3600 / m['seconds']:.1f} "
+            f"peak_mem_gb={m.get('peak_mem_gb', 0):.2f} model_flop_share="
+            f"{m.get('model_flop_share', 0):.4f} loss "
+            f"{m.get('loss_first', 0):.4f} -> {m.get('loss_last', 0):.4f} "
+            f"rel_spread={r.noise['rel_std']} power_source={r.power_source} "
+            f"model_scale={m.get('model_scale')} "
+            f"n_params={m.get('n_params')}")
+    for r in measured:
+        m = r.metrics
+        assert r.status == "ok", (r.point, r.error)
+        assert r.power_source == "nvml_energy", (r.point, r.power_source)
+        assert m["model_scale"] == "full", r.point
+        assert m["n_params"] == RESNET50_PARAMS, (r.point, m["n_params"])
+        assert m["loss_last"] < m["loss_first"], (r.point, m)
+        assert math.isfinite(m["images_per_wh"]) and m["images_per_wh"] > 0
+    assert sorted((r.point["placement"], r.point["global_batch"])
+                  for r in deferred) == [(plc, gb) for plc in ("dp2", "dp4")
+                                         for gb in (16, 32, 64)], records
+    assert all(r.status == "deferred" for r in deferred), deferred
+    log(f"[resnet] dp2 and dp4: {len(deferred)} records deferred "
+        f"({deferred[0].error})")
+    del records
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_agreement(dev)
+    log(f"[wall] phase 8 {time.perf_counter() - t_phase:.1f} s")
+    if profile:
+        profile_resnet_step(dev)
+
+
+def resnet_agreement(dev) -> None:
+    """Reduced fp32 ResNet (width 16, 64 x 64 images), three AdamW steps
+    from the same weights and batches on the card and on the CPU, TF32
+    off for the card's convolutions (cuDNN takes TF32 for fp32
+    convolutions by default): losses at rtol 1e-4."""
+    from repro_torch.configs.resnet50 import CONFIG
+    from repro_torch.core import tree
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import init_train_state, make_resnet_train_step
+    c = CONFIG.reduced(img_size=64, width=16, dtype="float32",
+                       param_dtype="float32")
+    oc = OptConfig(warmup=2, total_steps=1000)
+    step = make_resnet_train_step(c, oc)
+    cpu = torch.device("cpu")
+    state = {cpu: init_train_state(c, oc, torch.Generator().manual_seed(0),
+                                   cpu)}
+    state[dev] = tree.tree_map(lambda t: t.to(dev), state[cpu])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    losses = {cpu: [], dev: []}
+    try:
+        for i in range(3):
+            imgs, labels = synthetic_images(8, c.img_size, c.n_classes,
+                                            seed=i)
+            for d in (cpu, dev):
+                batch = {"images": torch.from_numpy(imgs).to(d),
+                         "labels": torch.from_numpy(labels).to(d)}
+                p, o = state[d]
+                p, o, m = step(p, o, batch)
+                losses[d].append(float(m["loss"]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    diffs = [(a.cpu() - b).abs() for a, b in
+             zip(tree.leaves(state[dev][0]), tree.leaves(state[cpu][0]))]
+    worst = max(d.max().item() for d in diffs)
+    log(f"[resnet] reduced fp32 {c.name} (TF32 off), 3 AdamW steps: card "
+        f"losses {losses[dev]}, cpu {losses[cpu]}; params max |diff| "
+        f"{worst:.3e}")
+    np.testing.assert_allclose(losses[dev], losses[cpu], rtol=1e-4)
+
+
+def _resnet_kernel_kind(name: str) -> str:
+    n = name.lower()
+    if any(k in n for k in ("bn_", "batch_norm", "batchnorm", "welford")):
+        return "bn_elementwise"
+    if n.startswith(("memcpy", "memset")) or any(
+            k in n for k in ("copy_kernel", "nchwtonhwc", "nhwctonchw")):
+        return "copies"
+    if any(k in n for k in ("conv", "cudnn", "xmma", "dgrad", "wgrad",
+                            "fprop", "implicit", "gemm", "nvjet",
+                            "cutlass")):
+        return "convs"
+    return "bn_elementwise"
+
+
+def profile_resnet_step(dev) -> None:
+    """One full-width ResNet50 step at global batch 64 (the resnet50
+    cell) under ``torch.profiler``: the device-busy share of its wall,
+    its launches, and its device time in convolutions (cuDNN, with their
+    layout transforms counted as copies), BN and elementwise work,
+    copies and casts (the per-convolution weight copies among them) and
+    the optimizer, beside the optimizer's bound from its bytes."""
+    from repro_torch.configs.resnet50 import CONFIG as c
+    from repro_torch.core import tree
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.models import resnet
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import init_train_state, make_resnet_train_step
+    oc = OptConfig(warmup=2, total_steps=1000)
+    p, o = init_train_state(c, oc, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    n_params = sum(t.numel() for t in tree.leaves(p))
+    step = make_resnet_train_step(c, oc)
+    gb = 64
+    imgs, labels = synthetic_images(gb, c.img_size, c.n_classes)
+    batch = {"images": torch.from_numpy(imgs).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    state = [p, o]
+
+    def one():
+        state[:] = step(*state, batch)[:2]
+
+    for _ in range(2):                      # warm: allocator, cuDNN plans
+        one()
+    r = profile_step("profile resnet", one, _resnet_kernel_kind,
+                     ("convs", "bn_elementwise", "copies"))
+    wall, busy, by_kind = r["wall"], r["busy"], r["by_kind"]
+    opt_bound = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    share = 3 * resnet.forward_flops(c) * gb / wall / PEAK_FLOPS[
+        torch.bfloat16]
+    log(f"[profile resnet] resnet50 gb={gb}: wall {wall * 1e3:.2f} ms "
+        f"(profiled), device busy {busy:.2f} ms = {busy / 1e3 / wall:.4f} "
+        f"of wall, {r['launches']} device launches; model-FLOP share over "
+        f"the profiled wall {share:.4f}")
+    log("[profile resnet] device ms by kind: " + ", ".join(
+        f"{k} {v:.2f} ({v / busy:.3f})" for k, v in by_kind.items()))
+    log("[profile resnet] device ms by range: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["ranges"].items())
+        + f"; optimizer bound from its bytes "
+          f"({ADAMW_BYTES_PER_PARAM} B x {n_params / 1e6:.2f}M params) "
+          f"{opt_bound:.3f} ms")
+    del p, o, state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1527,7 +1752,9 @@ def main() -> int:
     t_start = time.perf_counter()
     if "--train" in sys.argv[1:]:
         phase_train(dev, profile="--profile" in sys.argv[1:])
-        log(f"[wall] phase 7 alone {time.perf_counter() - t_start:.1f} s")
+        phase_resnet(dev, profile="--profile" in sys.argv[1:])
+        log(f"[wall] phases 7 and 8 alone "
+            f"{time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
     t0 = time.perf_counter()
@@ -1556,8 +1783,9 @@ def main() -> int:
     phase_agreement(dev)
     bench_counts = phase_bench()
     rows = phase_times(dev, counts, int8_counts, bench_counts, errs)
-    phase_workloads(dev, c, profile="--profile" in sys.argv[1:])
+    phase_workloads(dev, profile="--profile" in sys.argv[1:])
     phase_train(dev, profile="--profile" in sys.argv[1:])
+    phase_resnet(dev, profile="--profile" in sys.argv[1:])
     log(f"[wall] chip_smoke {time.perf_counter() - t_start:.1f} s, the "
         f"kernels' build included")
     print(json.dumps({"kernels": rows}), flush=True)

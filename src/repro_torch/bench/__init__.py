@@ -7,6 +7,7 @@ Port of ``src/repro/bench``: one registry, one runner, one CLI.
   python -m repro_torch.bench run --suite kernels --smoke --device cpu \
       --power none
   python -m repro_torch.bench report
+  python -m repro_torch.bench compare BASELINE CURRENT [--promote]
 
 Benchmarks declare a :class:`WorkloadSpec` via the :func:`workload`
 decorator (see ``repro_torch.bench.workloads``); :class:`WorkloadRunner`
@@ -14,10 +15,14 @@ executes them with runner-owned power selection, warmup/iters timing,
 retries, and straggler detection, emitting schema-versioned
 :class:`ResultRecord`s under ``artifacts/bench_torch/<workload>/``.
 """
+from repro_torch.bench.compare import (
+    Comparison, MetricDelta, PointComparison, compare_sets,
+    load_result_set, promote,
+)
 from repro_torch.bench.context import Measurement, RunContext
 from repro_torch.bench.records import (
-    SCHEMA_VERSION, ResultRecord, load_records, placement_label, point_key,
-    save_records,
+    COMPARED_METRICS, SCHEMA_VERSION, ResultRecord, compare_metrics,
+    load_records, placement_label, point_key, save_records,
 )
 from repro_torch.bench.runner import WorkloadRunner
 from repro_torch.bench.spec import (
@@ -26,8 +31,11 @@ from repro_torch.bench.spec import (
 )
 
 __all__ = [
-    "Measurement", "RunContext", "SCHEMA_VERSION", "ResultRecord",
-    "load_records", "placement_label", "point_key", "save_records",
+    "Comparison", "MetricDelta", "PointComparison", "compare_sets",
+    "load_result_set", "promote",
+    "Measurement", "RunContext", "COMPARED_METRICS", "SCHEMA_VERSION",
+    "ResultRecord", "compare_metrics", "load_records", "placement_label",
+    "point_key", "save_records",
     "WorkloadRunner", "Placement", "UnknownWorkloadError", "WorkloadSpec",
     "get_workload", "iter_workloads", "register", "unregister", "workload",
     "workload_names",

@@ -58,7 +58,8 @@ class RunContext:
                  power_methods: Sequence[PowerMethod] = (),
                  power_source: str = "none",
                  power_interval_ms: float = 20.0,
-                 warmup: int = 1, iters: int = 3, smoke: bool = False):
+                 warmup: int = 1, iters: int = 3, smoke: bool = False,
+                 layers: Optional[int] = None):
         self.device = device
         self.out_dir = pathlib.Path(out_dir)
         self.power_methods = list(power_methods)
@@ -67,6 +68,8 @@ class RunContext:
         self.warmup = warmup
         self.iters = iters
         self.smoke = smoke
+        #: the served model's depth when the run cuts it (``--layers``)
+        self.layers = layers
         self.placement = None  # the current point's Placement (runner-set)
         self.cache: dict = {}
         self.last_measurement: Optional[Measurement] = None

@@ -12,8 +12,9 @@ layout under ``artifacts/bench_torch/<workload>/`` is
 written through :mod:`repro_torch.core.results` so the files are atomic
 and a partially-interrupted sweep never truncates completed points.
 ``stamp_scaling_metrics`` is the reference's, less its emulated-device
-cap (the port has no forced host-platform devices); ``compare_metrics``
-waits for ROADMAP Queue 1 item 2 (compare).
+cap (the port has no forced host-platform devices). ``COMPARED_METRICS``,
+``compare_metrics``, ``metric_direction`` and ``metric_tolerance`` are
+the reference's, for the comparison engine (``bench.compare``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,86 @@ from repro_torch.core.results import atomic_write_text
 from repro_torch.power.frame import Frame
 
 SCHEMA_VERSION = 3
+
+#: metrics the comparison engine understands: name -> (higher_is_better,
+#: default relative tolerance). Anything else a workload emits (structural
+#: counts, booleans, notes) is carried in the record but not delta-gated.
+COMPARED_METRICS: dict[str, tuple[bool, float]] = {
+    # throughput — higher is better
+    "tokens_per_s": (True, 0.20),
+    "images_per_s": (True, 0.20),
+    "decode_tok_s": (True, 0.20),
+    "speedup_vs_fixed": (True, 0.25),
+    "speedup_vs_slotted": (True, 0.25),
+    # scheduler health — mean decode-step batch occupancy (active slots /
+    # n_slots); a drop means admission/refill regressed even when raw
+    # throughput noise hides it
+    "occupancy": (True, 0.25),
+    # energy efficiency — higher is better
+    "tokens_per_wh": (True, 0.20),
+    "images_per_wh": (True, 0.20),
+    # step/latency time — lower is better
+    "seconds": (False, 0.20),
+    "ms_per_step": (False, 0.20),
+    "ms_per_iter": (False, 0.20),
+    "ms": (False, 0.20),
+    "us": (False, 0.20),
+    "ttft_s": (False, 0.30),
+    # energy cost — lower is better
+    "wh_per_token": (False, 0.25),
+    "wh_per_request": (False, 0.25),
+    "energy_wh_per_step": (False, 0.25),
+    "energy_wh": (False, 0.25),
+    # cross-placement scaling (stamp_scaling_metrics) — per-device
+    # throughput, parallel efficiency vs the 1-device cell of the same
+    # sweep, and the energy-per-token ratio vs that cell
+    "tok_s_per_device": (True, 0.20),
+    "scaling_efficiency": (True, 0.20),
+    "wh_per_token_scaling": (False, 0.25),
+    # SLO serving (serve_slo / repro.serve.slo) — fraction of requests
+    # meeting their per-tenant TTFT+TPOT targets, tail latency
+    # quantiles, and energy per SLO-met request (the MLPerf-Power
+    # energy-per-useful-inference figure). Tail quantiles get wide
+    # tolerances: a p99 on CPU timing is the noisiest figure gated here.
+    "goodput": (True, 0.15),
+    "ttft_p99": (False, 0.35),
+    "tpot_p99": (False, 0.35),
+    "wh_per_slo_request": (False, 0.30),
+    # int8 KV pool (kv_dtype axis): pool_bytes/max_concurrency are
+    # structural (deterministic functions of config + dtype — near-zero
+    # tolerance so a silent layout change gates); speedup_vs_fp_kv is a
+    # same-cell throughput ratio vs the fp32 twin;
+    # kv_stream_prefix_agreement is the token-stream quality figure
+    # (mean longest-common-prefix fraction vs the fp32 twin's streams) —
+    # a drop means quantization error is steering greedy decoding.
+    "pool_bytes": (False, 0.01),
+    "max_concurrency": (True, 0.01),
+    "speedup_vs_fp_kv": (True, 0.25),
+    "kv_stream_prefix_agreement": (True, 0.10),
+    # chunked-vs-phased scheduler ratios (sched axis): same-cell pairs,
+    # so trace noise largely cancels — except ttft_p99_vs_phased, a
+    # ratio of two SINGLE-RUN p99s whose run-to-run wobble is multiples,
+    # not percent. Its wide tolerance lives on the serve_slo workload
+    # (compare_tols stamp — a registry base here would be outranked by
+    # the CI's blanket --rel-tol); the real cliff gate is
+    # scripts/check_ttft_gate.py (median-of-3 per sched). The base
+    # below only matters for compares run without a CLI default.
+    "speedup_vs_phased": (True, 0.25),
+    "ttft_p99_vs_phased": (False, 1.5),
+    "goodput_vs_phased": (True, 0.15),
+    # resilience (faults/ + bench.workloads.resilience) — crash-to-first-
+    # resumed-step wall time, recompute cost in tokens, end-to-end
+    # delivered-token rate including recovery, and the energy premium vs
+    # the fault-free twin. recovery_s and the Wh overhead are differences
+    # of CPU wall-clock quantities an order of magnitude noisier than a
+    # throughput cell, hence the wide bases (the workload stamps wider
+    # still via compare_tols).
+    "recovery_s": (False, 0.50),
+    "wasted_tokens": (False, 0.30),
+    "goodput_tokens_per_s": (True, 0.25),
+    "wh_overhead_resilience": (False, 2.0),
+}
+
 
 
 @dataclass
@@ -60,6 +141,16 @@ class ResultRecord:
     @property
     def ok(self) -> bool:
         return self.status == "ok"
+
+    @property
+    def rel_std(self) -> float:
+        """Recorded relative step-time spread (0.0 when not recorded)."""
+        if not isinstance(self.noise, dict):
+            return 0.0
+        try:
+            return max(float(self.noise.get("rel_std", 0.0)), 0.0)
+        except (TypeError, ValueError):
+            return 0.0
 
     def flat(self) -> dict:
         """Single-level dict for CSV/result tables: point + metrics merged,
@@ -126,6 +217,29 @@ def point_key(rec: ResultRecord, *, with_power: bool = True) -> str:
     if with_power:
         key += f"|power={rec.power_source}"
     return key
+
+
+def compare_metrics(rec: ResultRecord) -> dict[str, float]:
+    """The subset of a record's metrics the comparison engine delta-gates,
+    as floats, in ``COMPARED_METRICS`` order."""
+    out = {}
+    for name in COMPARED_METRICS:
+        if name in rec.metrics:
+            try:
+                out[name] = float(rec.metrics[name])
+            except (TypeError, ValueError):
+                continue
+    return out
+
+
+def metric_direction(name: str) -> bool:
+    """True when higher values of ``name`` are better."""
+    return COMPARED_METRICS[name][0]
+
+
+def metric_tolerance(name: str) -> float:
+    """Default relative tolerance for ``name``."""
+    return COMPARED_METRICS[name][1]
 
 
 def result_doc(records: list) -> dict:

@@ -13,11 +13,13 @@ and ROADMAP Queue 1 item 8, and the sweep's one-device cells still
 measure (the reference also renders a Slurm script for such a point,
 which waits for ``launch/slurm``, Queue 1 item 9). The runner stamps the
 cross-placement scaling metrics (``records.stamp_scaling_metrics``)
-into every sweep. The reference's environment tuning (``envtune``) has
-no port.
+into every sweep, and a spec's ``compare_tols`` into each record's
+``noise`` (``noise["tols"]``), which ``bench.compare`` reads. The
+reference's environment tuning (``envtune``) has no port.
 """
 from __future__ import annotations
 
+import math
 import pathlib
 import time
 from typing import Optional
@@ -46,7 +48,8 @@ class WorkloadRunner:
                  smoke: bool = False,
                  point_overrides: Optional[dict] = None,
                  retries: int = 1,
-                 power_interval_ms: float = 20.0):
+                 power_interval_ms: float = 20.0,
+                 layers: Optional[int] = None):
         self.spec = spec
         self.device = device
         self.out = pathlib.Path(out_dir) / spec.name
@@ -58,6 +61,7 @@ class WorkloadRunner:
         self.iters = iters
         self.retries = retries
         self.power_interval_ms = power_interval_ms
+        self.layers = layers
         self.watchdog = StragglerWatchdog()
         self.records: list[ResultRecord] = []
 
@@ -75,7 +79,7 @@ class WorkloadRunner:
                          power_source=self.power_source,
                          power_interval_ms=self.power_interval_ms,
                          warmup=self.warmup, iters=self.iters,
-                         smoke=self.smoke)
+                         smoke=self.smoke, layers=self.layers)
         points = spec.space_for(self.smoke, self.point_overrides).expand()
         for i, pt in enumerate(points):
             rec = self._run_point(pt, ctx)
@@ -142,4 +146,12 @@ class WorkloadRunner:
         rec.noise = {"rel_std": round(rel_std, 6), "source": noise_src,
                      "samples": samples,
                      "point_seconds": round(dt, 6)}
+        if spec.compare_tols:
+            # the workload's declared tolerances ride with the record for
+            # bench.compare; a non-finite one is stamped as "inf" (a bare
+            # `Infinity` is not RFC JSON), which float() parses back
+            rec.noise["tols"] = {
+                k: v if isinstance(v, (int, float)) and math.isfinite(v)
+                else "inf"
+                for k, v in spec.compare_tols.items()}
         return rec

@@ -35,14 +35,19 @@ What differs from the reference:
     ``get_config(arch).reduced()``, the reference's cell, so its columns
     and ``n_tokens`` can be held against the reference's. On a card it
     serves the full-width, full-depth model in bf16 from seeded random
-    weights: a reduced model on a card times only the host. Every record
-    says which (``model_scale``: ``reduced`` or ``full``) and carries
-    ``n_params``. The traffic is the reference's at both scales.
+    weights: a reduced model on a card times only the host. ``bench run
+    --layers N`` cuts the depth to N layers, widths unchanged
+    (``model_scale`` ``full_width`` on a card). Every record says which
+    (``model_scale``: ``reduced``, ``full`` or ``full_width``) and
+    carries ``n_params`` and ``n_layers``. The traffic is the
+    reference's at every scale.
   * **Energy** comes from the runner-selected power backend, labelled
     ``power_source``: on a card ``--power auto`` reads NVML's energy
     counter (``nvml_energy``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -68,12 +73,16 @@ SEED = 0
 def model(ctx, arch: str):
     """``(config, params, model_scale, n_params)`` for ``arch`` on the
     run's device, built once per run: the reduced config on the CPU, the
-    full one on a card (see the module docstring)."""
+    full one on a card, cut to ``ctx.layers`` layers when the run asks
+    (see the module docstring)."""
     def make():
         c = get_config(arch)
         scale = "full"
         if ctx.device.type == "cpu":
             c, scale = c.reduced(), "reduced"
+        if ctx.layers is not None and ctx.layers != c.n_layers:
+            c = dataclasses.replace(c, n_layers=ctx.layers)
+            scale = "full_width" if scale == "full" else scale
         gen = torch.Generator(device=ctx.device).manual_seed(SEED)
         params = lm.init(c, gen, ctx.device)
         n_params = sum(t.numel() for t in _leaves(params))
@@ -194,6 +203,7 @@ def build(pt, ctx):
     c, engine = _engine(ctx, pt["arch"], pt["slots"], pt["cache"],
                         pt["kv_dtype"])
     _c, _params, scale, n_params = model(ctx, pt["arch"])
+    n_layers = _c.n_layers
     n = N_REQUESTS_SMOKE if ctx.smoke else N_REQUESTS
     requests = poisson_requests(n, pt["rate_hz"], c.vocab,
                                 prompt_len=PROMPT_LEN, seed=SEED)
@@ -232,6 +242,7 @@ def build(pt, ctx):
             "request_seed": SEED,
             "model_scale": scale,
             "n_params": n_params,
+            "n_layers": n_layers,
             **counted,
         }
         # headline ratios. The twin cells are normally already cached

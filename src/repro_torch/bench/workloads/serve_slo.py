@@ -30,7 +30,8 @@ What differs from the reference is what differs in the ``serve``
 workload (``bench/workloads/serve.py``): no ``REPRO_PAGED_IMPL`` switch
 or interpret-mode drill (a card always runs the kernels, the CPU the
 plain versions), the reduced model on the CPU and the full-width bf16
-model on a card (``model_scale``, ``n_params``), kernel launch counts
+model on a card, cut in depth by ``--layers`` (``model_scale``,
+``n_params``, ``n_layers``), kernel launch counts
 per record, and energy from the runner's backend (``nvml_energy`` on a
 card under ``--power auto``).
 """
@@ -203,6 +204,7 @@ def build(pt, ctx):
             "replayed_tokens": engine.replayed_tokens,
             "model_scale": scale,
             "n_params": n_params,
+            "n_layers": _c.n_layers,
             **counted,
         }
         for name, sub in report.per_tenant.items():

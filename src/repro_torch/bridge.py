@@ -1,12 +1,14 @@
 """Bridge from the reference's parameter trees to the port's tensors.
 
 The reference (``src/repro/models/lm.py::init``) builds a nested dict of
-arrays with layer-stacked leaves (``blocks.stack_init``). Handed over as
-numpy arrays, :func:`params_from_numpy` turns that tree into torch
-tensors of the same shapes, layouts and dtypes, so both packages can run
-on the same weights. bf16 leaves arrive as numpy's ``bfloat16`` extension
-dtype, which ``torch.from_numpy`` rejects: they cross as their uint16
-bit pattern and are viewed back as ``torch.bfloat16``.
+arrays with layer-stacked leaves (``blocks.stack_init``); its ResNet
+(``models/resnet.py::init``) nests lists of block dicts under
+``stages``. Handed over as numpy arrays, :func:`params_from_numpy` turns
+such a tree into torch tensors of the same shapes, layouts and dtypes,
+in the same structure, so both packages can run on the same weights.
+bf16 leaves arrive as numpy's ``bfloat16`` extension dtype, which
+``torch.from_numpy`` rejects: they cross as their uint16 bit pattern and
+are viewed back as ``torch.bfloat16``.
 :func:`train_state_from_numpy` carries a whole train state across the
 same way: the reference's ``(params, opt_state)`` (AdamW's or
 Adafactor's, with its 0-d int32 ``step``) and, for its pure-dp step, the
@@ -34,11 +36,14 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> Any:
-    """Nested dict of numpy arrays -> same nested dict of tensors on
-    ``device`` (``dtype`` casts floating leaves when given)."""
+    """Nested dicts, lists and tuples of numpy arrays -> the same
+    structure of tensors on ``device`` (``dtype`` casts floating leaves
+    when given)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, dev, dtype) for v in tree)
     t = tensor_from_numpy(tree)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)

@@ -1,4 +1,4 @@
-"""Train-step factories for the language models.
+"""Train-step factories: the language models and ResNet50.
 
 Port of ``src/repro/train/step.py``: the paper's Megatron-style recipe,
 bf16 compute with fp32 master weights, activation recomputation per
@@ -9,8 +9,7 @@ detached aliases that require grad, so the caller's tensors keep their
 flags. The reference's ``jax.lax.scan`` over microbatches is a Python
 loop here, so its ``unroll`` option has no port; nor have
 ``make_train_step``'s sharding arguments (GSPMD grad and batch
-constraints): multi-device placement is ROADMAP Queue 1 item 8. The
-ResNet step waits for Queue 1 item 7.
+constraints): multi-device placement is ROADMAP Queue 1 item 8.
 
 The step updates ``params`` and ``opt_state`` in place (see
 ``train.optimizer``) and returns them.
@@ -24,10 +23,11 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.resnet50 import ResNetConfig
 from repro_torch.core import tree
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import lm
-from repro_torch.train.loss import next_token_loss
+from repro_torch.models import lm, resnet
+from repro_torch.train.loss import classification_loss, next_token_loss
 from repro_torch.train.optimizer import OptConfig, opt_init, opt_update
 
 Params = Any
@@ -143,14 +143,44 @@ def make_train_step(c: ModelConfig, oc: OptConfig,
     return train_step
 
 
+# ---------------------------------------------------------------------------
+# ResNet50 (one device; the reference's data-parallel all-reduce is
+# ROADMAP Queue 1 item 8)
+# ---------------------------------------------------------------------------
+
+
+def make_resnet_train_step(c: ResNetConfig, oc: OptConfig):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` over ``batch = {"images": (B, H, W, 3), "labels": (B,)}``:
+    the classification loss, gradients cast to fp32, one optimizer
+    update in place; metrics ``loss``, ``gnorm``, ``lr``."""
+    def loss_fn(params, batch):
+        logits = resnet.forward(c, params, batch["images"])
+        return classification_loss(logits, batch["labels"]), ()
+
+    vg = value_and_grad(loss_fn)
+
+    def train_step(params, opt_state, batch):
+        (loss, _), grads = vg(params, batch)
+        grads = tree.tree_map(lambda g: g.float(), grads)
+        new_params, new_state, info = opt_update(oc, grads, opt_state,
+                                                 params)
+        return new_params, new_state, {"loss": loss, **info}
+
+    return train_step
+
+
 def init_train_state(c, oc: OptConfig,
                      generator: Optional[torch.Generator] = None,
                      device: DeviceLike = None):
     """``(params, opt_state)`` from the port's seeded initializer
-    (``lm.init``) on ``device`` (default the card)."""
-    if not isinstance(c, ModelConfig):
-        raise NotImplementedError(
-            f"{type(c).__name__}: the ResNet train step is not ported: "
-            "ROADMAP Queue 1 item 7")
-    p = lm.init(c, generator, resolve_device(device))
+    (``lm.init``, or ``resnet.init`` for a ``ResNetConfig``) on
+    ``device`` (default the card)."""
+    if isinstance(c, ResNetConfig):
+        p = resnet.init(c, generator, resolve_device(device))
+    elif isinstance(c, ModelConfig):
+        p = lm.init(c, generator, resolve_device(device))
+    else:
+        raise TypeError(f"{type(c).__name__}: expected a ModelConfig or a "
+                        "ResNetConfig")
     return p, opt_init(oc, p)

@@ -28,6 +28,10 @@ from the same weights, a checkpoint round trip of card tensors (the
 async snapshot taken before an in-place update), and two identical
 5-step runs of full-width gpt-117m giving element-equal loss traces and
 params (the ops torch's deterministic mode would flag are printed).
+ResNet on the card: five full-width bf16 ResNet50 steps with a finite,
+falling loss; three AdamW steps of a reduced fp32 ResNet against the CPU
+(TF32 off); a checkpoint round trip of a ResNet train state (its
+list-shaped ``stages`` keys).
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -53,6 +57,7 @@ import torch
 from repro_torch.bench.workloads.kernels import plain_fp32 as _plain_fp32
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get_config
+from repro_torch.configs.resnet50 import CONFIG as RESNET50
 from repro_torch.core import tree
 from repro_torch.kernels import _build, decode_attention, ops, ref
 from repro_torch.kernels.decode_attention import decode_splits, \
@@ -67,8 +72,9 @@ from repro_torch.serve.requests import Request
 from repro_torch.launch.train import make_data_fn
 from repro_torch.parallel import grad_sync as gs
 from repro_torch.train.optimizer import OptConfig
+from repro_torch.data.synthetic import synthetic_images
 from repro_torch.train.step import (StepConfig, init_train_state,
-                                    make_train_step)
+                                    make_resnet_train_step, make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -908,3 +914,88 @@ def test_train_step_on_card_is_deterministic(card, path):
     flagged = sorted({str(w.message).split(". ")[0][:120] for w in caught})
     print(f"\n{path}: losses {l1}; deterministic mode flags "
           f"{flagged or 'nothing'}")
+
+
+# ---------------------------------------------------------------------------
+# ResNet on the card
+# ---------------------------------------------------------------------------
+
+
+def _images(c, n, device):
+    imgs, labels = synthetic_images(n, c.img_size, c.n_classes)
+    return {"images": torch.from_numpy(imgs).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+def test_resnet50_full_width_steps_on_card(card):
+    """Five steps of full-width bf16 ResNet50 (25,557,032 params, 224 x
+    224, global batch 16) on one repeated batch: a finite, falling
+    loss."""
+    oc = OptConfig(warmup=2, total_steps=1000)
+    p, o = init_train_state(RESNET50, oc, torch.Generator(device=card)
+                            .manual_seed(0), card)
+    assert sum(t.numel() for t in tree.leaves(p)) == 25_557_032
+    step = make_resnet_train_step(RESNET50, oc)
+    batch = _images(RESNET50, 16, card)
+    losses = []
+    for _ in range(5):
+        p, o, m = step(p, o, batch)
+        losses.append(float(m["loss"]))
+    print(f"\nresnet50 full width, gb=16: losses {losses}")
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+
+
+def test_resnet_step_on_card_matches_cpu(card):
+    """Reduced fp32 ResNet (width 16, 64 x 64), three AdamW steps from
+    the same weights and batches on the card and on the CPU, with TF32
+    off (cuDNN convolutions take TF32 by default): losses at rtol 1e-4
+    (summation order differs), params within twice the three steps'
+    largest moves; the measured difference is printed."""
+    c = RESNET50.reduced(img_size=64, width=16, dtype="float32",
+                         param_dtype="float32")
+    oc = OptConfig(warmup=2, total_steps=100)
+    step = make_resnet_train_step(c, oc)
+    p0, o0 = init_train_state(c, oc, torch.Generator().manual_seed(0), "cpu")
+    p1, o1 = tree.tree_map(lambda t: t.to(card), (p0, o0))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for i in range(3):
+            imgs, labels = synthetic_images(8, c.img_size, c.n_classes,
+                                            seed=i)
+            batch = {"images": torch.from_numpy(imgs),
+                     "labels": torch.from_numpy(labels)}
+            p0, o0, m0 = step(p0, o0, batch)
+            p1, o1, m1 = step(p1, o1, tree.tree_map(lambda t: t.to(card),
+                                                    batch))
+            np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
+                                       rtol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    worst = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(tree.leaves(p1), tree.leaves(p0)))
+    moves = sum(oc.lr * (1 + oc.weight_decay * max(
+        b.abs().max().item() for b in tree.leaves(p0))) for _ in range(3))
+    print(f"\nresnet step card vs cpu: params max |diff| {worst:.3e} "
+          f"(bound {2 * moves:.3e})")
+    assert worst <= 2 * moves
+
+
+def test_checkpoint_round_trip_of_a_resnet_train_state(card, tmp_path):
+    """A reduced bf16 ResNet train state on the card, one step in,
+    restores bit-exactly onto the card; its leaves are keyed by their
+    list indices (``stages/<stage>/<block>/...``)."""
+    c = RESNET50.reduced()
+    oc = OptConfig(warmup=2, total_steps=100)
+    p, o = init_train_state(c, oc, torch.Generator(device=card)
+                            .manual_seed(0), card)
+    p, o, _ = make_resnet_train_step(c, oc)(p, o, _images(c, 4, card))
+    mgr = ckpt.CheckpointManager(tmp_path)
+    mgr.save_sync((p, o), 1)
+    got, manifest = ckpt.restore((p, o), tmp_path)
+    assert "0/stages/1/0/proj" in manifest["leaves"]
+    assert "1/m/stages/3/0/bn3/scale" in manifest["leaves"]
+    for a, b in zip(tree.leaves(got), tree.leaves((p, o))):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)

@@ -13,7 +13,8 @@ On the CPU, where both run the reduced model:
     test only), writes an ``ok`` record carrying every metric the
     reference's record of that point carries, with equal ``n_tokens``,
     ``n_requests`` and, for ``serve_slo``, ``trace_hash``; and says which
-    model scale ran.
+    model scale and depth ran;
+  * ``run --layers N`` serves the model's first N layers at its width.
 """
 import dataclasses
 import math
@@ -32,6 +33,8 @@ from repro.serve import slo as ref_slo
 from repro.serve import traffic as ref_traffic
 from repro_torch.bench import cli
 from repro_torch.bench import spec
+from repro_torch.bench.context import RunContext
+from repro_torch.configs import get_config
 from repro_torch.bench.records import load_records
 from repro_torch.bench.workloads import serve as serve_wl
 from repro_torch.bench.workloads import serve_slo as slo_wl
@@ -187,6 +190,8 @@ def test_one_point_cpu_run_holds_the_reference(one_point_runs, name):
         assert rec.metrics["prefix_hit_requests"] > 0
     assert rec.metrics["model_scale"] == "reduced"
     assert rec.metrics["n_params"] > 0
+    assert rec.metrics["n_layers"] == \
+        get_config("llama3.2-3b").reduced().n_layers
     # on the CPU the kernel ops run their plain versions: no launch
     assert rec.metrics["decode_launches"] == 0
     assert rec.metrics["decode_micro_steps"] > 0
@@ -194,3 +199,19 @@ def test_one_point_cpu_run_holds_the_reference(one_point_runs, name):
     present = [c for c in spec.get_workload(name).result_columns
                if c in ref.flat()]
     assert all(c in flat for c in present)
+
+
+@pytest.mark.parametrize("layers", [None, 1])
+def test_layers_cut_the_served_model_to_its_first_layers(layers):
+    """``bench run --layers N`` (``RunContext.layers``): the served
+    config keeps every width and has N layers; on the CPU the scale
+    stays ``reduced``."""
+    ctx = RunContext(device=torch.device("cpu"), layers=layers)
+    c, params, scale, n_params = serve_wl.model(ctx, "llama3.2-3b")
+    full = get_config("llama3.2-3b").reduced()
+    assert dataclasses.replace(c, n_layers=full.n_layers) == full
+    assert c.n_layers == (layers or full.n_layers)
+    assert scale == "reduced"
+    stacked = params["layers"]["slot0"]["attn"]["wq"]
+    assert stacked.shape[0] == c.n_layers
+    assert n_params == sum(t.numel() for t in serve_wl._leaves(params))

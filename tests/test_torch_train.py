@@ -214,7 +214,7 @@ def test_forward_options_that_are_not_ported_raise():
         lm.forward(c, p, toks, impl="grouped")
     with pytest.raises(ValueError, match="remat"):
         lm.forward(c, p, toks, remat="some")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(TypeError, match="ResNetConfig"):
         train_step.init_train_state(object(), optimizer.OptConfig(),
                                     device="cpu")
 
