@@ -21,7 +21,8 @@ class ModelConfig:
     """Architecture description; the fields mirror the reference's.
 
     family: dense | moe | ssm | hybrid | encdec | vlm. The port runs
-    ``dense`` only so far; the other families raise where they are used.
+    the decoder-only families dense, moe, ssm and hybrid; encdec and vlm
+    raise where they are used (``models.blocks.check_family``).
     """
 
     name: str
@@ -90,6 +91,42 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return vocab_pad(self.vocab)
 
+    @property
+    def group_size(self) -> int:
+        """GQA group size (query heads per KV head)."""
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+    def is_moe_layer(self, i: int) -> bool:
+        """MoE on the layers ``i % step == step - 1`` (step 2: 1, 3, 5...)."""
+        if self.n_experts == 0:
+            return False
+        return (i % self.moe_layer_step) == (self.moe_layer_step - 1)
+
+    def is_attn_layer(self, i: int) -> bool:
+        """Hybrid: layer ``attn_layer_offset`` of each period is attention
+        (the others Mamba); ssm: none; every other family: all."""
+        if self.family != "hybrid":
+            return self.family != "ssm"
+        return (i % self.attn_layer_period) == self.attn_layer_offset
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's; excludes a learned
+        position table)."""
+        return _param_count(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        """Parameters one token uses: ``top_k`` of the experts."""
+        return _param_count(self, active_only=True)
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (same rule as the
         reference, so both packages build identical shapes)."""
@@ -121,3 +158,61 @@ class ModelConfig:
         small["name"] = self.name + "-reduced"
         small.update(overrides)
         return replace(self, **small)
+
+
+def _attn_params(c: ModelConfig) -> int:
+    qo = 2 * c.d_model * c.n_heads * c.d_head
+    kv = 2 * c.d_model * c.n_kv_heads * c.d_head
+    bias = (c.n_heads + 2 * c.n_kv_heads) * c.d_head if c.qkv_bias else 0
+    return qo + kv + bias
+
+
+def _mlp_params(c: ModelConfig, d_ff: int) -> int:
+    n_mats = 3 if c.act == "swiglu" else 2
+    return n_mats * c.d_model * d_ff + (c.mlp_bias and (n_mats - 1) * d_ff
+                                        + c.d_model or 0)
+
+
+def _mamba_params(c: ModelConfig) -> int:
+    di, ns, nh = c.d_inner, c.ssm_state, c.ssm_nheads
+    in_proj = c.d_model * (2 * di + 2 * ns + nh)  # z, x, B, C, dt
+    conv = (di + 2 * ns) * c.ssm_conv
+    out = di * c.d_model
+    extras = 2 * nh + di  # A_log, D, norm
+    return in_proj + conv + out + extras
+
+
+def _param_count(c: ModelConfig, active_only: bool) -> int:
+    """Same arithmetic as the reference's ``configs.base._param_count``."""
+    total = c.padded_vocab * c.d_model  # embedding
+    if not c.tie_embeddings:
+        total += c.padded_vocab * c.d_model  # lm head
+    per_norm = c.d_model * (2 if c.norm == "layernorm" else 1)
+
+    def layer_params(i: int, cross: bool = False) -> int:
+        p = 0
+        if c.is_attn_layer(i):
+            p += _attn_params(c) + per_norm
+            if cross:
+                p += _attn_params(c) + per_norm
+        else:
+            p += _mamba_params(c) + per_norm
+        if c.family == "ssm":
+            return p
+        if c.is_moe_layer(i):
+            eff = c.expert_d_ff or c.d_ff
+            n_used = c.top_k if active_only else c.n_experts
+            p += n_used * _mlp_params(c, eff) + per_norm
+            if c.moe_shared:
+                p += _mlp_params(c, eff)
+            p += c.d_model * c.n_experts  # router
+        elif c.d_ff:
+            p += _mlp_params(c, c.d_ff) + per_norm
+        return p
+
+    for i in range(c.n_layers):
+        total += layer_params(i, cross=c.family == "encdec")
+    for i in range(c.n_enc_layers):
+        total += _attn_params(c) + _mlp_params(c, c.d_ff) + 2 * per_norm
+    total += per_norm  # final norm
+    return total

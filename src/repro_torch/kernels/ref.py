@@ -5,7 +5,9 @@ Port of ``src/repro/kernels/ref.py``: ``flash_attention_ref``,
 the two paged attention oracles, each on fp pools and on int8 pools with
 their (n_blocks, Kh) scales. These define what the CUDA kernels compute:
 the CPU path of ``kernels.ops`` runs them, and the card-side checks
-compare each kernel with them on the same inputs.
+compare each kernel with them on the same inputs. ``ssd_chunk_ref`` is
+the oracle of the SSD scan (``models.ssm.ssd_chunked``), which has no
+kernel, in the reference as here.
 """
 from __future__ import annotations
 
@@ -152,3 +154,32 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_suffix: torch.Tensor,
     scores = scores + torch.where(mask, zero, neg)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthk->bshk", w, v)
+
+
+def ssd_chunk_ref(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, h0: torch.Tensor):
+    """Single-chunk SSD: within-chunk quadratic + carried-in state.
+
+    xdt: (L, H, P); dA: (L, H); B/C: (L, N); h0: (H, P, N). Returns
+    (y (L, H, P), h_out (H, P, N)), fp32 math. ``exp`` is evaluated
+    above the diagonal too (then masked to 0), where it can overflow: an
+    oracle for forward values only, never differentiated (a backward
+    through it gives ``inf * 0 = NaN``).
+    """
+    l = xdt.shape[0]
+    f = torch.float32
+    dA_cs = torch.cumsum(dA.to(f), dim=0)                        # (L, H)
+    ss = dA_cs[:, None, :] - dA_cs[None, :, :]                   # (L, L, H)
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool,
+                                 device=xdt.device))
+    decay = torch.where(mask[..., None], torch.exp(ss),
+                        torch.zeros((), dtype=f, device=xdt.device))
+    scores = torch.einsum("ln,sn->ls", C.to(f), B.to(f))
+    y_intra = torch.einsum("ls,lsh,shp->lhp", scores, decay, xdt.to(f))
+    y_carry = torch.einsum("ln,hpn,lh->lhp", C.to(f), h0.to(f),
+                           torch.exp(dA_cs))
+    decay_to_end = torch.exp(dA_cs[-1][None] - dA_cs)            # (L, H)
+    h_out = (h0.to(f) * torch.exp(dA_cs[-1])[:, None, None]
+             + torch.einsum("ln,lh,lhp->hpn", B.to(f), decay_to_end,
+                            xdt.to(f)))
+    return (y_intra + y_carry).to(xdt.dtype), h_out.to(h0.dtype)

@@ -3,8 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-117m \
       --preset tiny --steps 50 --ckpt-dir /tmp/ckpt --device cpu
 
-Port of ``src/repro/launch/train.py`` (``make_data_fn`` for the dense
-family, and ``main`` with its flags). ``--device`` defaults to the CUDA
+Port of ``src/repro/launch/train.py`` (``make_data_fn`` for the
+decoder-only families dense, moe, ssm and hybrid, and ``main`` with its
+flags). ``--device`` defaults to the CUDA
 card and raises without one; ``--preset full`` trains the full-width
 config (on the card: bf16 compute, fp32 master weights). A
 ``--placement`` of more than one device exits with the reference's
@@ -26,6 +27,7 @@ from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faults.schedule import TRAIN_PRESETS, FaultSchedule
 from repro_torch.faults.supervisor import run_supervised
+from repro_torch.models.blocks import check_family
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import (StepConfig, init_train_state,
@@ -44,10 +46,7 @@ def make_data_fn(c, global_batch: int, seq_len: int, seed: int = 0,
     one. The reference's samples: row ``i`` of a seeded
     ``synthetic_tokens`` table, tokens ``row[:-1]``, labels ``row[1:]``.
     """
-    if c.family != "dense":
-        raise NotImplementedError(
-            f"family {c.family!r}: the port trains dense decoders (ROADMAP "
-            "Queue 1 item 6)")
+    check_family(c)
     dev = resolve_device(device)
     toks = synthetic_tokens(4096, seq_len, c.vocab, seed=seed)
 

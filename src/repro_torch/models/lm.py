@@ -1,10 +1,11 @@
-"""Decoder-only language model, dense family.
+"""Decoder-only language model: the dense, moe, ssm and hybrid families.
 
 Port of ``src/repro/models/lm.py``: ``init`` (the port's own seeded
 initializer, drawing the reference's distributions from a
 ``torch.Generator``), ``forward`` (training: ``remat`` and ``impl`` as in
-the reference), ``prefill`` and ``decode_step``.
-Families other than ``dense`` raise ``NotImplementedError``.
+the reference; returns the MoE aux loss summed over the stack),
+``prefill`` and ``decode_step``. The encdec and vlm families raise
+``NotImplementedError`` (``blocks.check_family``).
 """
 from __future__ import annotations
 
@@ -15,9 +16,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks
-from repro_torch.models.attention import attn_init
 from repro_torch.models.common import (
-    apply_norm, embed_tokens, embedding_init, mlp_init, norm_init, unembed,
+    apply_norm, embed_tokens, embedding_init, norm_init, unembed,
 )
 
 Params = Any
@@ -34,12 +34,8 @@ def init(c: ModelConfig, generator: Optional[torch.Generator] = None,
         else torch.Generator(device=dev).manual_seed(0)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
-    lead = (c.n_layers,)
-    slot = {"norm1": norm_init(c, dev, lead), "attn": attn_init(gen, c, lead)}
-    if c.d_ff:
-        slot["norm2"] = norm_init(c, dev, lead)
-        slot["mlp"] = mlp_init(gen, c, c.d_ff, lead)
-    return {"embed": embedding_init(gen, c), "layers": {"slot0": slot},
+    layers = blocks.stack_init(gen, c)
+    return {"embed": embedding_init(gen, c), "layers": layers,
             "final_norm": norm_init(c, dev)}
 
 
@@ -53,7 +49,8 @@ def _embed(c: ModelConfig, p: Params, tokens: torch.Tensor,
 def forward(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
             impl: str = "repeat", remat: str = "full"):
     """Full causal forward over (B, S) tokens -> (logits, aux_loss), the
-    training path (``blocks.stack_forward``: no caches)."""
+    training path (``blocks.stack_forward``: no caches; aux_loss sums the
+    MoE slots' load-balancing losses, 0 without MoE)."""
     x, aux = blocks.stack_forward(c, p["layers"], _embed(c, p, tokens),
                                   causal=True, impl=impl, remat=remat)
     x = apply_norm(c, p["final_norm"], x)

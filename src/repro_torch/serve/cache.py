@@ -1,5 +1,5 @@
-"""KV caches: the slotted row pool, and the paged block pools with their
-host allocator and prefix index.
+"""KV and state caches: the slotted row pool, and the paged block pools
+with their host allocator and prefix index.
 
 Port of ``src/repro/serve/cache.py``: the slotted-cache ops
 (``grow_caches``, ``slotted_cache``, ``insert_slot``, ``reset_slot``,
@@ -9,16 +9,32 @@ prefix-cache methods, ``device_tables`` and the int8 pool layout),
 ``_quantize_block``, ``insert_paged_prefill``, ``copy_blocks`` and a
 copy of ``PrefixIndex``.
 
-The slotted cache keeps one dense row of ``max_len`` positions per slot:
-k/v leaves ``(L, n_slots, max_len, Kh, Dh)`` in the model's activation
-dtype. Decode writes a slot's token at its own position and attends over
-the whole row under a position mask (``models.attention.
-decode_attention``), so no kernel carries it, in the reference as here.
+Cache tree layout, one entry per slot of the layer pattern's period
+(``models.blocks.slot_kinds``), every leaf stacked over the
+``n_periods`` periods:
 
-In the paged layout attention K/V lives in fixed-size blocks inside one
-shared pool per layer, addressed through per-slot block tables. Block 0 is the *trash
+  attention slots: ``{"k", "v"}`` (n_periods, n_slots, max_len, Kh, Dh)
+                   [slotted] or (n_periods, n_blocks, bs, Kh, Dh)
+                   [paged], in the model's activation dtype; an int8
+                   pool holds int8 codes with ``"k_scale"``/``"v_scale"``
+                   leaves (n_periods, n_blocks, Kh) fp32 beside them,
+                   its symmetric per-(block, KV head) scales;
+  mamba slots:     ``{"ssm", "conv"}`` per-slot rows (n_periods,
+                   n_slots, ...) in either layout: the fp32 SSD state
+                   and the pre-conv tail in the activation dtype, the
+                   dtypes the prefill emits (a bf16 state leaf would
+                   round the recurrence every token).
+
+The slotted cache keeps one dense row of ``max_len`` positions per slot.
+Decode writes a slot's token at its own position and attends over the
+whole row under a position mask (``models.attention.decode_attention``),
+so no kernel carries it, in the reference as here. In the paged layout
+attention K/V lives in fixed-size blocks inside one shared pool per
+layer, addressed through per-slot block tables. Block 0 is the *trash
 block*: every unowned table column points at it, so idle slots riding
-along in a batched decode step write their dead tokens there.
+along in a batched decode step write their dead tokens there. Only the
+k/v leaves are pools; state leaves stay per-slot rows, which the slot
+ops write by slot id.
 
 Where the reference rebuilds its caches functionally under donation, the
 port updates the tensors in place. The reference also relies on JAX's
@@ -26,12 +42,6 @@ port updates the tensors in place. The reference also relies on JAX's
 ids are ``n_blocks``, pad slot ids ``n_slots``); torch would raise on
 such indices, so the port masks them out explicitly on the host before
 scattering.
-
-Paged cache tree: ``{"slot0": {"k", "v"}}`` with leaves
-``(L, n_blocks, block_size, Kh, Dh)`` in the model's activation dtype;
-with ``kv_dtype="int8"`` the k/v leaves hold int8 codes and
-``"k_scale"``/``"v_scale"`` leaves ``(L, n_blocks, Kh)`` fp32 hold their
-symmetric per-(block, KV head) scales.
 """
 from __future__ import annotations
 
@@ -42,10 +52,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import check_family
-from repro_torch.models.common import dtype_of
+from repro_torch.models.blocks import check_family, period_of, slot_kinds
+from repro_torch.models.common import dtype_of, param_dtype_of
+from repro_torch.models.ssm import mamba_state_shapes
 
 Params = Any
+
+#: leaves with a token (T) axis: attention K/V, pooled in the paged layout
+KV = ("k", "v")
+#: pool leaves: what ``copy_blocks`` copies and ``pool_bytes`` counts
+POOL = ("k", "v", "k_scale", "v_scale")
 
 
 class CacheOOM(RuntimeError):
@@ -65,15 +81,31 @@ def _rows_to_blocks(small: torch.Tensor, block_size: int) -> torch.Tensor:
                          + tuple(small.shape[3:]))
 
 
+def _state_leaves(c: ModelConfig, n_periods: int, n_slots: int,
+                  device) -> dict:
+    """Zero ``{"ssm", "conv"}`` rows of one mamba slot, in the dtypes
+    ``models.ssm.mamba_forward`` emits: fp32 state, and the pre-conv
+    tail in the dtype of ``x @ in_proj``."""
+    conv, ssm = mamba_state_shapes(c, n_slots)
+    conv_dt = torch.promote_types(dtype_of(c), param_dtype_of(c))
+    return {"ssm": torch.zeros((n_periods, *ssm), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((n_periods, *conv), dtype=conv_dt,
+                                device=device)}
+
+
 def grow_caches(caches: Params, max_len: int) -> Params:
     """A new tree with every k/v leaf's T axis (axis 2) zero-padded up to
     ``max_len`` rows (the fixed-batch policy grows prompt caches for
     decode with it, and slot insertion a prefill row to slot
-    capacity)."""
+    capacity); state leaves pass through."""
     out = {}
     for slot, tree in caches.items():
         out[slot] = {}
         for name, leaf in tree.items():
+            if name not in KV:
+                out[slot][name] = leaf
+                continue
             pad = max_len - leaf.shape[2]
             if pad < 0:
                 raise ValueError(f"{name} has {leaf.shape[2]} rows > "
@@ -85,58 +117,77 @@ def grow_caches(caches: Params, max_len: int) -> Params:
 
 def slotted_cache(c: ModelConfig, n_slots: int, max_len: int, *,
                   device: torch.device) -> Params:
-    """Zero cache pool of ``n_slots`` rows of ``max_len`` capacity:
-    ``{"slot0": {"k", "v"}}`` with leaves ``(L, n_slots, max_len, Kh,
-    Dh)`` in the model's activation dtype, then only updated in place."""
+    """Zero cache pool of ``n_slots`` rows of ``max_len`` capacity (see
+    the module docstring for its leaves), then only updated in place."""
     check_family(c)
-    shape = (c.n_layers, n_slots, max_len, c.n_kv_heads, c.d_head)
-    return {"slot0": {name: torch.zeros(shape, dtype=dtype_of(c),
-                                        device=device)
-                      for name in ("k", "v")}}
+    n_periods = c.n_layers // period_of(c)
+    out = {}
+    for i, (mixer, _ffn) in enumerate(slot_kinds(c)):
+        if mixer == "attn":
+            shape = (n_periods, n_slots, max_len, c.n_kv_heads, c.d_head)
+            out[f"slot{i}"] = {name: torch.zeros(shape, dtype=dtype_of(c),
+                                                 device=device)
+                               for name in KV}
+        else:
+            out[f"slot{i}"] = _state_leaves(c, n_periods, n_slots, device)
+    return out
 
 
 def insert_slot(caches: Params, row: Params, slot: int) -> Params:
     """Write a batch-1 cache tree into batch row ``slot`` of the pool, in
-    place: its leaves fill the row from position 0 (the old content past
-    them stays, masked by position until decode overwrites it)."""
-    for name, small in row["slot0"].items():
-        big = caches["slot0"][name]
-        big[:, slot:slot + 1, :small.shape[2]] = small.to(big.dtype)
+    place: k/v leaves fill the row from position 0 (the old content past
+    them stays, masked by position until decode overwrites it), state
+    leaves replace the row's state."""
+    for key, tree in row.items():
+        for name, small in tree.items():
+            big = caches[key][name]
+            if name in KV:
+                big[:, slot:slot + 1, :small.shape[2]] = small.to(big.dtype)
+            else:
+                big[:, slot:slot + 1] = small.to(big.dtype)
     return caches
 
 
 def reset_slot(caches: Params, slot: int) -> Params:
-    """Zero batch row ``slot`` of every leaf, in place."""
-    for leaf in caches["slot0"].values():
-        leaf[:, slot] = 0
+    """Zero batch row ``slot`` of every leaf (state rows included), in
+    place."""
+    for tree in caches.values():
+        for leaf in tree.values():
+            leaf[:, slot] = 0
     return caches
 
 
 def insert_rows(caches: Params, rows: Params, slots) -> Params:
     """Batched :func:`insert_slot`, in place: ``rows`` holds ``Kp``
-    prefill results (k/v leaves ``(L, Kp, S, Kh, Dh)``, ``S <= max_len``)
-    and ``slots`` (host, ``(Kp,)`` ints) their pool rows; rows
-    ``[S, max_len)`` of a target keep what they held. Slot ids out of
-    range — the pad rows of the batched prefill carry ``n_slots`` — are
-    DROPPED, as the reference's ``mode="drop"`` scatter drops them; torch
-    would raise on them, so they are masked out here."""
+    prefill results (k/v leaves ``(L, Kp, S, Kh, Dh)``, ``S <= max_len``;
+    state leaves ``(L, Kp, ...)``) and ``slots`` (host, ``(Kp,)`` ints)
+    their pool rows; rows ``[S, max_len)`` of a target keep what they
+    held. Slot ids out of range — the pad rows of the batched prefill
+    carry ``n_slots`` — are DROPPED, as the reference's ``mode="drop"``
+    scatter drops them; torch would raise on them, so they are masked out
+    here."""
     slots = np.asarray(slots).reshape(-1)
-    for name, small in rows["slot0"].items():
-        big = caches["slot0"][name]
-        keep = np.nonzero((slots >= 0) & (slots < big.shape[1]))[0]
-        if not len(keep):
-            continue
-        dst = _idx(slots[keep], big)
-        big[:, dst, :small.shape[2]] = small[:, _idx(keep, small)].to(
-            big.dtype)
+    for key, tree in rows.items():
+        for name, small in tree.items():
+            big = caches[key][name]
+            keep = np.nonzero((slots >= 0) & (slots < big.shape[1]))[0]
+            if not len(keep):
+                continue
+            dst = _idx(slots[keep], big)
+            src = small[:, _idx(keep, small)].to(big.dtype)
+            if name in KV:
+                big[:, dst, :small.shape[2]] = src
+            else:
+                big[:, dst] = src
     return caches
 
 
 def compact_slots(caches: Params, perm) -> Params:
     """Gather batch rows by ``perm`` (``(n_slots,)``), in place: row ``i``
     takes what row ``perm[i]`` held (packs active slots to the front)."""
-    for leaf in caches["slot0"].values():
-        leaf.copy_(leaf.index_select(1, _idx(np.asarray(perm), leaf)))
+    for tree in caches.values():
+        for leaf in tree.values():
+            leaf.copy_(leaf.index_select(1, _idx(np.asarray(perm), leaf)))
     return caches
 
 
@@ -155,33 +206,43 @@ def _quantize_block(blk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.clamp(-127, 127).to(torch.int8), sc
 
 
-def insert_paged_prefill(caches: Params, rows: Params, blocks, *,
-                         block_size: int) -> Params:
+def insert_paged_prefill(caches: Params, rows: Params, blocks, slots=None,
+                         *, block_size: int) -> Params:
     """Scatter a batched prefill result into the paged pool, in place.
 
-    ``rows``: cache tree with k/v leaves (L, Kp, S, Kh, Dh); ``blocks``:
-    host (Kp, ceil(S / block_size)) int block ids per request in position
-    order. Ids out of range — the pad rows of the batched prefill (block
-    ``n_blocks``) and the unowned tail columns of short prompts — are
-    DROPPED, by masking them out here. (The reference's per-slot state
-    leaves, padded with slot ``n_slots``, belong to the mamba families
-    the port has not ported.) A k/v pool with a ``_scale`` sibling (the
-    int8 layout) is written as :func:`_quantize_block` codes, and the
-    scales of the same blocks beside it. Returns ``caches``.
+    ``rows``: cache tree with k/v leaves (L, Kp, S, Kh, Dh) and, on mamba
+    slots, state leaves (L, Kp, ...); ``blocks``: host
+    (Kp, ceil(S / block_size)) int block ids per request in position
+    order; ``slots``: host (Kp,) slot ids, the rows the state leaves go
+    to (needed only when ``rows`` has state leaves). Ids out of range —
+    the pad rows of the batched prefill (block ``n_blocks``, slot
+    ``n_slots``) and the unowned tail columns of short prompts — are
+    DROPPED, by masking them out here. A k/v pool with a ``_scale``
+    sibling (the int8 layout) is written as :func:`_quantize_block`
+    codes, and the scales of the same blocks beside it. Returns
+    ``caches``.
     """
     flat = np.asarray(blocks).reshape(-1)
-    tree = caches["slot0"]
-    for name, small in rows["slot0"].items():
-        pool = tree[name]
-        keep = np.nonzero((flat >= 0) & (flat < pool.shape[1]))[0]
-        src = _rows_to_blocks(small, block_size)[:, _idx(keep, pool)]
-        dst = _idx(flat[keep], pool)
-        if name + "_scale" in tree:
-            codes, sc = _quantize_block(src)
-            pool[:, dst] = codes
-            tree[name + "_scale"][:, dst] = sc
-        else:
-            pool[:, dst] = src.to(pool.dtype)
+    for key, small_tree in rows.items():
+        tree = caches[key]
+        state = {n: t for n, t in small_tree.items() if n not in KV}
+        if state:
+            if slots is None:
+                raise ValueError(f"{key} holds state rows: pass their slots")
+            insert_rows({key: tree}, {key: state}, slots)
+        for name in KV:
+            if name not in small_tree:
+                continue
+            small, pool = small_tree[name], tree[name]
+            keep = np.nonzero((flat >= 0) & (flat < pool.shape[1]))[0]
+            src = _rows_to_blocks(small, block_size)[:, _idx(keep, pool)]
+            dst = _idx(flat[keep], pool)
+            if name + "_scale" in tree:
+                codes, sc = _quantize_block(src)
+                pool[:, dst] = codes
+                tree[name + "_scale"][:, dst] = sc
+            else:
+                pool[:, dst] = src.to(pool.dtype)
     return caches
 
 
@@ -193,9 +254,11 @@ def copy_blocks(caches: Params, src, dst) -> Params:
     """Copy pool blocks ``src[i] -> dst[i]`` (host ints) on every k/v
     pool and, on an int8 pool, on its scale leaves, in place — the
     copy-on-write of a shared block, which then dequantizes as its
-    parent does."""
-    for pool in caches["slot0"].values():
-        pool[:, _idx(dst, pool)] = pool[:, _idx(src, pool)]
+    parent does. State leaves are per-slot rows and stay as they are."""
+    for tree in caches.values():
+        for name, pool in tree.items():
+            if name in POOL:
+                pool[:, _idx(dst, pool)] = pool[:, _idx(src, pool)]
     return caches
 
 
@@ -304,8 +367,9 @@ class PrefixIndex:
 class PagedKVCache:
     """Block-table KV cache: device pools + host allocator.
 
-    Device state: ``caches``, the pool tree (see the module docstring),
-    which the serve engine takes over and updates in place; and
+    Device state: ``caches``, the cache tree (see the module docstring:
+    attention slots' pools, mamba slots' per-slot state rows), which the
+    serve engine takes over and updates in place; and
     ``device_tables()``, the ``(n_slots, max_blocks)`` int32 block table,
     uploaded again only after alloc/free changed it.
 
@@ -318,11 +382,12 @@ class PagedKVCache:
     ``n_slots * max_len / block_size`` blocks plus the trash block.
 
     ``kv_dtype="int8"`` stores int8 codes with ``(L, n_blocks, Kh)`` fp32
-    scale leaves beside the pools. ``pool_bytes`` (codes and scales),
-    ``pool_bytes_fp`` (the same blocks at the model's KV dtype),
-    ``bytes_per_block`` and ``max_concurrency`` (worst-case-length
-    requests that fit in the fp byte budget) are the reference's
-    capacity arithmetic.
+    scale leaves beside the pools. ``pool_bytes`` (codes and scales of
+    the pools only), ``pool_bytes_fp`` (the same blocks at the model's KV
+    dtype), ``bytes_per_block`` and ``max_concurrency`` (worst-case-length
+    requests that fit in the fp byte budget; ``n_slots`` for a stack
+    without attention, whose ``bytes_per_block`` is 0) are the
+    reference's capacity arithmetic.
     """
 
     def __init__(self, c: ModelConfig, n_slots: int, max_len: int, *,
@@ -345,22 +410,34 @@ class PagedKVCache:
                 f"pool of {total} blocks cannot hold even one full slot "
                 f"({self.max_blocks} blocks) plus the trash block")
         self.n_blocks = total
-        shape = (c.n_layers, total, block_size, c.n_kv_heads, c.d_head)
+        n_periods = c.n_layers // period_of(c)
+        shape = (n_periods, total, block_size, c.n_kv_heads, c.d_head)
         fp = dtype_of(c)
-        tree = {name: torch.zeros(shape, dtype=torch.int8 if kv_dtype ==
-                                  "int8" else fp, device=device)
-                for name in ("k", "v")}
-        if kv_dtype == "int8":
-            for name in ("k", "v"):
-                tree[name + "_scale"] = torch.zeros(
-                    (c.n_layers, total, c.n_kv_heads), dtype=torch.float32,
-                    device=device)
-        self.caches = {"slot0": tree}
-        self.pool_bytes = sum(t.numel() * t.element_size()
-                              for t in tree.values())
-        self.pool_bytes_fp = 2 * int(np.prod(shape)) * fp.itemsize
+        caches = {}
+        for i, (mixer, _ffn) in enumerate(slot_kinds(c)):
+            if mixer != "attn":
+                caches[f"slot{i}"] = _state_leaves(c, n_periods, n_slots,
+                                                   device)
+                continue
+            tree = {name: torch.zeros(shape, dtype=torch.int8 if kv_dtype ==
+                                      "int8" else fp, device=device)
+                    for name in KV}
+            if kv_dtype == "int8":
+                for name in KV:
+                    tree[name + "_scale"] = torch.zeros(
+                        (n_periods, total, c.n_kv_heads),
+                        dtype=torch.float32, device=device)
+            caches[f"slot{i}"] = tree
+        self.caches = caches
+        pools = [t for tree in caches.values() for n, t in tree.items()
+                 if n in POOL]
+        self.pool_bytes = sum(t.numel() * t.element_size() for t in pools)
+        self.pool_bytes_fp = 2 * int(np.prod(shape)) * fp.itemsize * sum(
+            "k" in tree for tree in caches.values())
         self.bytes_per_block = self.pool_bytes // total
-        self.max_concurrency = int(
+        # a pure-SSM stack has no attention KV: no pool, no paging
+        # capacity story to tell
+        self.max_concurrency = n_slots if self.bytes_per_block == 0 else int(
             self.pool_bytes_fp // (self.max_blocks * self.bytes_per_block))
         self.tables_np = np.zeros((n_slots, self.max_blocks), np.int32)
         self._tables = torch.from_numpy(self.tables_np.copy()).to(device)

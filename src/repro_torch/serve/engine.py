@@ -1,11 +1,17 @@
 """Serving engine: continuous and fixed-batch policies over the paged or
 slotted KV cache, with energy-per-token accounting.
 
-Port of ``src/repro/serve/engine.py`` (``ServeEngine``): both cache
-layouts (``cache="paged"`` and ``"slotted"``), both schedulers
-(``sched="phased"`` and ``"chunked"``, the latter paged only), both pool
-layouts (``kv_dtype="fp32"`` and ``"int8"``, the latter paged only) and
-the prefix cache off or on (paged only). The decode hot path keeps the
+Port of ``src/repro/serve/engine.py`` (``ServeEngine``): the dense, moe,
+ssm and hybrid families, both cache layouts (``cache="paged"`` and
+``"slotted"``), both schedulers (``sched="phased"`` and ``"chunked"``,
+the latter paged only), both pool layouts (``kv_dtype="fp32"`` and
+``"int8"``, the latter paged only) and the prefix cache off or on (paged
+only). Stacks with mamba layers (ssm, hybrid) prefill each prompt at its
+exact length, and refuse the prefix cache and the chunked scheduler, as
+the reference does: a mamba recurrence runs through every token of the
+sequence, so it can neither skip a cached prefix nor restart at a chunk
+edge, and it would carry pad tokens into its state. Their per-slot state
+rows ride beside the attention pools. The decode hot path keeps the
 reference's mechanisms:
 
   * **slotted KV** — ``serve.cache.slotted_cache``: one dense
@@ -90,6 +96,15 @@ from repro_torch.serve.scheduler import Scheduler, Slot, StepRecord
 Params = Any
 
 
+#: families with mamba layers: exact-length prefill, no prefix cache, no
+#: chunked prefill
+RECURRENT = ("ssm", "hybrid")
+_RECURRENT_REFUSAL = (
+    "family {!r} has mamba layers, whose recurrence runs through the whole "
+    "sequence: prefix caching and chunked prefill need attention-only "
+    "families")
+
+
 def _todo(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
@@ -159,6 +174,8 @@ class ServeEngine:
             raise ValueError(f"power methods of mixed kinds {sorted(kinds)}: "
                              "watts and joules cannot be summed")
         check_family(c)
+        if c.family in RECURRENT and (prefix_cache or sched == "chunked"):
+            raise ValueError(_RECURRENT_REFUSAL.format(c.family))
         self.device = resolve_device(device)
         leaf = params["embed"]["tok"]
         if leaf.device.type != self.device.type:
@@ -228,7 +245,11 @@ class ServeEngine:
     def _prompt_bucket(self, n: int) -> int:
         """Prompt-length bucket for batched prefill: the next
         ``block_size`` multiple (causal masking hides the pad tokens'
-        K/V until decode overwrites it)."""
+        K/V until decode overwrites it). Stacks with mamba layers prefill
+        at the exact length ``n``: the SSD recurrence and conv tail would
+        run through trailing pad tokens into decode state."""
+        if self.c.family in RECURRENT:
+            return n
         b = -(-n // self.block_size) * self.block_size
         return min(max(b, self.block_size), self.max_len)
 
@@ -405,6 +426,8 @@ class ServeEngine:
             last = np.zeros((kp,), np.int64)
             # pad rows read the trash block — harmless, never read back
             pre_blocks = np.zeros((kp, npre), np.int32)
+            slot_ids = np.full((kp,), self.n_slots)         # pad: dropped
+            slot_ids[:len(entries)] = [s.index for s, _pre in entries]
             for i, (slot, pre) in enumerate(entries):
                 plen = slot.request.prompt_len
                 prompt = np.asarray(slot.request.prompt, np.int64)
@@ -423,11 +446,9 @@ class ServeEngine:
                     self._paged.ensure(slot.index, plen)
                     own = self._paged.block_ids(slot.index, plen)[npre:]
                     blocks[i, :len(own)] = own
-                insert_paged_prefill(self.caches, rows, blocks,
+                insert_paged_prefill(self.caches, rows, blocks, slot_ids,
                                      block_size=bs)
             else:
-                slot_ids = np.full((kp,), self.n_slots)      # pad: dropped
-                slot_ids[:len(entries)] = [s.index for s, _pre in entries]
                 insert_rows(self.caches, rows, slot_ids)
             if self.prefix_cache:
                 st = self.prefix_stats
@@ -750,6 +771,8 @@ class ServeEngine:
         if mode == "chunked" and self.cache_kind != "paged":
             raise ValueError("chunked prefill and preemption need "
                              "block-granular reclaim (cache='paged')")
+        if mode == "chunked" and self.c.family in RECURRENT:
+            raise ValueError(_RECURRENT_REFUSAL.format(self.c.family))
         ct = self.chunk_tokens
         if mode == "chunked" and (ct <= 0 or ct % self.block_size):
             raise ValueError(f"chunk_tokens {ct} must be a positive "

@@ -13,7 +13,12 @@ The reference returns new trees; the port updates ``params`` and the
 optimizer state in place under ``torch.no_grad()``, one leaf at a time
 (the PyTorch idiom: no second copy of the state), and returns the same
 objects. A caller that must keep a state across a step (a checkpoint
-snapshot, a test) copies it first.
+snapshot, a test) copies it first. AdamW updates a leaf larger than
+``UPDATE_PIECE`` elements in pieces along its first axis: its
+arithmetic is elementwise, so the result is the same to the bit, and
+its fp32 temporaries stay a piece's size however large the stacked
+leaf (a layer-stacked expert weight of granite-moe-3b-a800m is 8 GB in
+fp32, and each of its half-dozen temporaries would be as large).
 """
 from __future__ import annotations
 
@@ -53,6 +58,21 @@ def lr_at(oc: OptConfig, step: torch.Tensor) -> torch.Tensor:
     cos = oc.min_lr_frac + (1 - oc.min_lr_frac) * 0.5 * (
         1 + torch.cos(math.pi * t))
     return oc.lr * warm * cos
+
+
+#: elements of the largest piece of a leaf that AdamW updates at once
+UPDATE_PIECE = 1 << 27
+
+
+def _pieces(*leaves: torch.Tensor):
+    """Views of same-shaped ``leaves``, split together along their first
+    axis into pieces of at most ``UPDATE_PIECE`` elements (one row at
+    least); the leaves whole when they are small or 0-d."""
+    t = leaves[0]
+    if t.ndim == 0 or t.numel() <= UPDATE_PIECE:
+        return [leaves]
+    rows = max(1, UPDATE_PIECE // (t.numel() // t.shape[0]))
+    return zip(*(x.split(rows) for x in leaves))
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -103,17 +123,18 @@ def adamw_update(oc: OptConfig, grads: Params, state: Params,
     b1, b2 = oc.b1, oc.b2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    for g, m, v, master, p in zip(
+    for leaf in zip(
             gs, tree.leaves(state["m"]), tree.leaves(state["v"]),
             tree.leaves(state["master"]), tree.leaves(params), strict=True):
-        g = g.float() * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * torch.square(g))
-        delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(oc.eps))
-        if master.ndim >= 1:  # decoupled weight decay, skip scalars
-            delta.add_(oc.weight_decay * master)
-        master.sub_(lr * delta)
-        p.copy_(master)
+        for g, m, v, master, p in _pieces(*leaf):
+            g = g.float() * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * torch.square(g))
+            delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(oc.eps))
+            if master.ndim >= 1:  # decoupled weight decay, skip scalars
+                delta.add_(oc.weight_decay * master)
+            master.sub_(lr * delta)
+            p.copy_(master)
     state["step"] = step
     return params, state, {"gnorm": gnorm, "lr": lr}
 

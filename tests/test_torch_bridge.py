@@ -1,8 +1,10 @@
 """Parameter bridge: reference param trees -> the port's tensors.
 
-Every leaf of the reference's reduced dense ``lm.init`` crosses with its
-shape, dtype and bits intact — bf16 leaves too, through their uint16
-view — and the port's own ``lm.init`` builds the same tree.
+Every leaf of the reference's reduced ``lm.init`` (dense, and one
+architecture of each of the moe, ssm and hybrid families) crosses with
+its shape, dtype and bits intact — bf16 leaves too, through their
+uint16 view — and the port's own dense ``lm.init`` builds the same
+tree.
 """
 import jax
 import numpy as np
@@ -18,6 +20,10 @@ from repro_torch.models import lm
 torch.set_num_threads(1)
 
 ARCHS = ["llama3.2-3b", "gpt-800m"]
+#: trees that cross the bridge: the dense ones and one of each other
+#: family (the port's own init of those is held in test_torch_families)
+ROUND_TRIP = ARCHS + ["granite-moe-3b-a800m", "mamba2-1.3b",
+                      "jamba-v0.1-52b"]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -29,7 +35,7 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ROUND_TRIP)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_every_leaf_round_trips(arch, dtype):
     c = ref_get_config(arch).reduced(dtype=dtype, param_dtype=dtype)

@@ -31,7 +31,12 @@ params (the ops torch's deterministic mode would flag are printed).
 ResNet on the card: five full-width bf16 ResNet50 steps with a finite,
 falling loss; three AdamW steps of a reduced fp32 ResNet against the CPU
 (TF32 off); a checkpoint round trip of a ResNet train state (its
-list-shaped ``stages`` keys).
+list-shaped ``stages`` keys). The moe, ssm and hybrid families: the
+paged decode at granite-moe's and jamba's head shapes (fp and int8
+pools), the reduced families' engines (paged and slotted) on the card
+against the CPU with the decode kernel's launches counted per attention
+layer, and three AdamW steps of the reduced moe, ssm and hybrid configs
+on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -47,8 +52,10 @@ fp32 (summation order); in bf16 at most 1 % of the outputs may differ
 at all (a wrong conversion moves about half of them).
 """
 import itertools
+import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -75,6 +82,9 @@ from repro_torch.train.optimizer import OptConfig
 from repro_torch.data.synthetic import synthetic_images
 from repro_torch.train.step import (StepConfig, init_train_state,
                                     make_resnet_train_step, make_train_step)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  phase 9's card-vs-CPU family checks
 
 pytestmark = pytest.mark.cuda
 
@@ -726,6 +736,76 @@ def test_dense_decode_attention_on_card_matches_cpu(card, window, per_row):
     _assert_close(got.cpu(), want, torch.float32)
     for g, w in zip(got_kv, want_kv):
         _assert_close(g.cpu(), w, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The moe, ssm and hybrid families on the card
+# ---------------------------------------------------------------------------
+
+#: (name, H, Kh, Dh) of the paged decode at the families' attention
+#: layouts: granite-moe-3b-a800m (Dh 64, G 3) and jamba-v0.1-52b (Dh 128,
+#: G 4, no RoPE: the kernel sees the same q either way)
+FAMILY_DECODE = [("granite-moe", 24, 8, 64), ("jamba", 32, 8, 128)]
+FAMILY_ARCHS = ["granite-moe-3b-a800m", "mamba2-1.3b", "jamba-v0.1-52b",
+                "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("name,h,kh,dh", FAMILY_DECODE)
+def test_family_shaped_decode_matches_plain(card, name, h, kh, dh, int8,
+                                            dtype):
+    """Eight slots at the family's head shapes over a 1024-token table
+    (64 blocks of 16), one slot idle on the trash block."""
+    rng = np.random.default_rng(h + dh)
+    b, bs, nb = 8, 16, 64
+    n_blocks = 1 + b * nb
+    tables = rng.permutation(np.arange(1, n_blocks)).reshape(b, nb)
+    tables[0, 1:] = 0
+    lengths = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
+    lengths[0] = 1
+    q = torch.from_numpy(rng.normal(size=(b, h, dh)).astype(np.float32)).to(
+        card, dtype)
+    tab = torch.from_numpy(tables.astype(np.int32)).to(card)
+    lens = torch.from_numpy(lengths).to(card)
+    kw = {}
+    if int8:
+        pools = [torch.from_numpy(rng.integers(-127, 128, size=(
+            n_blocks, bs, kh, dh)).astype(np.int8)).to(card) for _ in "kv"]
+        kw = {f"{n}_scale": torch.from_numpy(rng.uniform(
+            0.001, 0.02, size=(n_blocks, kh)).astype(np.float32)).to(card)
+            for n in "kv"}
+    else:
+        pools = [torch.from_numpy(rng.normal(size=(
+            n_blocks, bs, kh, dh)).astype(np.float32)).to(card, dtype)
+            for _ in "kv"]
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, *pools, tab, lens, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    want = _plain_fp32(ref.paged_decode_attention_ref, q, *pools, tab, lens,
+                       **kw)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("cache", ["paged", "slotted"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_engine_on_card_matches_cpu(card, arch, cache):
+    """Reduced fp32 families served on the card (kernels) and on the CPU
+    (plain versions) from the same weights, through ``chip_smoke``'s
+    phase-9 check: LCP agreement >= 0.95 (a near-tie in a router's top-k
+    or an argmax may flip); on the paged cache the decode kernel launches
+    once per attention layer and micro-step (never on mamba2)."""
+    assert chip_smoke.family_agreement(arch, card, cache) >= 0.95
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS[:3])
+def test_family_train_step_on_card_matches_cpu(card, arch):
+    """Three AdamW steps of the reduced fp32 moe, ssm and hybrid configs
+    on the card and on the CPU from the same weights, through
+    ``chip_smoke``'s phase-9 check: losses and aux at rtol 1e-4 (TF32
+    off)."""
+    assert len(chip_smoke.family_train_agreement(arch, card)) == 3
 
 
 def _matmul_load(card, seconds: float, n: int = 8192):

@@ -22,7 +22,11 @@ from repro_torch.models import attention, common, lm
 
 torch.set_num_threads(1)
 
-ARCHS = ["llama3.2-3b", "gpt-800m"]
+#: the dense architectures: llama3.2-3b (the serve path), gpt-800m (the
+#: paper's), and qwen2-0.5b (QKV bias, tied embeddings), granite-8b
+#: (untied, rope_theta 1e7) and command-r-35b (LayerNorm with SwiGLU)
+ARCHS = ["llama3.2-3b", "gpt-800m", "qwen2-0.5b", "granite-8b",
+         "command-r-35b"]
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 

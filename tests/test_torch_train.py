@@ -263,6 +263,39 @@ def test_train_steps_match_reference(name, k, grad_dtype):
     print(f"\n{name} k={k} {grad_dtype}: state max |diff| {worst:.3e}")
 
 
+@pytest.mark.parametrize("piece", [1, 37, 1000])
+def test_adamw_update_in_pieces_matches_whole_leaves(monkeypatch, piece):
+    """AdamW over leaves split into pieces of at most ``piece`` elements
+    (fp32 and bf16 params, a 0-d leaf, rows wider than a piece) is the
+    whole-leaf update to the bit, and the reference's at the step
+    tolerance."""
+    rng = np.random.default_rng(0)
+    shapes = {"w": (6, 5, 8), "b": (7, 3), "s": (), "e": (2, 600)}
+    rp = {k: jnp.asarray(rng.normal(size=s).astype(np.float32),
+                         jnp.bfloat16 if k == "w" else jnp.float32)
+          for k, s in shapes.items()}
+    rg = {k: jnp.asarray(rng.normal(size=s).astype(np.float32))
+          for k, s in shapes.items()}
+    oc = dict(warmup=1, total_steps=100)
+    ro_cfg = ref_opt.OptConfig(**oc)
+    ro = ref_opt.opt_init(ro_cfg, rp)
+    grads = bridge.params_from_numpy(_np(rg), "cpu")
+    runs = {}
+    for n in (optimizer.UPDATE_PIECE, piece):
+        monkeypatch.setattr(optimizer, "UPDATE_PIECE", n)
+        p, o = _bridged_state(rp, ro)
+        for _ in range(3):
+            optimizer.adamw_update(optimizer.OptConfig(**oc), grads, o, p)
+        runs[n] = (p, o)
+    for a, b in zip(tree.leaves(runs[optimizer.UPDATE_PIECE]),
+                    tree.leaves(runs[piece]), strict=True):
+        assert torch.equal(a, b)
+    for _ in range(3):
+        rp, ro, _ = ref_opt.adamw_update(ro_cfg, rg, ro, rp)
+    _assert_tree_close(runs[piece], (rp, ro), *STEP_TOL["float32"],
+                       f"piece {piece}")
+
+
 def test_opt_init_matches_reference_structure():
     rc, c = _configs("gpt-117m")
     rp = ref_lm.init(jax.random.key(0), rc)
