@@ -2,14 +2,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 chip_smoke.py [--profile | --times | --train [--profile] |
-                         --families [--profile]]
+                         --families [--profile] | --generate [--profile]]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs ten phases, any failure of which exits non-zero:
+instance, then runs eleven phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -199,10 +199,42 @@ instance, then runs ten phases, any failure of which exits non-zero:
      ``tests/test_torch_cuda.py`` runs. ``--profile`` also profiles five
      decode steps of each model's paged engine: device launches and
      device time a step, and the device-busy share.
+  10. generate — fixed-batch ``BatchedServer.generate`` and the encdec
+     and vlm families, bf16 seeded random weights, seeded random side
+     inputs (the reference's launchers feed zeros, which would hide a
+     wrong transpose), NVML's energy counter, ``GEN_BATCH`` prompts:
+     (a) full-size whisper-small (12 + 12 layers, 1500 encoder frames)
+     generates ``WHISPER_GEN`` tokens after ``WHISPER_PROMPT``; then
+     three AdamW steps (lr 1e-6, as phase 9) at ``GEN_BATCH`` x
+     ``WHISPER_TRAIN_SEQ`` text tokens; (b) llava-next-34b at full width
+     cut to ``LLAVA_LAYERS`` of its 60 layers generates ``LLAVA_GEN``
+     tokens after 2880 patches and ``LLAVA_TEXT`` text tokens: its
+     prefill's score tensor (8 x 56 x 3072^2 = 4.23e9 elements) is past
+     ``CHUNK_THRESHOLD``, so ``attention.sdpa_chunked_q`` must run once
+     a layer (its call counter); then three AdamW steps at full width
+     and ``LLAVA_TRAIN_LAYERS`` layers, ``LLAVA_TRAIN_BATCH`` x (2880 +
+     192) rows. Each generate prints prefill ms, decode tok/s, Wh/token
+     and peak GB (finite prefill logits over the vocabulary, in-vocab tokens), each training
+     ms/step, tok/s, tokens/Wh and peak GB (falling loss); (c) reduced
+     fp32 whisper and llava on the card and on the CPU from the same
+     weights (TF32 off): ``generate`` streams agree at
+     ``STREAM_AGREEMENT``, three AdamW steps' losses at rtol 1e-4, and
+     ``sdpa_chunked_q`` equals full ``sdpa`` at 1e-5; (d) degradation:
+     llama3.2-3b at full width cut to ``DEGRADE_LAYERS`` layers, served
+     chunked on the paged pool: the ``decode_fault`` preset's slot
+     fault fires, the streams' digest equals the fault-free run's,
+     decode launches = micro-steps x layers (replays included) and the
+     paged kernels pass phase 1's gate at the shapes the faulted run
+     gave them; the ``overload`` preset sheds the newest queued requests
+     and a 50 ms admission deadline the newest half, while the oldest
+     request finishes its budget. 10d's paged launches join the main
+     path's in the JSON line. ``--profile`` also profiles five decode
+     steps of each ``generate``.
 
 ``--train`` runs phases 7 and 8 alone (no kernel is built: the training
 paths launch none) and prints no result line. ``--families`` builds the
-kernels and runs phase 9 alone, and prints no result line.
+kernels and runs phase 9 alone, and ``--generate`` phase 10 alone; neither
+prints a result line.
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
 (neither is measured there), and no result line: for timing another
@@ -228,6 +260,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -328,6 +361,20 @@ FAMILY_REQUESTS_MOE = 12
 JAMBA_LAYERS = 8
 FAMILY_TRAIN_BATCH = 8
 FAMILY_TRAIN_SEQ = 512
+#: phase 10: fixed-batch generate of the encdec and vlm families. The
+#: batch; whisper-small's prompt and new tokens, and its training text
+#: (448 tokens: whisper's published decoder context); llava-next-34b's
+#: text after its 2880 patches, new tokens, serving depth (16 of 60
+#: layers: full depth is 68.8 GB of bf16 weights, leaving ~11 GB for a
+#: batch-8 prefill of 3072 tokens) and training depth and batch
+GEN_BATCH = 8
+WHISPER_PROMPT, WHISPER_GEN, WHISPER_TRAIN_SEQ = 64, 64, 448
+LLAVA_TEXT, LLAVA_GEN, LLAVA_LAYERS = 192, 32, 16
+LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_BATCH = 2, 2
+#: 10d: llama3.2-3b at full width, cut to this depth, served chunked on
+#: the paged pool with a slot fault, an overload window and deadlines
+DEGRADE_LAYERS = 4
+DEGRADE_REQUESTS = 16
 
 
 def log(msg: str) -> None:
@@ -2131,20 +2178,44 @@ def card_memory() -> str:
             f"{free / 1e9:.2f} of {total / 1e9:.2f} GB")
 
 
-def family_train(dev, arch: str) -> None:
+def side_inputs(c, b: int, seed: int, dev) -> dict:
+    """A vlm's patch embeddings or an encdec's encoder frames for ``b``
+    rows, seeded standard normal in the model's dtype on ``dev`` (drawn
+    on the CPU, so the card and the CPU get the same values), keyed as
+    ``lm`` takes them; nothing for the other families. Random, where the
+    reference's launchers feed zeros, which would hide a wrong
+    transpose."""
+    from repro_torch.models.common import dtype_of
+    key, n = {"vlm": ("patch_embeds", c.n_patches),
+              "encdec": ("enc_frames", c.enc_seq)}.get(c.family, (None, 0))
+    if key is None:
+        return {}
+    x = torch.randn((b, n, c.d_model), generator=torch.Generator()
+                    .manual_seed(seed))
+    return {key: x.to(dev, dtype_of(c))}
+
+
+def family_train(dev, arch: str, n_layers=None,
+                 batch: int = FAMILY_TRAIN_BATCH,
+                 seq: int = FAMILY_TRAIN_SEQ) -> None:
     """Three AdamW steps (bf16 compute, fp32 master weights, full remat)
-    of full-width, full-depth ``arch`` on one repeated batch of
-    FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ tokens, on NVML's energy
-    counter: a falling loss, a finite aux and finite tokens/Wh. Fails,
-    naming the depth and the card's memory, if the model does not fit:
-    no depth is cut."""
+    of full-width ``arch`` (full depth unless ``n_layers``) on one
+    repeated batch of ``batch`` x ``seq`` tokens (with seeded random
+    side inputs for encdec and vlm), on NVML's energy counter: a falling
+    loss, a finite aux and finite tokens/Wh. Fails, naming the depth and
+    the card's memory, if the model does not fit: no depth is cut
+    beyond ``n_layers``."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import make_data_fn
     from repro_torch.power.methods import NvmlEnergy
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import (StepConfig, init_train_state,
                                         make_train_step)
-    c = get_config(arch)
+    full = get_config(arch)
+    c = full if n_layers is None else dataclasses.replace(full,
+                                                         n_layers=n_layers)
+    depth = ("full depth" if c.n_layers == full.n_layers else
+             f"cut from {full.n_layers}")
     # a step of Adam moves every parameter by about lr, so the loss's
     # first-order fall is about lr x sum|g| (~3e5 x lr nats over 3.3 B
     # parameters): at 3e-4 the repeated-batch loss overshoots (mamba2
@@ -2160,15 +2231,15 @@ def family_train(dev, arch: str) -> None:
         p, o = init_train_state(
             c, oc, torch.Generator(device=dev).manual_seed(0), dev)
         step = make_train_step(c, oc, StepConfig())
-        batch = make_data_fn(c, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ,
-                             seed=0, device=dev)(0)
+        data = make_data_fn(c, batch, seq, seed=0, device=dev)(0)
+        data.update(side_inputs(c, batch, 0, dev))
         power = NvmlEnergy(dev.index or 0)
         losses, ces, auxes, times = [], [], [], []
         torch.cuda.synchronize()
         e0 = sum(power.read().values())
         for _ in range(3):
             t0 = time.perf_counter()
-            p, o, m = step(p, o, batch)
+            p, o, m = step(p, o, data)
             losses.append(float(m["loss"]))          # synchronises
             ces.append(float(m["ce"]))
             auxes.append(float(m["aux"]))
@@ -2176,41 +2247,46 @@ def family_train(dev, arch: str) -> None:
         e1 = sum(power.read().values())
     except torch.cuda.OutOfMemoryError as e:
         raise RuntimeError(
-            f"[train {arch}] {c.n_layers} layers (full depth) do not fit: "
+            f"[train {arch}] {c.n_layers} layers ({depth}) do not fit: "
             f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
             f"{card_memory()}") from e
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in _leaves(p))
-    tokens = FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ
+    tokens = batch * seq
     step_s = sum(times[1:]) / len(times[1:])
     wh = (e1 - e0) / 3600.0
     tok_wh = 3 * tokens / wh if wh > 0 else float("inf")
-    log(f"[train {arch}] {c.name} n_layers={c.n_layers} (full depth), "
+    side = {k: tuple(v.shape) for k, v in data.items()
+            if k not in ("tokens", "labels")}
+    share = ("model_flop_share="
+             f"{model_flop_share(c.active_param_count(), tokens, step_s):.4f}"
+             " (8 x active params x tokens) " if not side else
+             f"side inputs {side} (seeded random) ")
+    log(f"[train {arch}] {c.name} n_layers={c.n_layers} ({depth}), "
         f"{n_params:,} params ({c.active_param_count():,} active a token), "
-        f"global batch {FAMILY_TRAIN_BATCH} x seq {FAMILY_TRAIN_SEQ}, one "
+        f"global batch {batch} x seq {seq}, one "
         f"repeated batch, lr {oc.lr:g}: losses {losses} (cross-entropy "
         f"{ces}, aux {auxes}); step times "
         f"{[round(t * 1e3, 1) for t in times]} ms (first includes set-up), "
         f"ms_per_step={step_s * 1e3:.1f} (steps 2-3) tokens_per_s="
-        f"{tokens / step_s:.1f} energy_wh={wh:.6e} (3 steps) tokens_per_wh="
-        f"{tok_wh:.1f} model_flop_share="
-        f"{model_flop_share(c.active_param_count(), tokens, step_s):.4f} "
-        f"(8 x active params x tokens) peak_mem_gb={peak_gb:.2f} "
+        f"{tokens / step_s:.1f} (text tokens) energy_wh={wh:.6e} (3 steps) "
+        f"tokens_per_wh={tok_wh:.1f} {share}peak_mem_gb={peak_gb:.2f} "
         f"power_source={power.name}; card {card_line()}")
     assert losses[-1] < losses[0], losses
     assert all(math.isfinite(a) for a in auxes), auxes
     assert math.isfinite(tok_wh) and tok_wh > 0, (wh, tok_wh)
     power.close()
-    del p, o, m, batch, step
+    del p, o, m, data, step
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def family_train_agreement(arch: str, dev) -> list:
     """Reduced fp32 ``arch``, three AdamW steps from the same weights and
-    batches on the card ``dev`` and on the CPU, TF32 off: losses and aux
-    at rtol 1e-4. Returns the card's (loss, aux) a step. Phase 9 and
-    ``tests/test_torch_cuda.py`` both run it."""
+    batches (with seeded random side inputs for encdec and vlm) on the
+    card ``dev`` and on the CPU, TF32 off: losses and aux at rtol 1e-4.
+    Returns the card's (loss, aux) a step. Phases 9 and 10 and
+    ``tests/test_torch_cuda.py`` run it."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree
     from repro_torch.launch.train import make_data_fn
@@ -2233,7 +2309,8 @@ def family_train_agreement(arch: str, dev) -> list:
             data = make_data_fn(c, 4, 64, seed=0, device=d)
             metrics[d] = []
             for i in range(3):
-                p, o, m = step(p, o, data(i))
+                p, o, m = step(p, o, {**data(i),
+                                      **side_inputs(c, 4, i, d)})
                 metrics[d].append((float(m["loss"]), float(m["aux"])))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -2263,6 +2340,354 @@ def phase_families(dev, profile: bool = False) -> dict:
     log(f"[wall] phase 9 {time.perf_counter() - t_phase:.1f} s; card "
         f"{card_line()}")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: fixed-batch generate, the encdec and vlm families, degradation
+# ---------------------------------------------------------------------------
+
+
+def profile_generate(engine, tokens, extras, tag: str, steps: int = 5) -> None:
+    """``steps`` shared-position decode steps of ``generate``'s program
+    (after its prefill and two warm steps) under ``torch.profiler``:
+    device launches and device time a step, and the device-busy share of
+    the steps' wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.cache import grow_caches
+    with torch.no_grad():
+        logits, caches, enc_kv = engine._prefill_fn(engine.params, tokens,
+                                                    extras)
+        n = tokens.shape[1] + (extras["patch_embeds"].shape[1]
+                               if "patch_embeds" in extras else 0)
+        caches = grow_caches(caches, n + steps + 3)
+        tok = logits[:, -1].argmax(-1)[:, None]
+
+        def run(pos0, k):
+            for pos in range(pos0, pos0 + k):
+                engine._decode_fn(engine.params, tok, caches, pos, enc_kv)
+            torch.cuda.synchronize()
+
+        run(n, 2)
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run(n + 2, steps)
+            wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    launches = sum(e.count for e in rows)
+    log(f"[profile {tag}] generate decode step (batch {tokens.shape[0]}, "
+        f"position {n}): {launches / steps:.0f} device launches, "
+        f"{busy_us / steps / 1e3:.3f} ms device time, "
+        f"{wall / steps * 1e3:.3f} ms wall a step (profiled); device busy "
+        f"{busy_us / 1e6 / wall:.3f} of the wall; card {card_line()}")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:8]:
+        log(f"[profile {tag}] {e.self_device_time_total / steps / 1e3:8.3f} "
+            f"ms a step {e.count // steps:5d}x  {e.key[:90]}")
+
+
+def family_generate(dev, tag: str, c, params, text: int, new: int,
+                    profile: bool = False) -> dict:
+    """``BatchedServer.generate`` of ``GEN_BATCH`` seeded prompts of
+    ``text`` tokens (with seeded random side inputs) for ``new`` tokens,
+    after a two-token warm-up call, on NVML's energy counter: finite
+    prefill logits, in-vocab tokens of the right shape. Logs prefill ms
+    (the encoder included), decode tok/s, Wh/token over both, peak GB
+    and the q-chunked attention's calls. Returns the calls and the
+    result."""
+    from repro_torch.models import attention
+    from repro_torch.power.methods import NvmlEnergy
+    from repro_torch.serve.engine import BatchedServer
+    rng = np.random.default_rng(10)
+    tokens = torch.from_numpy(rng.integers(0, c.vocab, (GEN_BATCH, text))
+                              ).to(dev)
+    extras = side_inputs(c, GEN_BATCH, 10, dev)
+    server = BatchedServer(c, params, max_len=new + 1, device=dev)
+    with torch.no_grad():
+        logits, _, _ = server.engine._prefill_fn(params, tokens, extras)
+        # the padded vocab's mask (finfo(float32).min) is -inf in bf16
+        assert torch.isfinite(logits[..., :c.vocab]).all(), tag
+    del logits
+    server.generate(tokens, 2, extras)                     # warm-up
+    power = NvmlEnergy(dev.index or 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    calls = attention.sdpa_chunked_q.calls
+    torch.cuda.synchronize()
+    e0 = sum(power.read().values())
+    res = server.generate(tokens, new, extras)
+    e1 = sum(power.read().values())
+    calls = attention.sdpa_chunked_q.calls - calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = res.tokens.cpu()
+    assert toks.shape == (GEN_BATCH, new), toks.shape
+    assert int(toks.min()) >= 0 and int(toks.max()) < c.vocab, tag
+    seq = text + (c.n_patches if c.family == "vlm" else 0)
+    enc = " (encoder included)" if c.family == "encdec" else ""
+    wh = (e1 - e0) / 3600.0
+    side = {k: tuple(v.shape) for k, v in extras.items()}
+    log(f"[{tag}] {c.name} n_layers={c.n_layers} generate: batch "
+        f"{GEN_BATCH} x {text} text tokens ({seq} prefill rows), side "
+        f"inputs {side} (seeded random), {new} new tokens: prefill_ms="
+        f"{res.prefill_s * 1e3:.1f}{enc} decode_ms="
+        f"{res.decode_s * 1e3:.1f} decode_tok_s="
+        f"{res.decode_tokens_per_s:.1f} decode_step_ms="
+        f"{res.decode_s / max(new - 1, 1) * 1e3:.2f} energy_wh={wh:.6e} "
+        f"wh_per_token={wh / (GEN_BATCH * new):.3e} (prefill and decode) "
+        f"peak_mem_gb={peak_gb:.2f} sdpa_chunked_q calls {calls} "
+        f"power_source={power.name}; card {card_line()}")
+    if profile:
+        profile_generate(server.engine, tokens, extras, tag)
+    power.close()
+    return {"calls": calls, "tokens": toks, "seq": seq}
+
+
+def generate_agreement(arch: str, dev) -> float:
+    """Reduced fp32 ``arch``, the same weights, prompts and seeded random
+    side inputs, through ``BatchedServer.generate`` on the card ``dev``
+    and on the CPU, TF32 off: the greedy streams' LCP agreement is at
+    least ``STREAM_AGREEMENT``. Returns it. Phase 10 and
+    ``tests/test_torch_cuda.py`` both run it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import BatchedServer
+    c = get_config(arch).reduced(dtype="float32", param_dtype="float32")
+    cpu_params = lm.init(c, torch.Generator().manual_seed(1), "cpu")
+    tokens = np.random.default_rng(1).integers(0, c.vocab, (4, 24))
+    streams = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for where, params in (("cpu", cpu_params),
+                              ("cuda", _to(cpu_params, dev))):
+            d = dev if where == "cuda" else torch.device("cpu")
+            res = BatchedServer(c, params, max_len=17, device=d).generate(
+                torch.from_numpy(tokens), 16, side_inputs(c, 4, 1, d))
+            streams[where] = dict(enumerate(res.tokens.cpu().tolist()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    agree = agreement(streams["cpu"], streams["cuda"])
+    log(f"[generate] reduced fp32 {c.name}: card vs cpu generate stream "
+        f"agreement {agree:.4f} over {len(tokens)} prompts")
+    assert agree >= STREAM_AGREEMENT, (arch, agree)
+    return agree
+
+
+def chunked_q_agreement(dev) -> float:
+    """``sdpa_chunked_q`` on the card against full ``sdpa`` under the same
+    mask, fp32 with TF32 off, causal, windowed and bidirectional, at
+    2 x 1024 queries of 8 heads over 2 KV heads of 64: |diff| <= 1e-5 (1
+    + |full|). Returns the largest difference. Phase 10 and
+    ``tests/test_torch_cuda.py`` both run it."""
+    from repro_torch.models import attention
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g).to(dev)
+               for shape in ((2, 1024, 8, 64), (2, 1024, 2, 64),
+                             (2, 1024, 2, 64)))
+    worst = 0.0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for causal, window in ((True, None), (True, 200), (False, None)):
+                calls = attention.sdpa_chunked_q.calls
+                got = attention.sdpa_chunked_q(q, k, v, causal=causal,
+                                               window=window)
+                assert attention.sdpa_chunked_q.calls == calls + 1
+                mask = attention.make_causal_mask(
+                    1024, 1024, window, device=dev)[None, None] \
+                    if causal else None
+                want = attention.sdpa(q, k, v, mask)
+                err = float(((got - want).abs() / (1 + want.abs())).max())
+                log(f"[generate] sdpa_chunked_q on the card vs full sdpa, "
+                    f"causal={causal} window={window}: max |diff| / (1 + "
+                    f"|full|) {err:.3e}")
+                assert err <= 1e-5, (causal, window, err)
+                worst = max(worst, err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return worst
+
+
+def degrade_engine(c, params, dev):
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(c, params, n_slots=FAMILY_SLOTS,
+                       max_len=FAMILY_MAX_LEN,
+                       cache="paged", block_size=BS, sched="chunked",
+                       chunk_tokens=32, device=dev)
+
+
+def fault_twins(dev, tag: str, c, params, reqs, worst: dict) -> dict:
+    """A fault-free and a ``decode_fault`` serve of ``reqs`` (all arriving
+    at once, so both take the same schedule up to the fault) on fresh
+    chunked engines: the slot fault fires and the victim replays, every
+    request finishes its budget, and the decode kernel launches once per
+    layer and decode micro-step, replays included; the paged kernels are
+    held to their plain versions at the shapes the faulted run gave them
+    (their worst bf16 errors into ``worst``). Returns each run's streams
+    and the fp paged kernels' launches over both."""
+    from repro_torch.faults.schedule import FaultSchedule
+    from repro_torch.kernels import ops
+    out = {"launches": dict.fromkeys(("paged_decode_attention",
+                                      "paged_prefill_attention"), 0)}
+    for preset in ("none", "decode_fault"):
+        engine = degrade_engine(c, params, dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with kept_paged_calls() as kept:
+            run = engine.serve(reqs, faults=FaultSchedule.from_preset(
+                preset, seed=0))
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts())
+        micro = sum(st.n_steps for st in run.steps if st.kind == "decode")
+        for r, req in zip(sorted(run.results, key=lambda r: r.rid), reqs):
+            assert r.finish_reason == "length", (tag, preset, r.rid)
+            assert len(r.tokens) == req.max_new_tokens, (tag, preset, r.rid)
+        assert counts["paged_decode_attention"] == micro * c.n_layers, (
+            tag, preset, counts, micro)
+        assert engine.injected_faults == (preset == "decode_fault"), preset
+        assert preset == "none" or engine.replayed_tokens >= 1
+        for name in out["launches"]:
+            out["launches"][name] += counts[name]
+        out[preset] = {r.rid: list(r.tokens) for r in run.results}
+        log(f"[{tag}] {preset}: {c.name} n_layers={c.n_layers}, "
+            f"{len(reqs)} requests at once, chunked: "
+            f"injected_faults={engine.injected_faults} preemptions="
+            f"{engine.preemptions} replayed_tokens={engine.replayed_tokens} "
+            f"decode micro-steps {micro}, launches {counts} "
+            f"({counts['paged_decode_attention']} decode = {micro} x "
+            f"{c.n_layers}), stream digest {_stream_hash_of(out[preset])}, "
+            f"wall {wall:.2f} s")
+        if preset == "decode_fault":
+            check_paged_calls(tag, kept, worst, dev)
+        del engine
+    return out
+
+
+def _stream_hash_of(streams: dict) -> str:
+    """``serve_slo``'s stream digest of a rid -> tokens map."""
+    from repro_torch.bench.workloads.serve_slo import _stream_hash
+    return _stream_hash([types.SimpleNamespace(rid=rid, tokens=toks)
+                         for rid, toks in streams.items()])
+
+
+def phase_degrade(dev, worst: dict) -> dict:
+    """10d: the engine's degradation paths on the card, llama3.2-3b at
+    full width cut to ``DEGRADE_LAYERS`` layers.
+
+    Slot faults (``fault_twins``) on ``FAMILY_REQUESTS`` serve requests
+    (prompts 195-497 tokens, a ``FAMILY_MAX_LEN`` table of 64 blocks):
+    the faulted streams' digest must equal the fault-free one. The
+    fault moves the table bucket the engine passes the decode kernel at
+    the victim's replayed and later steps and at the other slots'; the
+    kernel's splits own columns chosen for the whole table
+    (``decode_splits(width=)``), so no row's sums change order.
+
+    Shedding, ``DEGRADE_REQUESTS`` requests at once into
+    ``FAMILY_SLOTS`` slots: under the ``overload`` preset the newest
+    queued requests are shed and the oldest finishes its budget; with a
+    50 ms admission deadline on the newest half, those shed while the
+    first wave is served. Returns the fp paged kernels' launches in the
+    slot-fault runs."""
+    t_phase = time.perf_counter()
+    from repro_torch.faults.schedule import FaultSchedule
+    c, params = family_model(dev, "llama3.2-3b", n_layers=DEGRADE_LAYERS)
+    reqs = family_requests(c.vocab, FAMILY_REQUESTS, at_once=True)
+    twins = fault_twins(dev, "degrade", c, params, reqs, worst)
+    diverge = {rid: next((i for i, (a, b) in enumerate(zip(
+        toks, twins["decode_fault"][rid])) if a != b), None)
+        for rid, toks in twins["none"].items()}
+    log(f"[degrade] slot-faulted vs fault-free stream agreement "
+        f"{agreement(twins['none'], twins['decode_fault']):.4f}, first "
+        f"differing token by rid {diverge}")
+    assert twins["none"] == twins["decode_fault"], diverge
+    log("[degrade] slot-faulted streams equal the fault-free streams")
+    launches = twins["launches"]
+
+    many = family_requests(c.vocab, DEGRADE_REQUESTS, at_once=True)
+    engine = degrade_engine(c, params, dev)
+    faults = FaultSchedule.from_preset("overload", seed=0)
+    out = engine.serve(many, faults=faults)
+    shed = sorted(r.rid for r in out.results if r.finish_reason == "shed")
+    ev = faults.events[0]
+    log(f"[degrade] overload preset (cap {ev.n} from poll {ev.at} for "
+        f"{ev.span} polls), {len(many)} requests at once into "
+        f"{FAMILY_SLOTS} slots: shed {engine.shed} {shed}")
+    assert engine.shed == len(shed) >= 1, shed
+    assert shed == list(range(len(many) - len(shed), len(many))), shed
+    by = out.by_rid()
+    assert by[0].finish_reason == "length" and \
+        by[0].n_tokens == many[0].max_new_tokens
+    for r in out.results:
+        assert (r.n_tokens == 0) == (r.rid in shed), r.rid
+    half = len(many) // 2
+    late = [dataclasses.replace(r, deadline_s=0.05) if r.rid >= half else r
+            for r in many]
+    out = engine.serve(late)
+    shed = sorted(r.rid for r in out.results if r.finish_reason == "shed")
+    log(f"[degrade] admission deadline 50 ms on rids {half}-"
+        f"{len(many) - 1}: shed {engine.shed} {shed}")
+    assert shed and min(shed) >= half, shed
+    by = out.by_rid()
+    assert by[0].finish_reason == "length" and \
+        by[0].n_tokens == many[0].max_new_tokens
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[wall] phase 10d {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_generate(dev, profile: bool = False) -> tuple:
+    """Phase 10 (see the module docstring). Returns the fp paged kernels'
+    launches in 10d and the largest bf16 error of each paged kernel at
+    10d's shapes."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[generate] card memory at the phase's start: {card_memory()}")
+    c, params = family_model(dev, "whisper-small")
+    family_generate(dev, "encdec", c, params, WHISPER_PROMPT, WHISPER_GEN,
+                    profile=profile)
+    del params
+    family_train(dev, "whisper-small", batch=GEN_BATCH,
+                 seq=WHISPER_TRAIN_SEQ)
+    log(f"[wall] phase 10a {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    c, params = family_model(dev, "llava-next-34b", n_layers=LLAVA_LAYERS)
+    run = family_generate(dev, "vlm", c, params, LLAVA_TEXT, LLAVA_GEN,
+                          profile=profile)
+    elems = GEN_BATCH * c.n_heads * run["seq"] ** 2
+    from repro_torch.models.attention import CHUNK_THRESHOLD
+    log(f"[vlm] prefill score elements {GEN_BATCH} x {c.n_heads} x "
+        f"{run['seq']}^2 = {elems:.3e} > CHUNK_THRESHOLD {CHUNK_THRESHOLD:.3e}"
+        f": sdpa_chunked_q ran {run['calls']} times ({c.n_layers} layers)")
+    assert elems > CHUNK_THRESHOLD and run["calls"] == c.n_layers, run
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_train(dev, "llava-next-34b", n_layers=LLAVA_TRAIN_LAYERS,
+                 batch=LLAVA_TRAIN_BATCH, seq=LLAVA_TEXT)
+    log(f"[wall] phase 10b {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for arch in ("whisper-small", "llava-next-34b"):
+        generate_agreement(arch, dev)
+        family_train_agreement(arch, dev)
+    chunked_q_agreement(dev)
+    log(f"[wall] phase 10c {time.perf_counter() - t0:.1f} s")
+
+    worst = dict.fromkeys(("paged_decode_attention", DECODE_INT8,
+                           "paged_prefill_attention", INT8), 0.0)
+    launches = phase_degrade(dev, worst)
+    log(f"[wall] phase 10 {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card_line()}")
+    return launches, worst
 
 
 REPLACES = {
@@ -2330,6 +2755,13 @@ def main() -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
+    if "--generate" in sys.argv[1:]:
+        _build.load_library()
+        phase_generate(dev, profile="--profile" in sys.argv[1:])
+        log(f"[wall] phase 10 alone, the kernels' build included "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     if "--train" in sys.argv[1:]:
         phase_train(dev, profile="--profile" in sys.argv[1:])
         phase_resnet(dev, profile="--profile" in sys.argv[1:])
@@ -2367,9 +2799,14 @@ def main() -> int:
     phase_train(dev, profile="--profile" in sys.argv[1:])
     phase_resnet(dev, profile="--profile" in sys.argv[1:])
     family_errs = phase_families(dev, profile="--profile" in sys.argv[1:])
-    for row in rows:               # the worst over phases 1 and 9
+    gen_counts, gen_errs = phase_generate(dev,
+                                          profile="--profile" in sys.argv[1:])
+    for row in rows:               # the worst over phases 1, 9 and 10
         row["max_abs_err"] = max(row["max_abs_err"],
-                                 family_errs.get(row["name"], 0.0))
+                                 family_errs.get(row["name"], 0.0),
+                                 gen_errs.get(row["name"], 0.0))
+        # the main path's launches: phases 2, 2b, 4 and 10d
+        row["launches"] += gen_counts.get(row["name"], 0)
     log(f"[wall] chip_smoke {time.perf_counter() - t_start:.1f} s, the "
         f"kernels' build included")
     print(json.dumps({"kernels": rows}), flush=True)

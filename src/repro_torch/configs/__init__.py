@@ -2,9 +2,7 @@
 
 Every selectable ``--arch`` id maps to a ModelConfig, as in the
 reference: its ten ``ASSIGNED`` architectures and the paper's GPT
-models, and, apart, the ResNets (``RESNET_REGISTRY``). Whisper-small
-(encdec) and llava-next-34b (vlm) register, but the model stack refuses
-their families (``models.blocks.check_family``).
+models, and, apart, the ResNets (``RESNET_REGISTRY``).
 """
 from __future__ import annotations
 

@@ -20,9 +20,7 @@ def vocab_pad(vocab: int, multiple: int = 256) -> int:
 class ModelConfig:
     """Architecture description; the fields mirror the reference's.
 
-    family: dense | moe | ssm | hybrid | encdec | vlm. The port runs
-    the decoder-only families dense, moe, ssm and hybrid; encdec and vlm
-    raise where they are used (``models.blocks.check_family``).
+    family: dense | moe | ssm | hybrid | encdec | vlm.
     """
 
     name: str

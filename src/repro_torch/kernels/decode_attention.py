@@ -9,7 +9,9 @@ bounds it. The plain version is ``kernels.ref.paged_decode_attention_ref``.
 ``paged_decode_attention.launches_int8`` those of them on an int8 pool.
 
 The kernel splits each sequence's table columns across thread blocks
-(:func:`decode_splits` picks how many from host-known numbers only) and
+(:func:`decode_splits` picks how many from host-known numbers only, the
+columns a split owns from the whole table's width, so that a row's
+result does not depend on the bucket of columns a call passes) and
 combines the splits in the same launch: one call is one launch. It takes
 head widths ``D_HEADS`` and 16-byte aligned q and pools.
 """
@@ -42,19 +44,28 @@ FULL_BLOCKS_PER_SM = 2
 
 
 def decode_splits(batch: int, kv_heads: int, nb: int, sms: int, *,
-                  group: int = 1) -> tuple[int, int]:
+                  group: int = 1,
+                  width: Optional[int] = None) -> tuple[int, int]:
     """(splits, chunk): how many blocks share one sequence's table of
     ``nb`` columns, each owning ``chunk`` consecutive columns (the last
     split may own fewer). Host-known numbers only (batch, KV heads, the
     table width and the SM count), never the lengths, so choosing costs
     no synchronisation. One split where B x Kh (x head chunks) already
-    fills the card; never more splits than columns."""
+    fills the card; never more splits than columns.
+
+    ``width`` (default ``nb``) is the column count of the whole table
+    when ``nb`` columns of it are passed (the engine buckets ``nb`` to
+    its longest live slot): the chunk is chosen for ``width``, so a
+    row's partition into splits, and with it the order of its softmax
+    sums, is the same whatever bucket the other rows make; the splits
+    past a row's length add nothing to its combine."""
+    w = max(nb, width or 0)
     pairs = batch * kv_heads * -(-group // HEADS_PER_BLOCK)
-    if nb <= 1 or pairs >= FULL_BLOCKS_PER_SM * sms:
-        return 1, nb
-    splits = min(nb, MAX_SPLITS, -(-TARGET_BLOCKS_PER_SM * sms // pairs))
-    chunk = -(-nb // splits)
-    return -(-nb // chunk), chunk
+    if w <= 1 or pairs >= FULL_BLOCKS_PER_SM * sms:
+        return 1, w
+    splits = min(w, MAX_SPLITS, -(-TARGET_BLOCKS_PER_SM * sms // pairs))
+    chunk = -(-w // splits)
+    return max(-(-nb // chunk), 1), chunk
 
 
 class _StreamState:
@@ -77,14 +88,15 @@ class _StreamState:
         self.scratch = torch.empty(0, dtype=torch.float32, device=device)
         self.outgrown: list = []
 
-    def plan(self, b: int, kh: int, g: int, dh: int, nb: int,
+    def plan(self, b: int, kh: int, g: int, dh: int, nb: int, width: int,
              splits: Optional[int]) -> tuple:
         """(splits, chunk, scratch pointer, tickets pointer) of a call."""
-        key = (b, kh, g, dh, nb, splits)
+        key = (b, kh, g, dh, nb, width, splits)
         plan = self.plans.get(key)
         if plan is None:
             if splits is None:
-                splits, chunk = decode_splits(b, kh, nb, self.sms, group=g)
+                splits, chunk = decode_splits(b, kh, nb, self.sms, group=g,
+                                              width=width)
             elif 1 <= splits <= MAX_SPLITS:
                 chunk = -(-nb // splits)
             else:
@@ -233,8 +245,9 @@ def _paged_decode_attention(q, k_pool, v_pool, tables, lengths, window,
         return out
     g, nb = h // kh, tables.shape[1]
     stream = torch.cuda.current_stream(q.get_device()).cuda_stream
+    # a column slice of a wider table: its row stride is the full width
     splits, chunk, scratch, tickets = _stream_state(q, stream).plan(
-        b, kh, g, dh, nb, splits)
+        b, kh, g, dh, nb, tables.stride(0), splits)
     err = _build.load_library().repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),

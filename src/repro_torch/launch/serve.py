@@ -1,13 +1,19 @@
-"""Serving CLI of the port (``src/repro/launch/serve.py``, scheduled
-path): continuous-batching or fixed-batch service of synthetic Poisson
-load over the paged (default) or slotted KV cache, with energy per
-token.
+"""Serving CLI of the port (``src/repro/launch/serve.py``): one
+fixed-batch generation (``--mode batch``), or continuous-batching or
+fixed-policy service of synthetic Poisson load over the paged (default)
+or slotted KV cache, with energy per token.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --mode batch --batch 4 --prompt-len 64 --gen 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --preset full --mode continuous --slots 8 --requests 32 --rate 50
 
 Runs on the CUDA card by default (energy from NVML's counter);
-``--device cpu`` runs the plain PyTorch path with synthetic power.
+``--device cpu`` runs the plain PyTorch path with synthetic power. The
+default mode is ``continuous`` (the reference's is ``batch``). The
+encdec and vlm families serve through ``--mode batch`` only, with the
+reference's stub side inputs: zero encoder frames or patch embeddings
+in bf16.
 """
 from __future__ import annotations
 
@@ -16,11 +22,33 @@ import argparse
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.power.methods import NvmlEnergy, SyntheticPower
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import BatchedServer, ServeEngine
 from repro_torch.serve.requests import poisson_requests
+
+
+def _run_batch(args, c, params, dev):
+    server = BatchedServer(c, params, max_len=args.gen + 1, device=dev)
+    prompts = torch.from_numpy(synthetic_tokens(
+        args.batch, args.prompt_len, c.vocab, args.seed)[:, :args.prompt_len])
+    extras = {}
+    if c.family == "vlm":
+        extras["patch_embeds"] = torch.zeros(
+            (args.batch, c.n_patches, c.d_model), dtype=torch.bfloat16,
+            device=dev)
+    if c.family == "encdec":
+        extras["enc_frames"] = torch.zeros(
+            (args.batch, c.enc_seq, c.d_model), dtype=torch.bfloat16,
+            device=dev)
+    res = server.generate(prompts, args.gen, extras)
+    print(f"[serve] arch={c.name} device={dev} batch={args.batch} "
+          f"prefill={res.prefill_s * 1e3:.1f} ms "
+          f"decode={res.decode_s * 1e3:.1f} ms "
+          f"({res.decode_tokens_per_s:,.0f} tok/s decode)")
+    return res
 
 
 def main(argv=None):
@@ -28,8 +56,11 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--preset", choices=["full", "tiny"], default="tiny")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mode", choices=["continuous", "fixed"],
-                    default="continuous")
+    ap.add_argument("--mode", choices=["batch", "continuous", "fixed"],
+                    default="continuous",
+                    help="batch = one fixed-batch generate; continuous/"
+                         "fixed = scheduled serving under Poisson load")
+    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--cache", choices=["slotted", "paged"], default="paged")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefix-cache", action="store_true")
@@ -50,6 +81,8 @@ def main(argv=None):
         c = c.reduced()
     params = lm.init(c, torch.Generator(device=dev).manual_seed(args.seed),
                      dev)
+    if args.mode == "batch":
+        return _run_batch(args, c, params, dev)
     if dev.type == "cuda":
         methods, source = [NvmlEnergy(dev.index or 0)], "nvml_energy"
     else:

@@ -3,9 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-117m \
       --preset tiny --steps 50 --ckpt-dir /tmp/ckpt --device cpu
 
-Port of ``src/repro/launch/train.py`` (``make_data_fn`` for the
-decoder-only families dense, moe, ssm and hybrid, and ``main`` with its
-flags). ``--device`` defaults to the CUDA
+Port of ``src/repro/launch/train.py`` (``make_data_fn`` for every
+model family, with a vlm's patch and an encdec's frame inputs, and
+``main`` with its flags). ``--device`` defaults to the CUDA
 card and raises without one; ``--preset full`` trains the full-width
 config (on the card: bf16 compute, fp32 master weights). A
 ``--placement`` of more than one device exits with the reference's
@@ -27,7 +27,6 @@ from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faults.schedule import TRAIN_PRESETS, FaultSchedule
 from repro_torch.faults.supervisor import run_supervised
-from repro_torch.models.blocks import check_family
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import (StepConfig, init_train_state,
@@ -44,16 +43,23 @@ def make_data_fn(c, global_batch: int, seq_len: int, seed: int = 0,
     step ``N`` directly or through three crash/resume cycles, which is
     what makes the resumed loss trace bit-equal to the uninterrupted
     one. The reference's samples: row ``i`` of a seeded
-    ``synthetic_tokens`` table, tokens ``row[:-1]``, labels ``row[1:]``.
+    ``synthetic_tokens`` table, tokens ``row[:-1]``, labels ``row[1:]``;
+    a vlm's batch also has ``patch_embeds`` (B, n_patches, D), an encdec's
+    ``enc_frames`` (B, enc_seq, D), zeros in bf16 as the reference's.
     """
-    check_family(c)
     dev = resolve_device(device)
     toks = synthetic_tokens(4096, seq_len, c.vocab, seed=seed)
 
     def data(step: int):
         idx = (step * global_batch + np.arange(global_batch)) % toks.shape[0]
         rows = torch.from_numpy(toks[idx])
-        return {"tokens": rows[:, :-1].to(dev), "labels": rows[:, 1:].to(dev)}
+        out = {"tokens": rows[:, :-1].to(dev), "labels": rows[:, 1:].to(dev)}
+        side = {"vlm": ("patch_embeds", c.n_patches),
+                "encdec": ("enc_frames", c.enc_seq)}.get(c.family)
+        if side is not None:
+            out[side[0]] = torch.zeros((global_batch, side[1], c.d_model),
+                                       dtype=torch.bfloat16, device=dev)
+        return out
 
     return data
 

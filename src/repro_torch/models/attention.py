@@ -6,22 +6,23 @@ fp32, the mask bias is ``finfo(float32).min`` (not -inf) and the softmax
 weights are cast back to q.dtype before the PV product.
 
 Ported: ``qkv_proj``, ``make_causal_mask``, ``sdpa`` (the reference's
-``impl="repeat"`` formulation), ``out_proj``, ``attend`` (unchunked),
-``self_attention`` (the training path), ``prefill_attention`` (dense and
-paged-prefix branches),
+``impl="repeat"`` formulation), ``out_proj``, ``attend``,
+``sdpa_chunked_q`` (the q-chunked path above ``CHUNK_THRESHOLD``),
+``self_attention`` (the training path), ``cross_attention`` and
+``encoder_kv`` (the encdec decoder's cross slots), ``prefill_attention``
+(dense and paged-prefix branches),
 ``_quantized_block_write`` and ``decode_attention`` (its paged branch,
 and its dense per-row and shared-position branches), each paged branch
 on fp pools and on int8 pools with their scales. The paged branches call
 ``repro_torch.kernels.ops``, which launches the CUDA kernels for CUDA
 tensors; the dense branches go through ``sdpa``, as in the reference.
-Not yet ported, raising ``NotImplementedError``: the q-chunked path
-(``sdpa_chunked_q``).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -31,9 +32,11 @@ from repro_torch.models.common import (
 
 Params = Any
 
-# Score tensors larger than this switch to the q-chunked path in the
-# reference; the port has not ported that path yet.
+# Score tensors larger than this (elements over the whole batch) switch to
+# the memory-bounded q-chunked path.
 CHUNK_THRESHOLD = 1 << 31
+#: query rows a chunk (the reference's real-pass ``q_chunk``)
+Q_CHUNK = 256
 
 
 def attn_init(gen, c: ModelConfig, lead=()) -> Params:
@@ -111,15 +114,59 @@ def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", attn_out, p["wo"])
 
 
+def sdpa_chunked_q(q, k, v, *, causal: bool, window: Optional[int],
+                   q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """Memory-bounded attention: a loop over query chunks, each of which
+    materializes only a (B, H, q_chunk, T_vis) score block. Causal with a
+    window slices K/V to the ``min(q_chunk + w, t)`` rows the chunk can
+    see. With gradients on, each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)
+    instead of keeping its fp32 softmax. ``sdpa_chunked_q.calls`` counts
+    the calls."""
+    sdpa_chunked_q.calls += 1
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    if s % q_chunk:
+        raise ValueError(f"{s} query rows are not whole chunks of {q_chunk}")
+
+    def chunk(qi, start: int):
+        if causal and window is None:
+            mask = make_causal_mask(q_chunk, t, None, q_offset=start,
+                                    device=q.device)
+            return sdpa(qi, k, v, mask[None, None])
+        if causal:
+            vis = min(q_chunk + min(window, t), t)
+            k0 = min(max(start + q_chunk - vis, 0), t - vis)
+            qpos = start + torch.arange(q_chunk, device=q.device)[:, None]
+            kpos = k0 + torch.arange(vis, device=q.device)[None, :]
+            mask = (kpos <= qpos) & (kpos > qpos - window)
+            return sdpa(qi, k[:, k0:k0 + vis], v[:, k0:k0 + vis],
+                        mask[None, None])
+        return sdpa(qi, k, v, None)
+
+    outs = []
+    for start in range(0, s, q_chunk):
+        qi = q[:, start:start + q_chunk]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(chunk, qi, start, use_reentrant=False,
+                                   preserve_rng_state=False))
+        else:
+            outs.append(chunk(qi, start))
+    return torch.cat(outs, dim=1)
+
+
+sdpa_chunked_q.calls = 0
+
+
 def attend(c: ModelConfig, q, k, v, *, causal: bool) -> torch.Tensor:
-    """Full (unchunked) attention; the reference's q-chunked path for
-    score tensors above ``CHUNK_THRESHOLD`` is not ported yet."""
+    """Full attention, or the q-chunked path when the score tensor holds
+    more than ``CHUNK_THRESHOLD`` elements and the queries are whole
+    chunks of ``Q_CHUNK`` (otherwise full ``sdpa``, as the reference
+    falls back)."""
     b, s = q.shape[:2]
     t = k.shape[1]
-    if b * c.n_heads * s * t > CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            "sdpa_chunked_q (score tensors above CHUNK_THRESHOLD) is not "
-            "ported yet: ROADMAP Queue 1 item 5")
+    if b * c.n_heads * s * t > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
+        return sdpa_chunked_q(q, k, v, causal=causal, window=c.attn_window)
     mask = None
     if causal:
         mask = make_causal_mask(s, t, c.attn_window, device=q.device)[None, None]
@@ -134,6 +181,26 @@ def self_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = qkv_proj(c, p, x, positions if c.use_rope else None)
     return out_proj(p, attend(c, q, k, v, causal=causal))
+
+
+def cross_attention(c: ModelConfig, p: Params, x: torch.Tensor,
+                    enc_kv: tuple) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V
+    (:func:`encoder_kv`): queries get ``bq``, no RoPE, no mask."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    k, v = enc_kv
+    return out_proj(p, sdpa(q, k, v, None))
+
+
+def encoder_kv(c: ModelConfig, p: Params, enc_out: torch.Tensor):
+    """A cross slot's K/V of the encoder output (B, T_enc, D)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
 
 
 def prefill_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,

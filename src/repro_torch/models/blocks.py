@@ -1,14 +1,19 @@
 """Decoder blocks over period-stacked parameters.
 
 Port of ``src/repro/models/blocks.py`` (``period_of``, ``slot_kinds``,
-``stack_init``, ``stack_forward``, ``stack_prefill`` and
-``stack_decode``). Heterogeneous layer patterns (Jamba's one attention
+``stack_init``, ``enc_stack_init``, ``stack_forward``, ``stack_prefill``
+and ``stack_decode``). Heterogeneous layer patterns (Jamba's one attention
 layer in eight, llama4's MoE on every second layer) are one *period* of
 slots, ``{"slot0": ..., "slot{period-1}": ...}``, with every leaf stacked
 over ``n_periods = n_layers // period``: the reference's tree. A dense
 stack has a period of one layer, so its tree is ``{"slot0": {...}}``
 with leading axis ``n_layers``. Each slot's mixer is ``attn`` or
-``mamba``, its FFN ``mlp``, ``moe`` or none.
+``mamba``, its FFN ``mlp``, ``moe`` or none. An encdec decoder's slots
+also hold ``norm_x`` and a ``cross`` attention, applied after the mixer
+and before the FFN against the encoder's K/V (``enc_kv``: per period
+``{"slot{i}": {"k", "v"}}``, each leaf stacked over the periods like the
+params); the encoder's own stack (``enc_stack_init``) has no ``slot{i}``
+level.
 
 The reference scans over the periods; here a Python loop walks periods
 and slots. The training forward unbinds each stacked leaf once, so the
@@ -34,18 +39,6 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_mlp, apply_norm, mlp_init, norm_init
 
 Params = Any
-
-#: the decoder-only families the port runs
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_family(c: ModelConfig) -> None:
-    if c.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {c.family!r} is not ported yet: ROADMAP Queue 1 item 6 "
-            "(encdec and vlm need their encoder-frame and patch side inputs "
-            "and the fixed-batch generate/BatchedServer of item 4)")
-
 
 def period_of(c: ModelConfig) -> int:
     """Layers in one period of the layer pattern."""
@@ -103,13 +96,16 @@ def _n_periods(slot_tree: Params) -> int:
 
 
 def _slot_init(gen, c: ModelConfig, mixer: str, ffn: Optional[str],
-               lead) -> Params:
+               lead, cross: bool = False) -> Params:
     dev = gen.device
     p: dict = {"norm1": norm_init(c, dev, lead)}
     if mixer == "attn":
         p["attn"] = attn.attn_init(gen, c, lead)
     else:
         p["mamba"] = ssm_mod.mamba_init(gen, c, lead)
+    if cross:
+        p["norm_x"] = norm_init(c, dev, lead)
+        p["cross"] = attn.attn_init(gen, c, lead)
     if ffn == "mlp":
         p["norm2"] = norm_init(c, dev, lead)
         p["mlp"] = mlp_init(gen, c, c.d_ff, lead)
@@ -119,11 +115,18 @@ def _slot_init(gen, c: ModelConfig, mixer: str, ffn: Optional[str],
     return p
 
 
-def stack_init(gen, c: ModelConfig) -> Params:
-    """Stacked layer params: every leaf's leading axis is n_periods."""
+def stack_init(gen, c: ModelConfig, cross: bool = False) -> Params:
+    """Stacked layer params: every leaf's leading axis is n_periods;
+    ``cross`` adds ``norm_x`` and a ``cross`` attention to every slot."""
     lead = (c.n_layers // period_of(c),)
-    return {f"slot{i}": _slot_init(gen, c, mixer, ffn, lead)
+    return {f"slot{i}": _slot_init(gen, c, mixer, ffn, lead, cross=cross)
             for i, (mixer, ffn) in enumerate(slot_kinds(c))}
+
+
+def enc_stack_init(gen, c: ModelConfig) -> Params:
+    """Encoder stack (bidirectional attention + MLP): every leaf stacked
+    over ``n_enc_layers``, no ``slot{i}`` level."""
+    return _slot_init(gen, c, "attn", "mlp", (c.n_enc_layers,))
 
 
 # ---------------------------------------------------------------------------
@@ -150,26 +153,34 @@ def _unstack(tree: Params, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+def _cross(c: ModelConfig, sp: Params, x: torch.Tensor, ekv) -> torch.Tensor:
+    """The slot's cross-attention residual (none without ``ekv``)."""
+    if ekv is None:
+        return x
+    h = apply_norm(c, sp["norm_x"], x)
+    return x + attn.cross_attention(c, sp["cross"], h, (ekv["k"], ekv["v"]))
+
+
 def _slot_forward(c: ModelConfig, sp: Params, x: torch.Tensor, causal: bool,
-                  mixer: str, ffn: Optional[str]):
+                  mixer: str, ffn: Optional[str], ekv=None):
     h = apply_norm(c, sp["norm1"], x)
     if mixer == "attn":
         h = attn.self_attention(c, sp["attn"], h, causal=causal)
     else:
         h = ssm_mod.mamba_forward(c, sp["mamba"], h)
-    x, aux = _ffn(c, sp, x + h, ffn)
+    x, aux = _ffn(c, sp, _cross(c, sp, x + h, ekv), ffn)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) \
         if aux is None else aux
 
 
 def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
                   causal: bool = True, impl: str = "repeat",
-                  remat: str = "full"):
+                  remat: str = "full", enc_kv: Params = None):
     """Run the full layer stack, no caches. x: (B, S, D) -> (B, S, D),
     aux_loss (summed over the MoE slots). ``remat="full"`` recomputes
     each layer in the backward (``torch.utils.checkpoint``), saving only
-    the layer inputs; ``"none"`` keeps every activation."""
-    check_family(c)
+    the layer inputs; ``"none"`` keeps every activation. ``enc_kv``: the
+    encoder's K/V for the cross slots (encdec)."""
     if impl != "repeat":
         raise NotImplementedError(
             f"impl={impl!r}: the port's sdpa is the reference's 'repeat' "
@@ -183,17 +194,20 @@ def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
     kinds = slot_kinds(c)
     n = _n_periods(layers["slot0"])
     per_slot = [_unstack(layers[f"slot{i}"], n) for i in range(len(kinds))]
+    per_ekv = [None if enc_kv is None else _unstack(enc_kv[f"slot{i}"], n)
+               for i in range(len(kinds))]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(n):
         for i, (mixer, ffn) in enumerate(kinds):
             sp = per_slot[i][j]
+            ekv = None if enc_kv is None else per_ekv[i][j]
             if remat == "full":
                 # no op in a layer draws random numbers: no RNG state to keep
                 x, a = checkpoint(_slot_forward, c, sp, x, causal, mixer, ffn,
-                                  use_reentrant=False,
+                                  ekv, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = _slot_forward(c, sp, x, causal, mixer, ffn)
+                x, a = _slot_forward(c, sp, x, causal, mixer, ffn, ekv)
             aux = aux + a
     return x, aux
 
@@ -205,6 +219,7 @@ def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
 
 def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
                   positions: Optional[torch.Tensor] = None,
+                  enc_kv: Params = None,
                   paged_prefix: Params = None,
                   paged_tables: Optional[torch.Tensor] = None):
     """Full-sequence causal pass that also emits per-layer caches.
@@ -220,7 +235,6 @@ def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
     state (n_periods, B, nh, hp, ns) and the pre-conv tail
     (n_periods, B, K-1, d_inner + 2 ns).
     """
-    check_family(c)
     kinds = slot_kinds(c)
     if paged_prefix is not None and any(m != "attn" for m, _f in kinds):
         raise ValueError("prefix caching requires attention-only stacks "
@@ -247,13 +261,15 @@ def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
                 new = {"ssm": hstate, "conv": conv_tail}
             for name, t in new.items():
                 out[f"slot{i}"].setdefault(name, []).append(t)
-            x, _aux = _ffn(c, sp, x + h, ffn)
+            x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j)),
+                           ffn)
     return x, {slot: {name: torch.stack(ts) for name, ts in tree.items()}
                for slot, tree in out.items()}
 
 
 def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
                  caches: Params, pos: torch.Tensor, *,
+                 enc_kv: Params = None,
                  block_tables: Optional[torch.Tensor] = None,
                  n_kv_blocks: Optional[int] = None):
     """One-token decode through the stack. Every attention layer writes
@@ -261,9 +277,9 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
     (and, on an int8 pool, its scale slice) through the same
     ``(B, max_blocks)`` table; without, its dense rows at ``pos`` (per
     row, or shared). Every mamba layer overwrites its state rows (idle
-    rows too: the next insert overwrites them). Returns (x, caches) —
-    the caches object itself, updated."""
-    check_family(c)
+    rows too: the next insert overwrites them). ``enc_kv`` feeds the
+    cross slots (encdec). Returns (x, caches) — the caches object itself,
+    updated."""
     kinds = slot_kinds(c)
     for j in range(_n_periods(layers["slot0"])):
         for i, (mixer, ffn) in enumerate(kinds):
@@ -283,8 +299,14 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
                     c, sp["mamba"], h, sc["conv"][j], sc["ssm"][j])
                 sc["conv"][j].copy_(conv_s)
                 sc["ssm"][j].copy_(ssm_s)
-            x, _aux = _ffn(c, sp, x + h, ffn)
+            x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j)),
+                           ffn)
     return x, caches
+
+
+def _ekv(enc_kv: Params, i: int, j: int):
+    """Slot ``i``'s encoder K/V of period ``j``, or None."""
+    return None if enc_kv is None else layer(enc_kv[f"slot{i}"], j)
 
 
 def _scales(pool: Params, i: int) -> tuple:

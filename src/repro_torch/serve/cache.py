@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import check_family, period_of, slot_kinds
+from repro_torch.models.blocks import period_of, slot_kinds
 from repro_torch.models.common import dtype_of, param_dtype_of
 from repro_torch.models.ssm import mamba_state_shapes
 
@@ -119,7 +119,6 @@ def slotted_cache(c: ModelConfig, n_slots: int, max_len: int, *,
                   device: torch.device) -> Params:
     """Zero cache pool of ``n_slots`` rows of ``max_len`` capacity (see
     the module docstring for its leaves), then only updated in place."""
-    check_family(c)
     n_periods = c.n_layers // period_of(c)
     out = {}
     for i, (mixer, _ffn) in enumerate(slot_kinds(c)):
@@ -393,7 +392,6 @@ class PagedKVCache:
     def __init__(self, c: ModelConfig, n_slots: int, max_len: int, *,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  kv_dtype: str = "fp32", device: torch.device):
-        check_family(c)
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: fp32 or int8")
         if max_len % block_size:

@@ -1,8 +1,10 @@
 """Serving engine: continuous and fixed-batch policies over the paged or
 slotted KV cache, with energy-per-token accounting.
 
-Port of ``src/repro/serve/engine.py`` (``ServeEngine``): the dense, moe,
-ssm and hybrid families, both cache layouts (``cache="paged"`` and
+Port of ``src/repro/serve/engine.py`` (``ServeEngine``, ``BatchedServer``,
+``GenerationResult``, ``make_prefill_fn``, ``make_decode_fn``). Scheduled
+serving (``serve``) runs the dense, moe, ssm and hybrid families, both
+cache layouts (``cache="paged"`` and
 ``"slotted"``), both schedulers (``sched="phased"`` and ``"chunked"``,
 the latter paged only), both pool layouts (``kv_dtype="fp32"`` and
 ``"int8"``, the latter paged only) and the prefix cache off or on (paged
@@ -61,19 +63,36 @@ or a cumulative energy counter in joules (NVML's, ``power_source=
 "nvml_energy"``) — and ``core.metrics.attribute_energy`` takes each
 window's energy from them (Wh/token, Wh/request).
 
+Degradation: a request's ``deadline_s`` sheds it while still queued past
+its admission deadline (``finish_reason="shed"``, zero tokens); a
+``faults.schedule.FaultSchedule``'s overload windows cap the queue,
+shedding the newest arrivals first, and its slot faults evict the
+youngest decoding slot (chunked runs only: the victim resumes through
+the preemption replay, so its stream equals the fault-free one). A
+``core.runner.StragglerWatchdog`` watches every decode window.
+
+Scripted mode (``prefill_fn``/``decode_fn``, host callables, with a fake
+``clock``/``sleep_fn``) runs the reference's legacy one-request-prefill,
+one-step-decode loop and touches no device: the energy, scheduler and
+degradation tests drive it.
+
+Fixed-batch ``generate`` (and ``BatchedServer`` over it) prefills a
+whole batch and decodes it at one shared position through the dense
+branch of ``decode_attention`` (no kernel, as in the reference); it is
+the only way to serve the encdec and vlm families, whose side inputs
+(encoder frames, patch embeddings) are per batch. It starts decoding at
+the prefill cache's length: for a vlm that is patches plus text, where
+the reference's ``generate`` starts at the text length (ROADMAP Queue 3).
+
 Beyond the reference, the engine counts ``replayed_tokens`` (forced
 decode inputs of resumed requests) and ``paged_prefills`` (batched
 prefill calls that attended over pool blocks: prefix hits and chunks
 after the first) in the last ``serve()``.
-
-Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
-item: deadlines and shedding, slot faults, the scripted (callable-driven)
-mode, and ``generate``/``BatchedServer``.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -83,12 +102,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.metrics import (
     ServeSummary, attribute_energy, serve_summary,
 )
+from repro_torch.core.runner import StragglerWatchdog
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import lm
-from repro_torch.models.blocks import check_family
 from repro_torch.serve.cache import (
-    CacheOOM, PagedKVCache, copy_blocks, insert_paged_prefill, insert_rows,
-    slotted_cache,
+    CacheOOM, PagedKVCache, copy_blocks, grow_caches, insert_paged_prefill,
+    insert_rows, slotted_cache,
 )
 from repro_torch.serve.requests import Request, RequestResult
 from repro_torch.serve.scheduler import Scheduler, Slot, StepRecord
@@ -105,8 +124,40 @@ _RECURRENT_REFUSAL = (
     "families")
 
 
-def _todo(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+#: families with per-request side inputs: fixed-batch ``generate`` only
+SIDE_INPUTS = ("encdec", "vlm")
+
+
+def make_prefill_fn(c: ModelConfig):
+    """``prefill(params, tokens, extras) -> (logits, caches, enc_kv)``,
+    ``extras`` holding a vlm's ``patch_embeds`` or an encdec's
+    ``enc_frames``."""
+    def prefill_step(params, tokens, extras):
+        return lm.prefill(c, params, tokens,
+                          patch_embeds=extras.get("patch_embeds"),
+                          enc_frames=extras.get("enc_frames"))
+    return prefill_step
+
+
+def make_decode_fn(c: ModelConfig):
+    """``decode(params, token, caches, pos, enc_kv=None) -> (logits,
+    caches)``, the caches updated in place."""
+    def serve_step(params, token, caches, pos, enc_kv=None):
+        return lm.decode_step(c, params, token, caches, pos, enc_kv=enc_kv)
+    return serve_step
+
+
+@dataclass
+class GenerationResult:
+    tokens: Any                   # (B, n_steps) greedy tokens
+    steps: int
+    prefill_s: float
+    decode_s: float
+
+    @property
+    def decode_tokens_per_s(self) -> float:
+        n = self.tokens.shape[0] * self.steps
+        return n / max(self.decode_s, 1e-9)
 
 
 @dataclass
@@ -122,6 +173,7 @@ class ServeRunResult:
     sample_ws: list
     summary: ServeSummary
     sample_kind: str = "power"
+    straggler_events: list = field(default_factory=list)
 
     def by_rid(self) -> dict:
         return {r.rid: r for r in self.results}
@@ -141,9 +193,21 @@ class ServeEngine:
     (``"fp32"``: the model's activation dtype; ``"int8"``: codes +
     scales); ``sched`` and ``chunk_tokens`` are the default scheduler of
     ``serve()``. ``power_methods`` must all be of one ``kind``.
+    ``clock`` and ``sleep_fn`` time the run and wait for arrivals;
+    ``watchdog`` observes every decode window's time a step.
+
+    Scripted mode: pass ``prefill_fn``/``decode_fn`` (and no model) —
+    host callables with no device work,
+
+      prefill_fn(slot: int, prompt: np.ndarray) -> int   first token
+      decode_fn(tokens (S,), positions (S,), active (S,) bool) -> (S,)
+
+    with a fake ``clock``/``sleep_fn`` pair, which makes the energy
+    accounting exactly computable; such an engine serves phased only.
     """
 
-    def __init__(self, c: ModelConfig, params: Params, *,
+    def __init__(self, c: Optional[ModelConfig] = None,
+                 params: Params = None, *,
                  n_slots: int = 4, max_len: int = 256,
                  cache: str = "paged", block_size: int = 16,
                  n_blocks: Optional[int] = None,
@@ -152,7 +216,10 @@ class ServeEngine:
                  chunk_tokens: int = 32, device: DeviceLike = None,
                  prefill_fn: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None,
-                 power_methods: Sequence = ()):
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep_fn: Optional[Callable[[float], None]] = None,
+                 power_methods: Sequence = (),
+                 watchdog: Optional[StragglerWatchdog] = None):
         if cache not in ("slotted", "paged"):
             raise ValueError(f"cache {cache!r}: slotted or paged")
         if sched not in ("phased", "chunked"):
@@ -165,22 +232,28 @@ class ServeEngine:
         if kv_dtype != "fp32" and cache != "paged":
             raise ValueError("int8 KV quantizes pool blocks: it needs "
                              "cache='paged'")
-        if prefill_fn is not None or decode_fn is not None:
-            raise _todo("scripted mode (prefill_fn/decode_fn)",
-                        "Queue 1 item 4")
         power_methods = list(power_methods)
         kinds = {m.kind for m in power_methods}
         if len(kinds) > 1:
             raise ValueError(f"power methods of mixed kinds {sorted(kinds)}: "
                              "watts and joules cannot be summed")
-        check_family(c)
-        if c.family in RECURRENT and (prefix_cache or sched == "chunked"):
-            raise ValueError(_RECURRENT_REFUSAL.format(c.family))
-        self.device = resolve_device(device)
-        leaf = params["embed"]["tok"]
-        if leaf.device.type != self.device.type:
-            raise ValueError(f"params on {leaf.device}, engine on "
-                             f"{self.device}")
+        self._scripted = prefill_fn is not None or decode_fn is not None
+        if self._scripted:
+            if prefill_fn is None or decode_fn is None or c is not None:
+                raise ValueError("scripted mode takes prefill_fn and "
+                                 "decode_fn, and no model")
+            self._slot_prefill, self._slot_decode = prefill_fn, decode_fn
+            self.device = None
+        else:
+            if c is None or params is None:
+                raise ValueError("a model engine needs (c, params)")
+            if c.family in RECURRENT and (prefix_cache or sched == "chunked"):
+                raise ValueError(_RECURRENT_REFUSAL.format(c.family))
+            self.device = resolve_device(device)
+            leaf = params["embed"]["tok"]
+            if leaf.device.type != self.device.type:
+                raise ValueError(f"params on {leaf.device}, engine on "
+                                 f"{self.device}")
         self.c, self.params = c, params
         self.n_slots, self.max_len = n_slots, max_len
         self.cache_kind = cache
@@ -194,7 +267,14 @@ class ServeEngine:
         self.preemptions = 0          # preempt events in the last serve()
         self.replayed_tokens = 0      # replayed decode inputs, last serve()
         self.paged_prefills = 0       # prefill calls over pool blocks
-        self.clock = time.monotonic
+        self.shed = 0                 # requests shed in the last serve()
+        self.injected_faults = 0      # slot faults fired in the last serve()
+        self.clock = clock
+        self.sleep_fn = sleep_fn or time.sleep
+        self.watchdog = watchdog
+        #: decode windows run over the engine's life (the watchdog's step
+        #: index and the fault schedule's clock), as the reference counts
+        self._decode_idx = 0
         self.power_methods = power_methods
         self.power_kind = kinds.pop() if kinds else "power"
         self.prefix_stats: dict = self._blank_prefix_stats()
@@ -206,6 +286,10 @@ class ServeEngine:
         #: the queue head; admission retries only once it changes
         self._defer_free_blocks: Optional[int] = None
         self.caches: Params = None   # the cache tree, allocated on first use
+        if not self._scripted:
+            # the fixed-batch generate() programs
+            self._prefill_fn = make_prefill_fn(c)
+            self._decode_fn = make_decode_fn(c)
 
     # ------------------------------------------------------------------
     # Cache + bucketing
@@ -214,6 +298,11 @@ class ServeEngine:
     def _ensure_cache(self):
         if self.caches is not None:
             return
+        if self.c.family in SIDE_INPUTS:
+            raise ValueError(
+                f"family {self.c.family!r} needs per-request side inputs "
+                "(encoder frames, patch embeddings): serve it with the "
+                "fixed-batch generate() / BatchedServer")
         if self.cache_kind == "slotted":
             self.caches = slotted_cache(self.c, self.n_slots, self.max_len,
                                         device=self.device)
@@ -393,8 +482,9 @@ class ServeEngine:
                       paged_tables=self._tensor(pre_blocks, torch.int32),
                       pos_offset=npre * self.block_size)
             self.paged_prefills += 1
-        logits, rows = lm.prefill(self.c, self.params, self._tensor(tokens),
-                                  last_pos=self._tensor(last), **kw)
+        logits, rows, _ = lm.prefill(self.c, self.params,
+                                     self._tensor(tokens),
+                                     last_pos=self._tensor(last), **kw)
         return logits[:, -1].argmax(-1), rows
 
     def _model_prefill_admitted(self, sched: Scheduler, admitted, results,
@@ -681,6 +771,9 @@ class ServeEngine:
         outs_np = torch.stack(outs).cpu().numpy()   # pipeline drain: one sync
         t1 = self.clock()
         self._sample_power(ts, ws)
+        if self.watchdog is not None:
+            self.watchdog.observe(self._decode_idx, (t1 - t0) / k)
+        self._decode_idx += 1
         emitted = 0
         for out in outs_np:
             for s in active:
@@ -717,22 +810,25 @@ class ServeEngine:
                requests: Optional[Sequence[Request]] = None,
                repeat: int = 1, sched: Optional[str] = None):
         """Serve a throwaway request set (under ``sched``, default the
-        engine's) with power sampling detached, so first-call set-up
-        (CUDA context, library handles, allocator) stays outside measured
-        runs; the prefix index is cleared after."""
+        engine's) with power sampling and the watchdog detached, so
+        first-call set-up (CUDA context, library handles, allocator)
+        stays outside measured runs; the prefix index is cleared after.
+        A scripted engine has nothing to warm."""
+        if self._scripted:
+            return
         if requests is None:
             budget = max(self.max_len - prompt_len, 1)
             requests = [Request(rid=-(i + 1),
                                 prompt=np.zeros(prompt_len, np.int32),
                                 max_new_tokens=budget, arrival_s=0.0)
                         for i in range(self.n_slots)]
-        saved = self.power_methods
-        self.power_methods = []
+        saved = self.power_methods, self.watchdog
+        self.power_methods, self.watchdog = [], None
         try:
             for _ in range(max(int(repeat), 1)):
                 self.serve(requests, policy="continuous", sched=sched)
         finally:
-            self.power_methods = saved
+            self.power_methods, self.watchdog = saved
             self.reset_prefix_cache()
 
     def reset_prefix_cache(self):
@@ -757,40 +853,103 @@ class ServeEngine:
 
     def serve(self, requests: Sequence[Request], *,
               policy: str = "continuous", poll_s: float = 0.002,
-              sched: Optional[str] = None, faults=None) -> ServeRunResult:
+              sched: Optional[str] = None,
+              chunk_tokens: Optional[int] = None,
+              faults=None) -> ServeRunResult:
         """Run a request set to completion under ``policy``
         (``continuous`` or ``fixed``). ``arrival_s`` is relative to the
-        run start; the engine sleeps while the queue is empty and slots
-        are idle. ``sched`` overrides the engine's scheduler for this
-        run; a chunked run needs the paged cache (preemption reclaims
-        blocks) and ``chunk_tokens`` a positive multiple of
-        ``block_size`` (chunk edges land on block edges)."""
+        run start; the engine sleeps (``sleep_fn``) while the queue is
+        empty and slots are idle. ``sched`` and ``chunk_tokens`` override
+        the engine's for this run; a chunked run needs a model engine,
+        the paged cache (preemption reclaims blocks) and ``chunk_tokens``
+        a positive multiple of ``block_size`` (chunk edges land on block
+        edges).
+
+        Degradation: a request still queued past its ``deadline_s`` is
+        shed (zero tokens, ``finish_reason="shed"``); ``faults``, a
+        ``FaultSchedule``, caps the queue in its overload windows
+        (shedding the newest arrivals first: the oldest queued request
+        is never shed) and evicts the youngest decoding slot at each of
+        its slot faults (chunked runs only: the victim resumes through
+        the preemption replay). ``self.shed`` and
+        ``self.injected_faults`` count both in the last run."""
         mode = sched or self.sched
         if mode not in ("phased", "chunked"):
             raise ValueError(f"sched {mode!r}: phased or chunked")
-        if mode == "chunked" and self.cache_kind != "paged":
+        chunked = mode == "chunked"
+        ct = int(chunk_tokens if chunk_tokens is not None
+                 else self.chunk_tokens)
+        if chunked and self._scripted:
+            raise ValueError("chunked prefill runs the model: a scripted "
+                             "engine serves phased only")
+        if chunked and self.cache_kind != "paged":
             raise ValueError("chunked prefill and preemption need "
                              "block-granular reclaim (cache='paged')")
-        if mode == "chunked" and self.c.family in RECURRENT:
+        if chunked and self.c.family in RECURRENT:
             raise ValueError(_RECURRENT_REFUSAL.format(self.c.family))
-        ct = self.chunk_tokens
-        if mode == "chunked" and (ct <= 0 or ct % self.block_size):
+        if chunked and (ct <= 0 or ct % self.block_size):
             raise ValueError(f"chunk_tokens {ct} must be a positive "
                              f"multiple of block_size {self.block_size}")
-        if faults is not None:
-            raise _todo("fault schedules (overload shedding, slot faults)",
-                        "Queue 1 item 4")
-        if any(r.deadline_s is not None for r in requests):
-            raise _todo("deadlines and shedding", "Queue 1 item 4")
+        if faults is not None and not chunked and any(
+                e.kind == "slot_fault" for e in faults.events):
+            raise ValueError("slot faults recover through the preemption "
+                             "replay, which only the chunked scheduler of "
+                             "a model engine runs")
         with torch.no_grad():
-            return self._serve(requests, policy, poll_s, mode == "chunked",
-                               ct)
+            return self._serve(requests, policy, poll_s, chunked, ct,
+                               faults)
+
+    def _scripted_prefill(self, sched: Scheduler, admitted, results, steps,
+                          ts, ws) -> None:
+        """The reference's legacy loop: one prefill window a request."""
+        for slot in admitted:
+            req = slot.request
+            res = results[req.rid]
+            res.slot = slot.index
+            res.admitted_s = self.clock()
+            self._sample_power(ts, ws)   # bracket the prefill window
+            first = int(self._slot_prefill(slot.index, req.prompt))
+            t1 = self.clock()
+            self._sample_power(ts, ws)
+            res.first_token_s = t1
+            res.tokens.append(first)
+            steps.append(StepRecord("prefill", res.admitted_s, t1,
+                                    (req.rid,), 1))
+            reason = sched.record_token(slot, first)
+            if reason is not None:
+                res.finish_s, res.finish_reason = t1, reason
+
+    def _scripted_decode(self, sched: Scheduler, active, results, steps,
+                         ts, ws) -> None:
+        """One decode window over every active slot, one step."""
+        rids = tuple(s.request.rid for s in active)
+        t0 = self.clock()
+        self._sample_power(ts, ws)   # bracket the decode window
+        out = self._slot_decode(sched.input_tokens(), sched.positions(),
+                                sched.active_mask())
+        t1 = self.clock()
+        self._sample_power(ts, ws)
+        if self.watchdog is not None:
+            self.watchdog.observe(self._decode_idx, t1 - t0)
+        self._decode_idx += 1
+        steps.append(StepRecord("decode", t0, t1, rids, len(rids)))
+        out = np.asarray(out)
+        for s in active:
+            res = results[s.request.rid]
+            tok = int(out[s.index])
+            res.tokens.append(tok)
+            reason = sched.record_token(s, tok)
+            if reason is not None:
+                res.finish_s, res.finish_reason = t1, reason
 
     def _serve(self, requests, policy: str, poll_s: float, chunked: bool,
-               chunk_tokens: int) -> ServeRunResult:
-        self._ensure_cache()
+               chunk_tokens: int, faults) -> ServeRunResult:
+        if not self._scripted:
+            self._ensure_cache()
         self.preemptions = self.replayed_tokens = self.paged_prefills = 0
+        self.shed = self.injected_faults = 0
         sched = Scheduler(self.n_slots, self.max_len, policy=policy)
+        has_deadlines = any(r.deadline_s is not None for r in requests)
         t_start = self.clock()
         results: dict[int, RequestResult] = {}
         for r in requests:
@@ -805,8 +964,27 @@ class ServeEngine:
         self.prefix_stats = self._blank_prefix_stats()
         self._sample_power(ts, ws)
 
+        def mark_shed(req: Request):
+            res = results[req.rid]
+            res.finish_s = self.clock()
+            res.finish_reason = "shed"
+            self.shed += 1
+
+        poll = 0
         while sched.has_work:
             now_rel = self.clock() - t_start
+            # graceful degradation: deadline expiry, then overload caps
+            if has_deadlines or faults is not None:
+                sched._absorb_arrivals(now_rel)
+                if has_deadlines:
+                    for req in sched.shed_expired(now_rel):
+                        mark_shed(req)
+                cap = faults.queue_cap_at(poll) if faults is not None \
+                    else None
+                if cap is not None:
+                    for req in sched.shed_newest(cap):
+                        mark_shed(req)
+            poll += 1
             # a headroom-deferred head retries only once blocks moved
             if self._admission_blocked():
                 admitted = []
@@ -822,12 +1000,27 @@ class ServeEngine:
                 if any(s.prefilling for s in sched.slots):
                     self._model_prefill_chunks(sched, results, steps, ts,
                                                ws, chunk_tokens)
+            elif admitted and self._scripted:
+                self._scripted_prefill(sched, admitted, results, steps, ts,
+                                       ws)
             elif admitted:
                 self._model_prefill_admitted(sched, admitted, results,
                                              steps, ts, ws)
             active = sched.decode_slots()
+            if (faults is not None and active
+                    and faults.slot_fault_at(self._decode_idx)):
+                # an injected slot failure evicts the YOUNGEST decoding
+                # slot (FIFO degradation); it re-queues at the front and
+                # resumes through the decode replay
+                victim = max(active, key=lambda s: (s.request.arrival_s,
+                                                    s.request.rid))
+                self._preempt_slot(sched, victim, results)
+                self.injected_faults += 1
+                active = sched.decode_slots()
             prefilling = any(s.prefilling for s in sched.slots)
-            if active:
+            if active and self._scripted:
+                self._scripted_decode(sched, active, results, steps, ts, ws)
+            elif active:
                 k = self._decode_plan(
                     sched, active,
                     admission_blocked=self._admission_blocked(),
@@ -840,7 +1033,7 @@ class ServeEngine:
                 wait = (t_start + nxt) - self.clock() if nxt is not None \
                     else poll_s
                 if wait > 0:
-                    time.sleep(min(wait, 0.05))
+                    self.sleep_fn(min(wait, 0.05))
 
         self._sample_power(ts, ws)
         out_results = sorted(results.values(), key=lambda r: r.finish_s)
@@ -851,15 +1044,72 @@ class ServeEngine:
             results=out_results, steps=steps, sample_ts=ts, sample_ws=ws,
             summary=serve_summary(out_results, steps, ts, ws,
                                   n_slots=self.n_slots, kind=kind),
-            sample_kind=kind)
+            sample_kind=kind,
+            straggler_events=list(self.watchdog.events)
+            if self.watchdog is not None else [])
 
-    def generate(self, *args, **kwargs):
-        raise _todo("fixed-batch generate()", "Queue 1 item 4")
+    # ------------------------------------------------------------------
+    # Fixed-batch generation (the reference's legacy BatchedServer path)
+    # ------------------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(self, tokens, n_steps: int, extras: Optional[dict] = None,
+                 gen_budget: Optional[int] = None) -> GenerationResult:
+        """Fixed-batch greedy decode: prefill the whole (B, S) batch (with
+        ``extras``: a vlm's ``patch_embeds``, an encdec's ``enc_frames``),
+        then ``n_steps - 1`` decode steps at one position shared by every
+        row, starting at the prefill cache's length (``n_patches + S``
+        for a vlm, ``S`` otherwise). ``gen_budget`` (default
+        ``n_steps + 1``) is how far the K/V caches grow past that length.
+        Returns the (B, n_steps) tokens and the prefill (encoder
+        included) and decode wall times, the card synchronised around
+        each."""
+        if self._scripted:
+            raise ValueError("generate runs the model: not a scripted engine")
+        extras = {k: torch.as_tensor(v, device=self.device)
+                  for k, v in (extras or {}).items()}
+        budget = gen_budget if gen_budget is not None else n_steps + 1
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        n = tokens.shape[1]
+        if self.c.family == "vlm" and "patch_embeds" in extras:
+            n += extras["patch_embeds"].shape[1]
+        with torch.no_grad():
+            self._sync()
+            t0 = time.perf_counter()
+            logits, caches, enc_kv = self._prefill_fn(self.params, tokens,
+                                                      extras)
+            self._sync()
+            t1 = time.perf_counter()
+            # grow K/V so decode can append (state leaves pass through)
+            caches = grow_caches(caches, n + budget)
+            out = [logits[:, -1].argmax(-1)]
+            for pos in range(n, n + n_steps - 1):
+                logits, caches = self._decode_fn(self.params, out[-1][:, None],
+                                                 caches, pos, enc_kv)
+                out.append(logits[:, -1].argmax(-1))
+            toks = torch.stack(out, 1)
+            self._sync()
+            t2 = time.perf_counter()
+        return GenerationResult(toks, n_steps, t1 - t0, t2 - t1)
 
 
 class BatchedServer:
-    """Fixed-batch greedy decoding front end of the reference (not
-    ported)."""
+    """Fixed-batch greedy decoding over ``ServeEngine.generate``.
 
-    def __init__(self, *args, **kwargs):
-        raise _todo("BatchedServer", "Queue 1 item 4")
+    ``max_len`` keeps the reference's historical meaning here: the K/V
+    growth budget past the prompt (``ServeEngine.max_len`` is a slot's
+    total capacity)."""
+
+    def __init__(self, c: ModelConfig, params: Params, *,
+                 max_len: int = 256, device: DeviceLike = None):
+        self.c, self.params, self.max_len = c, params, max_len
+        self.engine = ServeEngine(c, params, n_slots=1, max_len=max_len,
+                                  device=device)
+
+    def generate(self, tokens, n_steps: int,
+                 extras: Optional[dict] = None) -> GenerationResult:
+        return self.engine.generate(tokens, n_steps, extras,
+                                    gen_budget=self.max_len)

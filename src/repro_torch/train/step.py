@@ -109,8 +109,10 @@ def scan_microbatch_grads(vg, params, batch: dict, k: int, gdt,
 
 def make_loss_fn(c: ModelConfig, sc: StepConfig):
     def loss_fn(params: Params, batch: dict):
-        logits, aux = lm.forward(c, params, batch["tokens"], impl=sc.impl,
-                                 remat=sc.remat)
+        logits, aux = lm.forward(c, params, batch["tokens"],
+                                 patch_embeds=batch.get("patch_embeds"),
+                                 enc_frames=batch.get("enc_frames"),
+                                 impl=sc.impl, remat=sc.remat)
         ce = next_token_loss(c, logits, batch["labels"], z_coef=sc.z_coef)
         total = ce + c.router_aux_coef * aux
         return total, (ce, aux)

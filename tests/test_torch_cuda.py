@@ -36,7 +36,10 @@ paged decode at granite-moe's and jamba's head shapes (fp and int8
 pools), the reduced families' engines (paged and slotted) on the card
 against the CPU with the decode kernel's launches counted per attention
 layer, and three AdamW steps of the reduced moe, ssm and hybrid configs
-on the card against the CPU.
+on the card against the CPU. Fixed-batch ``generate`` of reduced
+whisper-small and llava-next-34b and their three AdamW steps on the card
+against the CPU, the q-chunked attention against full ``sdpa`` on the
+card, and a slot-faulted chunked serve equal to its fault-free twin.
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -269,6 +272,29 @@ def test_decode_kernel_gives_equal_bits_on_two_calls(card, int8):
         b = _decode_forced(args, kw, splits=n)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernel_row_bits_do_not_depend_on_the_bucket(card, dtype,
+                                                            int8):
+    """Eight rows of at most 16 blocks through 16, 32 and 64 columns of
+    their 64-column table (the engine's bucket follows its longest live
+    slot): the split count changes with the bucket, each split's columns
+    do not, so every row's output is equal bit for bit, and within the
+    gate of the plain version."""
+    rng = np.random.default_rng(34 + int8)
+    args, kw = _decode_case(card, dtype, rng,
+                            rng.integers(1, 16 * 16 + 1, size=8).tolist(),
+                            nb=64, int8=int8)
+    q, kp, vp, tab, lens = args
+    outs = [ops.paged_decode_attention(q, kp, vp, tab[:, :nb], lens, **kw)
+            for nb in (16, 32, 64)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    want = _plain_fp32(ref.paged_decode_attention_ref, *args, **kw)
+    _assert_close(outs[0], want, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -806,6 +832,62 @@ def test_family_train_step_on_card_matches_cpu(card, arch):
     ``chip_smoke``'s phase-9 check: losses and aux at rtol 1e-4 (TF32
     off)."""
     assert len(chip_smoke.family_train_agreement(arch, card)) == 3
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-34b"])
+def test_generate_on_card_matches_cpu(card, arch):
+    """Reduced fp32 whisper-small and llava-next-34b through
+    ``BatchedServer.generate`` on the card and on the CPU from the same
+    weights, prompts and seeded random side inputs, through
+    ``chip_smoke``'s phase-10 check: LCP agreement >= 0.95 (TF32 off)."""
+    assert chip_smoke.generate_agreement(arch, card) >= 0.95
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-34b"])
+def test_encdec_vlm_train_step_on_card_matches_cpu(card, arch):
+    """Three AdamW steps of reduced fp32 whisper-small and llava-next-34b
+    (seeded random frames and patches) on the card and on the CPU:
+    losses at rtol 1e-4 (TF32 off)."""
+    assert len(chip_smoke.family_train_agreement(arch, card)) == 3
+
+
+def test_chunked_q_on_card_matches_full_sdpa(card):
+    """``sdpa_chunked_q`` on the card against full ``sdpa`` under the same
+    mask (causal, windowed, bidirectional; fp32, TF32 off) at 1e-5."""
+    assert chip_smoke.chunked_q_agreement(card) <= 1e-5
+
+
+def test_faulted_chunked_serve_equals_fault_free_on_card(card):
+    """A reduced fp32 llama3.2-3b served chunked on the paged pool on the
+    card, with the ``decode_fault`` schedule and without: the slot fault
+    fires, the victim resumes through the replay, and the streams are
+    equal; the decode kernel launches once per layer and micro-step,
+    replays included."""
+    from repro_torch.faults.schedule import FaultSchedule
+    c = get_config("llama3.2-3b").reduced(dtype="float32",
+                                          param_dtype="float32")
+    params = tree.tree_map(lambda t: t.to(card), lm.init(
+        c, torch.Generator().manual_seed(4), "cpu"))
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, prompt=rng.integers(0, c.vocab, int(
+        rng.integers(10, 60))).astype(np.int32),
+        max_new_tokens=int(rng.integers(12, 30))) for i in range(6)]
+    streams = {}
+    for preset in ("none", "decode_fault"):
+        eng = ServeEngine(c, params, n_slots=3, max_len=128, cache="paged",
+                          block_size=16, sched="chunked", chunk_tokens=16,
+                          device=card)
+        ops.reset_launch_counts()
+        out = eng.serve(reqs, faults=FaultSchedule.from_preset(preset,
+                                                               seed=0))
+        micro = sum(st.n_steps for st in out.steps if st.kind == "decode")
+        assert ops.launch_counts()["paged_decode_attention"] == \
+            micro * c.n_layers
+        assert eng.injected_faults == (preset == "decode_fault")
+        streams[preset] = {r.rid: list(r.tokens) for r in out.results}
+        assert all(len(streams[preset][q.rid]) == q.max_new_tokens
+                   for q in reqs)
+    assert streams["decode_fault"] == streams["none"]
 
 
 def _matmul_load(card, seconds: float, n: int = 8192):

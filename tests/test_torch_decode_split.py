@@ -229,3 +229,41 @@ def test_decode_splits_never_exceeds_the_columns(b, kh, g):
             # every split owns at least one column; together all of them
             assert (splits - 1) * chunk < nb <= splits * chunk, (nb, splits,
                                                                  chunk)
+
+
+@pytest.mark.parametrize("b,kh,g", [(8, 8, 3), (1, 8, 3), (3, 2, 2),
+                                    (64, 8, 3)])
+@pytest.mark.parametrize("width", [16, 17, 64, 256])
+def test_decode_splits_chunk_follows_the_table_width(b, kh, g, width):
+    """Passed ``nb`` columns of a ``width``-column table, a split owns the
+    same ``chunk`` columns whatever ``nb`` is (the choice for the whole
+    table), and the whole table keeps the plain choice."""
+    plain = decode_splits(b, kh, width, SMS, group=g)
+    assert decode_splits(b, kh, width, SMS, group=g, width=width) == plain
+    for nb in range(1, width + 1):
+        splits, chunk = decode_splits(b, kh, nb, SMS, group=g, width=width)
+        assert chunk == plain[1], (nb, chunk)
+        assert (splits - 1) * chunk < nb <= splits * chunk, (nb, splits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_decode_row_bits_do_not_depend_on_the_bucket(dtype, int8):
+    """The serve shape's rows (8 slots of <= 16 blocks in a 64-column
+    table) through 16, 32 and 64 of its columns: with the chunk of the
+    whole table, the splits past a row's length add nothing, so the
+    emulated outputs are equal bit for bit; the chunks ``decode_splits``
+    gives each bucket alone (1, 2, 4 columns) partition the rows
+    differently."""
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(1, 16 * 16 + 1, size=8).tolist()
+    args, kw = _case(rng, lengths, nb=64, kh=8, dtype=dtype, int8=int8)
+    outs = []
+    for nb in (16, 32, 64):
+        cut = (*args[:3], args[3][:, :nb], args[4])
+        splits, chunk = decode_splits(8, 8, nb, SMS, group=3, width=64)
+        outs.append(_check(cut, kw, dtype, splits=splits, chunk=chunk))
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    assert {decode_splits(8, 8, nb, SMS, group=3)[1]
+            for nb in (16, 32, 64)} == {1, 2, 4}

@@ -14,8 +14,7 @@ same numpy tokens through both packages:
   * ``forward`` logits and aux at 1e-4;
   * ``prefill`` (exact-length rows for stacks with mamba layers, padded
     rows otherwise) and four paged ``decode_step`` calls, caches
-    included, at 1e-4;
-  * encdec and vlm are refused, naming what they still need.
+    included, at 1e-4.
 
 Jamba's learned-position table is cut to 1024 rows here (``max_position``;
 the reduced config keeps the full model's 2**20), in both packages.
@@ -132,7 +131,7 @@ def test_prefill_then_paged_decode(models):
     tok = rng.integers(0, rc.vocab, size=(b, s)).astype(np.int32)
     want, jrows, _ = jax.jit(ref_lm.prefill, static_argnums=0)(
         rc, rp, jnp.asarray(tok), last_pos=jnp.asarray(lens - 1))
-    got, rows = lm.prefill(c, p, torch.from_numpy(tok),
+    got, rows, _ = lm.prefill(c, p, torch.from_numpy(tok),
                            last_pos=torch.from_numpy(lens - 1))
     _close(got, want)
     tables = np.array([[4, 2, 7, 0], [1, 6, 3, 5]], np.int32)
@@ -173,12 +172,3 @@ def test_prefill_then_paged_decode(models):
         for name, leaf in leaves.items():
             _close(tpool[slot][name], leaf)
             assert tpool[slot][name].dtype == DTYPES[leaf.dtype.name]
-
-
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_encdec_and_vlm_are_refused(family):
-    arch = {"encdec": "whisper-small", "vlm": "llava-next-34b"}[family]
-    c = get_config(arch).reduced()
-    assert c.family == family
-    with pytest.raises(NotImplementedError, match="item 6.*encdec and vlm"):
-        lm.init(c, torch.Generator().manual_seed(0), "cpu")

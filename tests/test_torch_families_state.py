@@ -185,7 +185,7 @@ def test_batched_prefill_keeps_exact_state(models):
     prompt = np.random.default_rng(5).integers(0, c.vocab, PROMPT).astype(
         np.int32)
     budget = 6
-    logits, caches = lm.prefill(c, p, torch.from_numpy(prompt[None]))
+    logits, caches, _ = lm.prefill(c, p, torch.from_numpy(prompt[None]))
     caches = cache.grow_caches(caches, 32)
     want = [int(logits[0, -1].argmax())]
     pos = PROMPT

@@ -194,7 +194,7 @@ def test_prefill_then_paged_decode_logits(models):
     tok = rng.integers(0, ref_c.vocab, size=(b, s)).astype(np.int32)
     want, jcaches, _ = ref_lm.prefill(ref_c, ref_p, jnp.asarray(tok),
                                       last_pos=jnp.asarray(lens - 1))
-    got, caches = lm.prefill(c, p, _t(tok), last_pos=_t(lens - 1))
+    got, caches, _ = lm.prefill(c, p, _t(tok), last_pos=_t(lens - 1))
     _close(got, want, LOGIT_TOL)
     # scatter both prompts into a shared pool through shuffled tables
     tables = np.array([[4, 2, 7, 0], [1, 6, 3, 5]], np.int32)

@@ -10,13 +10,14 @@ the port's engine on the CPU, with the prefix cache off and on.
     summary token counts are equal;
   * inside the port, prefix-hit streams equal cold streams and fused
     decode windows equal per-token decode, bit for bit;
-  * the pool drains clean, the pad rows of a batched prefill are dropped
-    (not written, not an error), and unported options (the scripted
-    mode, deadlines, ``generate``/``BatchedServer``) raise.
+  * the pool drains clean, and the pad rows of a batched prefill are
+    dropped (not written, not an error).
 
-The int8 pool, the chunked scheduler and the slotted cache have their
-own files (``test_torch_int8_kv.py``, ``test_torch_chunked_serve.py``,
-``test_torch_slotted_serve.py``).
+The int8 pool, the chunked scheduler, the slotted cache, fixed-batch
+``generate`` and the degradation paths have their own files
+(``test_torch_int8_kv.py``, ``test_torch_chunked_serve.py``,
+``test_torch_slotted_serve.py``, ``test_torch_generate.py``,
+``test_torch_serve_degrade.py``).
 """
 import dataclasses
 
@@ -36,8 +37,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.power.methods import NvmlPower, SyntheticPower
 from repro_torch.serve import cache as cache_lib
-from repro_torch.serve.engine import BatchedServer, ServeEngine
-from repro_torch.serve.requests import Request, poisson_requests
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.requests import poisson_requests
 
 torch.set_num_threads(1)
 
@@ -216,28 +217,6 @@ def test_copy_blocks_in_place():
     want = caches["slot0"]["k"][:, 1].clone()
     cache_lib.copy_blocks(caches, [1], [3])
     torch.testing.assert_close(caches["slot0"]["k"][:, 3], want)
-
-
-@pytest.mark.parametrize("kw", [dict(prefill_fn=lambda s, p: 0),
-                                dict(decode_fn=lambda t, p, a: t)])
-def test_unported_engine_options_raise(setup, kw):
-    _, c, _, p, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(c, p, device="cpu", **kw)
-
-
-def test_unported_serve_options_raise(setup):
-    _, c, _, p, _ = setup
-    eng = ServeEngine(c, p, n_slots=2, max_len=32, block_size=8,
-                      device="cpu")
-    req = Request(rid=0, prompt=np.zeros(4, np.int32), max_new_tokens=2,
-                  deadline_s=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.serve([req])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedServer(c, p)
 
 
 def test_nvml_power_raises_without_library(tmp_path):

@@ -180,7 +180,7 @@ def test_decode_step_logits_on_slotted_caches(setup):
     tok = rng.integers(0, c.vocab, size=(b, s)).astype(np.int32)
     want, jrows, _ = ref_lm.prefill(ref_c, ref_p, jnp.asarray(tok),
                                     last_pos=jnp.asarray(lens - 1))
-    got, rows = lm.prefill(c, p, _t(tok), last_pos=_t(lens - 1))
+    got, rows, _ = lm.prefill(c, p, _t(tok), last_pos=_t(lens - 1))
     _close(got, want, LOGIT_TOL)
     slots = np.array([2, 0], np.int32)
     jpool = ref_cache.insert_rows(

@@ -199,7 +199,7 @@ def test_training_forward_matches_the_serving_prefill():
     toks = torch.randint(0, c.vocab, (2, 12),
                          generator=torch.Generator().manual_seed(1))
     full, aux = lm.forward(c, p, toks)
-    last, _ = lm.prefill(c, p, toks)
+    last, _, _ = lm.prefill(c, p, toks)
     torch.testing.assert_close(full[:, -1:], last, rtol=1e-5, atol=1e-6)
     assert float(aux) == 0.0
 
