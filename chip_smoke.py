@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 chip_smoke.py [--profile | --times | --train [--profile] |
-                         --families [--profile] | --generate [--profile]]
+                         --families [--profile] | --generate [--profile] |
+                         --harness]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs eleven phases, any failure of which exits non-zero:
+instance, then runs twelve phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -230,11 +231,39 @@ instance, then runs eleven phases, any failure of which exits non-zero:
      request finishes its budget. 10d's paged launches join the main
      path's in the JSON line. ``--profile`` also profiles five decode
      steps of each ``generate``.
+  11. harness — what launches no kernel (the reference trains through
+     XLA), on NVML's energy counter: (a) the ``heatmap`` workload (the
+     paper's Fig. 4), ``python -m repro_torch.bench run --suite heatmap
+     --power auto``, its whole Space: the dp1 cells (global batch 8, 16,
+     32 at sequence 64 on full-width, full-depth gpt-117m, bf16 compute
+     and fp32 master weights, each measured window at least 0.5 s) must
+     be ``ok``, ``nvml_energy``, ``model_scale=full`` with a falling
+     loss and finite tokens/s, tokens/Wh and ``mfu``, and the dp2, dp4
+     and dp8 cells ``deferred``, each with its sbatch file; the table,
+     the rendered heatmap and one line per cell (tokens/s, ms, tokens/Wh,
+     mean W, ``mfu``, peak GB) are printed; (b) the quickstart's
+     pipeline at its ``--full-117m`` shape: ``QUICKSTART_DOCS`` synthetic
+     OSCAR documents -> ``ByteFallbackTokenizer`` (vocabulary 50257) ->
+     indexed dataset in a temporary directory -> ``ShardedLoader`` over
+     ``lm_sample_fn`` -> ``train_loop`` with checkpointing, full gpt-117m,
+     ``QUICKSTART_STEPS`` steps of ``QUICKSTART_BATCH`` x
+     ``QUICKSTART_SEQ``: the loss must fall; tokens/s, tokens/Wh and the
+     share of the loop's wall spent waiting on the loader are printed;
+     (c) the power backends: whether the host exposes readable powercap
+     (RAPL) zones, and their watts over a window of load if it does;
+     ``FallbackPower(NvmlEnergy, NvmlPower)`` whose primary fails from
+     read ``FALLBACK_FAIL_FROM`` on (a flaky wrapper), beside an
+     unfaulted ``NvmlEnergy``, over ``FALLBACK_WINDOW_S`` of steady
+     matmul load: its Wh must be within ``FALLBACK_TOL`` of the
+     counter's, and its label must name the fallback. ``--profile``
+     also traces one gb=32 heatmap step: the device-busy share, the
+     launches and the device time by kind and range.
 
 ``--train`` runs phases 7 and 8 alone (no kernel is built: the training
 paths launch none) and prints no result line. ``--families`` builds the
 kernels and runs phase 9 alone, and ``--generate`` phase 10 alone; neither
-prints a result line.
+prints a result line. ``--harness [--profile]`` runs phase 11 alone (no
+kernel is built) and prints no result line.
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
 (neither is measured there), and no result line: for timing another
@@ -375,6 +404,14 @@ LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_BATCH = 2, 2
 #: the paged pool with a slot fault, an overload window and deadlines
 DEGRADE_LAYERS = 4
 DEGRADE_REQUESTS = 16
+#: phase 11: the quickstart pipeline at its --full-117m shape (documents,
+#: global batch, sequence) and steps (~0.1 s a step, host-bound), and the
+#: fallback probe's window of steady load and the read from which its
+#: primary fails (reads every FALLBACK_INTERVAL_MS)
+QUICKSTART_DOCS, QUICKSTART_BATCH, QUICKSTART_SEQ = 2000, 8, 256
+QUICKSTART_STEPS = 300
+FALLBACK_WINDOW_S, FALLBACK_INTERVAL_MS, FALLBACK_FAIL_FROM = 10.0, 100, 20
+FALLBACK_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -763,8 +800,8 @@ def phase_serve(dev, c, params, profile: bool = False) -> dict:
     from repro_torch.serve.engine import ServeEngine
 
     power = NvmlEnergy(dev.index or 0)
-    engine = ServeEngine(c, params, n_slots=8, max_len=1024, block_size=16,
-                         prefix_cache=True, device=dev,
+    engine = ServeEngine(c, params, n_slots=8, max_len=1024, cache="paged",
+                         block_size=16, prefix_cache=True, device=dev,
                          power_methods=[power])
     reqs = serve_requests(c.vocab)
     t0 = time.perf_counter()
@@ -819,7 +856,8 @@ def phase_serve_int8(dev, c, params, profile: bool = False) -> dict:
     for kv, tag in (("int8", "int8"), ("fp32", "bf16-twin")):
         power = NvmlEnergy(dev.index or 0)
         engine = ServeEngine(c, params, n_slots=8, max_len=1024,
-                             block_size=16, n_blocks=INT8_POOL_BLOCKS,
+                             cache="paged", block_size=16,
+                             n_blocks=INT8_POOL_BLOCKS,
                              prefix_cache=True, kv_dtype=kv,
                              sched="chunked", chunk_tokens=32, device=dev,
                              power_methods=[power])
@@ -965,8 +1003,8 @@ def phase_agreement(dev) -> None:
     streams = {}
     for name, (where, kw, sched) in runs.items():
         eng = ServeEngine(c, params[where], n_slots=4, max_len=128,
-                          block_size=16, prefix_cache=True, device=where,
-                          **kw)
+                          cache="paged", block_size=16, prefix_cache=True,
+                          device=where, **kw)
         out = eng.serve(reqs, sched=sched)
         assert eng.prefix_stats["hit_requests"] > 0, name
         assert all(r.n_tokens == q.max_new_tokens for r, q in zip(
@@ -2690,6 +2728,268 @@ def phase_generate(dev, profile: bool = False) -> tuple:
     return launches, worst
 
 
+def phase_heatmap(dev) -> None:
+    """11a: the ``heatmap`` workload's whole Space through the bench CLI on
+    NVML's energy counter: dp1 cells ``ok`` at full gpt-117m width with a
+    falling loss and finite tokens/s and tokens/Wh, dp2-dp8 ``deferred``
+    with their sbatch files."""
+    from repro_torch.bench import cli
+    from repro_torch.bench.records import load_records
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rc = cli.main(["run", "--suite", "heatmap", "--device", "cuda",
+                       "--power", "auto", "--out", out, "--quiet"])
+        records = load_records(f"{out}/heatmap/results.json")
+        deferred = [r for r in records if r.point["placement"] != "dp1"]
+        scripts = [Path(r.metrics.get("slurm_script", "")) for r in deferred]
+        assert all(p.is_file() and "repro_torch.bench" in p.read_text()
+                   for p in scripts), scripts
+    log(f"[heatmap] heatmap Space: rc {rc}, {len(records)} records in "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert rc == 0, rc
+    measured = [r for r in records if r.point["placement"] == "dp1"]
+    assert sorted(r.point["global_batch"] for r in measured) == [8, 16, 32]
+    for r in measured:
+        m = r.metrics
+        log(f"[heatmap] dp1 gb={r.point['global_batch']}: tokens_per_s="
+            f"{m.get('tokens_per_s', 0):.1f} ms={m.get('ms', 0):.3f} "
+            f"iters={m.get('iters')} energy_wh={m.get('energy_wh', 0):.6e} "
+            f"tokens_per_wh={m.get('tokens_per_wh', 0):.1f} mean_w="
+            f"{m.get('energy_wh', 0) * 3600 / max(m.get('seconds', 1), 1e-9):.1f}"
+            f" mfu={m.get('mfu', 0):.5f} peak_mem_gb="
+            f"{m.get('peak_mem_gb', 0):.2f} loss {m.get('loss_first', 0):.4f}"
+            f" -> {m.get('loss_last', 0):.4f} rel_spread="
+            f"{r.noise.get('rel_std')} power_source={r.power_source} "
+            f"model_scale={m.get('model_scale')} n_params={m.get('n_params')}")
+    for r in measured:
+        m = r.metrics
+        assert r.status == "ok", (r.point, r.error)
+        assert r.power_source == "nvml_energy", (r.point, r.power_source)
+        assert m["model_scale"] == "full", r.point
+        assert m["loss_last"] < m["loss_first"], (r.point, m)
+        assert m["seconds"] * m["iters"] >= 0.5, (r.point, m)
+        for k in ("tokens_per_s", "tokens_per_wh", "mfu"):
+            assert math.isfinite(m[k]) and m[k] > 0, (r.point, k, m[k])
+    assert sorted((r.point["placement"], r.point["global_batch"])
+                  for r in deferred) == [(plc, gb) for plc in
+                                         ("dp2", "dp4", "dp8")
+                                         for gb in (8, 16, 32)], records
+    assert all(r.status == "deferred" for r in deferred), deferred
+    log(f"[heatmap] dp2-dp8: {len(deferred)} records deferred, each with "
+        f"its sbatch file ({deferred[0].error})")
+
+
+def phase_quickstart(dev) -> None:
+    """11b: the quickstart's pipeline at its ``--full-117m`` shape:
+    synthetic OSCAR -> tokenizer -> indexed dataset -> sharded loader ->
+    ``train_loop`` with checkpointing, full gpt-117m, on NVML's energy
+    counter; the loss must fall."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.indexed import (IndexedDatasetReader,
+                                          IndexedDatasetWriter)
+    from repro_torch.data.loader import ShardedLoader, lm_sample_fn
+    from repro_torch.data.synthetic import synthetic_oscar_text
+    from repro_torch.data.tokenizer import ByteFallbackTokenizer
+    from repro_torch.power.ctxmgr import get_power
+    from repro_torch.power.methods import NvmlEnergy
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (StepConfig, init_train_state,
+                                        make_train_step)
+
+    t0 = time.perf_counter()
+    c = get_config("gpt-117m")
+    steps, gb, seq = QUICKSTART_STEPS, QUICKSTART_BATCH, QUICKSTART_SEQ
+    docs = synthetic_oscar_text(QUICKSTART_DOCS, seed=0)
+    tok = ByteFallbackTokenizer.train(docs, max_vocab=c.vocab)
+    with tempfile.TemporaryDirectory() as tmp:
+        w = IndexedDatasetWriter(Path(tmp) / "oscar")
+        for d in docs:
+            w.add_document(tok.encode(d))
+        w.finalize(meta={"tokenizer": "byte-fallback", "docs": len(docs)})
+        reader = IndexedDatasetReader(Path(tmp) / "oscar")
+        t_data = time.perf_counter() - t0
+        log(f"[quickstart] {reader.n_documents} docs, {reader.n_tokens:,} "
+            f"tokens, {len(tok.word_to_id)} words in the vocabulary: "
+            f"tokenizer + indexed dataset {t_data:.1f} s")
+        oc = OptConfig(lr=3e-4, warmup=max(steps // 20, 5),
+                       total_steps=steps)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params, opt_state = init_train_state(c, oc, gen, dev)
+        n_params = sum(p.numel() for p in _leaves(params))
+        step = make_train_step(c, oc, StepConfig())
+        loader = ShardedLoader(lm_sample_fn(reader, seq), gb)
+        waits = []
+
+        def batches():
+            while True:
+                t = time.perf_counter()
+                b = next(loader)
+                out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                waits.append(time.perf_counter() - t)
+                yield out
+
+        cfg = LoopConfig(total_steps=steps, ckpt_every=max(steps // 2, 10),
+                         ckpt_dir=str(Path(tmp) / "ckpt"),
+                         log_every=max(steps // 6, 5), seq_len=seq,
+                         global_batch=gb)
+        power = NvmlEnergy(dev.index or 0)
+        try:
+            t_loop = time.perf_counter()
+            with get_power([power], interval_ms=100) as scope:
+                res = train_loop(step, params, opt_state, batches(), cfg)
+            wall = time.perf_counter() - t_loop
+        finally:
+            loader.close()
+        ckpts = sorted(p.name for p in (Path(tmp) / "ckpt").iterdir())
+    wh = scope.total_energy_wh()
+    n_tok = res.steps_run * gb * seq
+    log(f"[quickstart] gpt-117m ({n_params:,} params), {res.steps_run} steps "
+        f"of {gb} x {seq}: loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}; "
+        f"{res.tokens_per_s:,.1f} tokens/s over the loop's {wall:.2f} s, "
+        f"{wh:.6f} Wh ({power.name}) -> {n_tok / wh:,.1f} tokens/Wh, mean "
+        f"{wh * 3600 / wall:.1f} W; loader wait {sum(waits):.3f} s = "
+        f"{sum(waits) / wall:.4f} of the loop's wall (max "
+        f"{max(waits) * 1e3:.2f} ms a batch); checkpoints {ckpts}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert res.steps_run == steps and res.losses[-1] < res.losses[0], res
+    assert math.isfinite(n_tok / wh) and wh > 0, wh
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fallback_probe(dev, window_s: float = FALLBACK_WINDOW_S,
+                   fail_from: int = FALLBACK_FAIL_FROM) -> dict:
+    """``FallbackPower(NvmlEnergy, NvmlPower)`` whose primary fails from
+    read ``fail_from`` on, beside an unfaulted ``NvmlEnergy``, over
+    ``window_s`` of steady matmul load: both scopes' Wh, the wrapper's
+    label, kind, reads and whether it degraded."""
+    from repro_torch.faults.schedule import FlakyPower
+    from repro_torch.power.ctxmgr import get_power
+    from repro_torch.power.methods import FallbackPower, NvmlEnergy, NvmlPower
+
+    idx = dev.index or 0
+    fb = FallbackPower(FlakyPower(NvmlEnergy(idx), fail_from=fail_from,
+                                  fail_count=10 ** 9), NvmlPower(idx))
+    counter = NvmlEnergy(idx)
+    a = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+    t_end = time.perf_counter() + 1.0          # ramp up before the window
+    while time.perf_counter() < t_end:
+        a @ a
+        torch.cuda.synchronize()
+    with get_power([fb], FALLBACK_INTERVAL_MS) as s_fb, \
+            get_power([counter], FALLBACK_INTERVAL_MS) as s_counter:
+        t_end = time.perf_counter() + window_s
+        while time.perf_counter() < t_end:
+            for _ in range(8):
+                a @ a
+            torch.cuda.synchronize()
+    wh_fb, wh = s_fb.total_energy_wh(), s_counter.total_energy_wh()
+    return {"wh_fallback": wh_fb, "wh_counter": wh, "label": fb.label,
+            "kind": fb.kind, "reads": fb.primary.reads,
+            "fallback_reads": fb.fallback_reads, "degraded": fb.degraded,
+            "rel_err": abs(wh_fb - wh) / wh,
+            "columns": sorted(s_fb.counter_cols), "seconds": window_s}
+
+
+def rapl_probe(dev, window_s: float = 2.0) -> dict:
+    """Whether the host exposes readable powercap zones, and if it does,
+    their watts over ``window_s`` of matmul load."""
+    from repro_torch.power.methods import RaplPower
+    rapl = RaplPower()
+    out = {"root": rapl.root, "zones": rapl.devices(),
+           "available": rapl.available()}
+    if out["available"]:
+        rapl.read()
+        a = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+        t_end = time.perf_counter() + window_s
+        while time.perf_counter() < t_end:
+            a @ a
+            torch.cuda.synchronize()
+        out["watts"] = rapl.read()
+    return out
+
+
+def profile_heatmap_step(dev) -> None:
+    """One full-width gpt-117m step of the heatmap's gb=32 dp1 cell under
+    ``torch.profiler``: the device-busy share of its wall, its launches
+    and its device time by kind and range."""
+    from repro_torch.bench.workloads import heatmap
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (StepConfig, init_train_state,
+                                        make_train_step)
+    c, _ = heatmap.config(dev)
+    oc = OptConfig(warmup=1, total_steps=100)
+    state = list(init_train_state(
+        c, oc, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(t.numel() for t in _leaves(state[0]))
+    step = make_train_step(c, oc, StepConfig())
+    gb, seq = 32, heatmap.SEQ
+    toks = torch.from_numpy(synthetic_tokens(gb, seq, c.vocab)[:, :seq])
+    toks = toks.to(dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def one():
+        state[:] = step(*state, batch)[:2]
+
+    for _ in range(2):                      # warm: allocator, handles
+        one()
+    r = profile_step("profile heatmap", one, _kernel_kind,
+                     ("gemms", "elementwise", "copies"))
+    wall, busy = r["wall"], r["busy"]
+    log(f"[profile heatmap] gpt-117m gb={gb} seq={seq} dp1: wall "
+        f"{wall * 1e3:.2f} ms (profiled), device busy {busy:.2f} ms = "
+        f"{busy / 1e3 / wall:.4f} of wall, {r['launches']} device events, "
+        f"{wall / max(r['launches'], 1) * 1e6:.1f} us of wall a launch; mfu "
+        f"over the profiled wall "
+        f"{6 * n_params * gb * seq / wall / PEAK_FLOPS[torch.bfloat16]:.5f}")
+    log("[profile heatmap] device ms by kind: " + ", ".join(
+        f"{k} {v:.2f} ({v / busy:.3f})" for k, v in r["by_kind"].items()))
+    log("[profile heatmap] device ms by range: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in r["ranges"].items()))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_harness(dev, profile: bool = False) -> None:
+    """Phase 11 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_heatmap(dev)
+    log(f"[wall] phase 11a {time.perf_counter() - t_phase:.1f} s")
+    if profile:
+        profile_heatmap_step(dev)
+    t0 = time.perf_counter()
+    phase_quickstart(dev)
+    log(f"[wall] phase 11b {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rapl = rapl_probe(dev)
+    log(f"[power] RAPL under {rapl['root']}: zones {rapl['zones']}, "
+        f"readable {rapl['available']}"
+        + (f", watts over 2 s of load {rapl['watts']}" if rapl["available"]
+           else ""))
+    if rapl["available"]:
+        assert all(math.isfinite(v) for v in rapl["watts"].values()), rapl
+    fb = fallback_probe(dev)
+    log(f"[power] FallbackPower(NvmlEnergy, NvmlPower), primary failing from "
+        f"read {FALLBACK_FAIL_FROM}: {fb['wh_fallback']:.6f} Wh against the "
+        f"unfaulted counter's {fb['wh_counter']:.6f} Wh over "
+        f"{fb['seconds']:.0f} s of matmul load: rel err {fb['rel_err']:.5f}"
+        f" (gate {FALLBACK_TOL}); label {fb['label']}, kind {fb['kind']}, "
+        f"primary reads {fb['reads']}, fallback reads "
+        f"{fb['fallback_reads']}, degraded {fb['degraded']}")
+    assert fb["label"] == "nvml_energy+fallback:nvml", fb
+    assert fb["kind"] == "energy" and fb["degraded"], fb
+    assert fb["rel_err"] <= FALLBACK_TOL, fb
+    log(f"[wall] phase 11c {time.perf_counter() - t0:.1f} s")
+    log(f"[wall] phase 11 {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card_line()}")
+
+
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:155",
     "paged_prefill_attention": "src/repro/kernels/prefill_attention.py:217",
@@ -2762,6 +3062,11 @@ def main() -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
+    if "--harness" in sys.argv[1:]:
+        phase_harness(dev, profile="--profile" in sys.argv[1:])
+        log(f"[wall] phase 11 alone {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     if "--train" in sys.argv[1:]:
         phase_train(dev, profile="--profile" in sys.argv[1:])
         phase_resnet(dev, profile="--profile" in sys.argv[1:])
@@ -2801,6 +3106,7 @@ def main() -> int:
     family_errs = phase_families(dev, profile="--profile" in sys.argv[1:])
     gen_counts, gen_errs = phase_generate(dev,
                                           profile="--profile" in sys.argv[1:])
+    phase_harness(dev, profile="--profile" in sys.argv[1:])
     for row in rows:               # the worst over phases 1, 9 and 10
         row["max_abs_err"] = max(row["max_abs_err"],
                                  family_errs.get(row["name"], 0.0),

@@ -23,6 +23,7 @@ from repro_torch.bench.context import Measurement, RunContext
 from repro_torch.bench.records import (
     COMPARED_METRICS, SCHEMA_VERSION, ResultRecord, compare_metrics,
     load_records, placement_label, point_key, save_records,
+    scaling_floor_violations,
 )
 from repro_torch.bench.runner import WorkloadRunner
 from repro_torch.bench.spec import (
@@ -35,7 +36,7 @@ __all__ = [
     "load_result_set", "promote",
     "Measurement", "RunContext", "COMPARED_METRICS", "SCHEMA_VERSION",
     "ResultRecord", "compare_metrics", "load_records", "placement_label",
-    "point_key", "save_records",
+    "point_key", "save_records", "scaling_floor_violations",
     "WorkloadRunner", "Placement", "UnknownWorkloadError", "WorkloadSpec",
     "get_workload", "iter_workloads", "register", "unregister", "workload",
     "workload_names",

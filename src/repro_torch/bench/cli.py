@@ -44,7 +44,7 @@ from repro_torch.bench.runner import WorkloadRunner
 from repro_torch.bench.spec import (
     UnknownWorkloadError, get_workload, iter_workloads,
 )
-from repro_torch.core.results import table
+from repro_torch.core.results import heatmap, table
 from repro_torch.device import resolve_device
 from repro_torch.power.methods import POWER_CHOICES
 
@@ -97,8 +97,13 @@ def _emit_lines(spec, records) -> None:
 
 
 def _render(spec, records) -> None:
-    print(table([r.flat() for r in records], spec.result_columns,
-                floatfmt="{:.4g}"))
+    flat = [r.flat() for r in records]
+    print(table(flat, spec.result_columns, floatfmt="{:.4g}"))
+    if spec.heatmap_keys:
+        row, col, val = spec.heatmap_keys
+        ok = [f for f in flat if val in f]
+        if ok:
+            print(heatmap(ok, row, col, val))
 
 
 def cmd_list(args) -> int:

@@ -12,7 +12,9 @@ layout under ``artifacts/bench_torch/<workload>/`` is
 written through :mod:`repro_torch.core.results` so the files are atomic
 and a partially-interrupted sweep never truncates completed points.
 ``stamp_scaling_metrics`` is the reference's, less its emulated-device
-cap (the port has no forced host-platform devices). ``COMPARED_METRICS``,
+cap (the port has no forced host-platform devices), with
+``scaling_floor_violations``, the reference's CI gate on it.
+``COMPARED_METRICS``,
 ``compare_metrics``, ``metric_direction`` and ``metric_tolerance`` are
 the reference's, for the comparison engine (``bench.compare``).
 """
@@ -359,3 +361,21 @@ def stamp_scaling_metrics(records: list) -> None:
         if all(math.isfinite(v) and v > 0.0 for v in (cur_eff, base_eff)):
             # (Wh/token at n devices) / (Wh/token at 1) == eff_1 / eff_n
             r.metrics["wh_per_token_scaling"] = base_eff / cur_eff
+
+
+def scaling_floor_violations(records: list, floor: float) -> list:
+    """Multi-device ok records whose ``scaling_efficiency`` fell below
+    ``floor`` — the CI gate that keeps dp scaling from silently
+    inverting again. Returns ``(record, efficiency)`` pairs."""
+    out = []
+    for r in records:
+        if not r.ok or r.n_devices <= 1:
+            continue
+        eff = r.metrics.get("scaling_efficiency")
+        try:
+            eff = float(eff)
+        except (TypeError, ValueError):
+            continue
+        if math.isfinite(eff) and eff < floor:
+            out.append((r, eff))
+    return out

@@ -7,11 +7,13 @@ with retries and straggler detection, and persist normalized
 ``ResultRecord``s incrementally + a manifest.
 
 The port runs on one device. A point whose placement spans more than one
-device is not an error, as in the reference: it becomes a record with
-``status="deferred"`` whose ``error`` names the mesh, the device count
-and ROADMAP Queue 1 item 8, and the sweep's one-device cells still
-measure (the reference also renders a Slurm script for such a point,
-which waits for ``launch/slurm``, Queue 1 item 9). The runner stamps the
+device is not an error, as in the reference: the runner renders a
+``launch.slurm`` job script sized to the point's mesh (one task per
+GPU) into ``<out>/<workload>/slurm/`` and records the point with
+``status="deferred"``, its ``error`` naming the mesh, the device count,
+ROADMAP Queue 1 item 8 (the multi-rank launch the script starts waits
+for it) and the script, and ``metrics["slurm_script"]`` its path; the
+sweep's one-device cells still measure. The runner stamps the
 cross-placement scaling metrics (``records.stamp_scaling_metrics``)
 into every sweep, and a spec's ``compare_tols`` into each record's
 ``noise`` (``noise["tols"]``), which ``bench.compare`` reads. The
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import math
 import pathlib
+import re
 import time
 from typing import Optional
 
@@ -30,9 +33,10 @@ from repro_torch.bench.context import RunContext
 from repro_torch.bench.records import (
     ResultRecord, save_records, stamp_scaling_metrics,
 )
-from repro_torch.bench.spec import WorkloadSpec
+from repro_torch.bench.spec import Placement, WorkloadSpec
 from repro_torch.core.manifest import git_sha, write_manifest
 from repro_torch.core.runner import StragglerWatchdog, run_attempts
+from repro_torch.launch.slurm import render_bench_job
 from repro_torch.power.methods import select_power_methods
 
 
@@ -55,6 +59,7 @@ class WorkloadRunner:
         self.out = pathlib.Path(out_dir) / spec.name
         self.smoke = smoke
         self.point_overrides = point_overrides
+        self.power = power
         self.power_methods, self.power_source = select_power_methods(
             power, device)
         self.warmup = warmup
@@ -93,6 +98,35 @@ class WorkloadRunner:
             save_records(self.records, self.out)
         return self.records
 
+    def _defer_point(self, pt: dict, placement: Placement,
+                     rec: ResultRecord) -> ResultRecord:
+        """Render the Slurm script that carries an oversized mesh to a
+        cluster; the record keeps the sweep's bookkeeping honest."""
+        # one script per point (the placement label alone would let
+        # same-mesh cells of a sweep clobber each other), forwarding this
+        # run's power/out/warmup/iters so the cluster record joins the
+        # local result set by point key
+        slug = "_".join(f"{k}{pt[k]}" for k in sorted(pt)
+                        if k != "placement")
+        slug = re.sub(r"[^A-Za-z0-9._-]+", "-", slug)
+        name = f"{self.spec.name}_{placement.label}" + (f"_{slug}" if slug
+                                                        else "")
+        script = render_bench_job(workload=self.spec.name,
+                                  placement=placement, point=pt,
+                                  out=str(self.out.parent), power=self.power,
+                                  warmup=self.warmup, iters=self.iters,
+                                  job_suffix=f"_{slug}" if slug else "")
+        path = self.out / "slurm" / f"{name}.sbatch"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(script)
+        rec.status = "deferred"
+        rec.error = (f"mesh {placement.label} needs {placement.n_devices} "
+                     f"devices, process has {DEVICES} ({self.device}); "
+                     f"multi-device placement is ROADMAP Queue 1 item 8; "
+                     f"sbatch script rendered to {path}")
+        rec.metrics["slurm_script"] = str(path)
+        return rec
+
     def _run_point(self, pt: dict, ctx: RunContext) -> ResultRecord:
         spec = self.spec
         ctx.last_measurement = None
@@ -102,12 +136,7 @@ class WorkloadRunner:
                            placement=placement.dict(),
                            git_sha=git_sha())
         if placement.n_devices > DEVICES:
-            rec.status = "deferred"
-            rec.error = (f"mesh {placement.label} needs "
-                         f"{placement.n_devices} devices, process has "
-                         f"{DEVICES} ({self.device}); multi-device "
-                         f"placement is ROADMAP Queue 1 item 8")
-            return rec
+            return self._defer_point(pt, placement, rec)
         ctx.placement = placement
         t0 = time.perf_counter()
         backoff_total = 0.0

@@ -142,6 +142,7 @@ class WorkloadSpec:
     smoke_axes: Optional[dict] = None  # axis overrides for smoke runs
     result_columns: Optional[list] = None
     primary_metric: Optional[str] = None  # headline column for emit lines
+    heatmap_keys: Optional[tuple] = None  # (row, col, val) -> render heatmap
     #: per-metric relative tolerances for the records' compare gate
     #: (kept for the compare command, ROADMAP Queue 1 item 2)
     compare_tols: Optional[dict] = None
@@ -196,6 +197,7 @@ def workload(name: str, *, analog: str, space: Space,
              tags: Iterable[str] = (), smoke: Optional[dict] = None,
              result_columns: Optional[list] = None,
              primary_metric: Optional[str] = None,
+             heatmap_keys: Optional[tuple] = None,
              compare_tols: Optional[dict] = None):
     """Decorator: register ``build(point, ctx)`` as a WorkloadSpec.
 
@@ -209,7 +211,7 @@ def workload(name: str, *, analog: str, space: Space,
             placement=Placement.of(placement),
             tags=frozenset(tags), smoke_axes=smoke,
             result_columns=result_columns, primary_metric=primary_metric,
-            compare_tols=compare_tols, description=(build.__doc__ or "").strip().splitlines()[0]
+            heatmap_keys=heatmap_keys, compare_tols=compare_tols, description=(build.__doc__ or "").strip().splitlines()[0]
             if build.__doc__ else ""))
 
     return deco

@@ -4,6 +4,7 @@ Port of ``src/repro/bench/workloads/__init__.py``. Importing this package
 populates the WorkloadSpec registry; the modules stay side-effect-free
 beyond registration (no device access, no kernel build at import time).
 """
+from repro_torch.bench.workloads import heatmap  # noqa: F401 - registration
 from repro_torch.bench.workloads import kernels  # noqa: F401 - registration
 from repro_torch.bench.workloads import llm_train  # noqa: F401 - registration
 from repro_torch.bench.workloads import resilience  # noqa: F401 - registration

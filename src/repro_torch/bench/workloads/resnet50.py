@@ -37,7 +37,7 @@ import torch
 from repro_torch.bench.spec import workload
 from repro_torch.configs.resnet50 import CONFIG
 from repro_torch.core import tree
-from repro_torch.core.metrics import images_per_s
+from repro_torch.core.metrics import PEAK_FLOPS_BF16, images_per_s
 from repro_torch.core.params import Space
 from repro_torch.data.synthetic import synthetic_images
 from repro_torch.models import resnet
@@ -45,8 +45,6 @@ from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import init_train_state, make_resnet_train_step
 
 SEED = 0
-#: the H100's dense bf16 peak (NVIDIA's data sheet, SXM part)
-PEAK_FLOPS_BF16 = 989e12
 
 
 def base_state(ctx):

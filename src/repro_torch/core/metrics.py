@@ -1,10 +1,16 @@
-"""Serving figures of merit and energy attribution.
+"""Figures of merit (the paper's metrics, Section IV) + serving energy.
 
-Copy of the serving part of ``src/repro/core/metrics.py``:
-``percentile``, ``window_energy_wh``, ``attribute_energy``,
-``ServeSummary`` and ``serve_summary``; and of ``tokens_per_s`` and
-``images_per_s``, the training throughputs. The reference module also
-imports its roofline package, so the port keeps its own copy.
+  tokens/s  = global_batch * seq_len / iteration_time     (LLM)
+  images/s  = global_batch / iteration_time               (ResNet50)
+  tokens/Wh, images/Wh — energy-efficiency metrics
+  MFU       = model_flops / (time * chips * peak)
+
+Copy of ``src/repro/core/metrics.py`` (``Throughput``, ``tokens_per_s``,
+``images_per_s``, ``mfu`` and the serving part: ``percentile``,
+``window_energy_wh``, ``attribute_energy``, ``ServeSummary`` and
+``serve_summary``). The reference module also imports its roofline
+package for ``mfu``'s peak, a TPU figure; the port's peak is the
+H100's, :data:`PEAK_FLOPS_BF16`.
 
 The serve engine records per-step windows (``StepRecord``) plus
 synchronous samples; ``attribute_energy`` takes each step window's
@@ -28,6 +34,25 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 J_PER_WH = 3600.0
+#: the H100's dense bf16 tensor-core peak, FLOP/s (NVIDIA's data sheet,
+#: SXM part): ``mfu``'s default and the model-FLOP shares' denominator
+PEAK_FLOPS_BF16 = 989e12
+
+
+@dataclass
+class Throughput:
+    name: str
+    items_per_s: float          # tokens/s or images/s
+    unit: str                   # "tokens" | "images"
+    iter_time_s: float
+    energy_wh: float = 0.0      # total energy over the measured window
+    duration_s: float = 0.0
+
+    @property
+    def items_per_wh(self) -> float:
+        if self.energy_wh <= 0:
+            return 0.0
+        return self.items_per_s * self.duration_s / self.energy_wh
 
 
 def tokens_per_s(global_batch: int, seq_len: int, iter_time_s: float) -> float:
@@ -36,6 +61,11 @@ def tokens_per_s(global_batch: int, seq_len: int, iter_time_s: float) -> float:
 
 def images_per_s(global_batch: int, iter_time_s: float) -> float:
     return global_batch / max(iter_time_s, 1e-12)
+
+
+def mfu(model_flops_per_step: float, iter_time_s: float, n_chips: int,
+        peak: float = PEAK_FLOPS_BF16) -> float:
+    return model_flops_per_step / (max(iter_time_s, 1e-12) * n_chips * peak)
 
 
 def percentile(xs: Sequence[float], q: float) -> float:

@@ -1,6 +1,6 @@
 """Parameter-space expansion with constraints (JUBE's parameter sets).
 
-Copy of ``src/repro/core/params.py`` (``Space`` only).
+Copy of ``src/repro/core/params.py``.
 
 A ``Space`` is a dict of axis-name -> list of values; ``expand`` yields the
 cartesian product, filtered by constraints (e.g. the paper's
@@ -30,3 +30,15 @@ class Space:
 
     def __len__(self) -> int:
         return len(self.expand())
+
+
+def divisible_batch(pt: dict) -> bool:
+    """The paper's constraint: global_batch % (micro_batch * dp) == 0."""
+    gb = pt.get("global_batch", 0)
+    mb = pt.get("micro_batch", 1)
+    dp = pt.get("dp", 1)
+    return gb % max(mb * dp, 1) == 0
+
+
+def batch_at_least_dp(pt: dict) -> bool:
+    return pt.get("global_batch", 1) >= pt.get("dp", 1)

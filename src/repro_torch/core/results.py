@@ -1,7 +1,6 @@
-"""Result tables (JUBE's `jube result` analog).
+"""Result tables and heatmaps (JUBE's `jube result` analog).
 
-Copy of ``src/repro/core/results.py`` (``table``, ``atomic_write_text``,
-``save_results``; no port workload renders a heatmap).
+Copy of ``src/repro/core/results.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +32,27 @@ def table(records: list[dict], columns: Optional[list[str]] = None,
     rows = ["| " + " | ".join(fmt(r.get(c, "")).rjust(widths[c]) for c in cols)
             + " |" for r in records]
     return "\n".join([head, sep, *rows]) + "\n"
+
+
+def heatmap(records: list[dict], row_key: str, col_key: str, val_key: str,
+            floatfmt: str = "{:.0f}") -> str:
+    """ASCII heatmap (the paper's Fig. 4: dp x batch-size throughput)."""
+    rows = sorted({r[row_key] for r in records})
+    cols = sorted({r[col_key] for r in records})
+    lookup = {(r[row_key], r[col_key]): r.get(val_key) for r in records}
+    w = max(8, max(len(str(cv)) for cv in cols) + 2)
+    out = [f"{row_key}\\{col_key}".ljust(12)
+           + "".join(str(cv).rjust(w) for cv in cols)]
+    for rv in rows:
+        line = str(rv).ljust(12)
+        for cv in cols:
+            v = lookup.get((rv, cv))
+            if v is None:
+                line += "OOM".rjust(w)  # the paper marks infeasible as OOM
+            else:
+                line += floatfmt.format(v).rjust(w)
+        out.append(line)
+    return "\n".join(out) + "\n"
 
 
 def atomic_write_text(path, text: str):

@@ -1,17 +1,31 @@
-"""Retry and straggler machinery of the benchmark runner.
+"""Suite runner: executes benchmark points with power measurement,
+retries, straggler detection, and incremental result persistence.
 
-Copy of ``src/repro/core/runner.py`` (``StragglerWatchdog``,
-``classify_error``, ``AttemptInfo`` and ``run_attempts``; the old suite
-``Runner`` class has no port). ``repro_torch.bench.runner.WorkloadRunner``
-runs every workload step through :func:`run_attempts`.
+This is the JUBE runtime analog: it expands the parameter space, runs each
+(point x step), wraps execution in the jpwr-style get_power context, and
+renders the final result table.
+
+Copy of ``src/repro/core/runner.py``, with the port's power scope and
+manifest: ``Runner`` takes the ``device`` its manifest records (the
+card unless the caller passes ``device="cpu"``).
+``repro_torch.bench.runner.WorkloadRunner`` runs every workload step
+through :func:`run_attempts`.
 """
 from __future__ import annotations
 
 import logging
+import pathlib
 import time
 import traceback
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
+
+from repro_torch.core.manifest import write_manifest
+from repro_torch.core.results import save_results, table
+from repro_torch.core.suite import BenchmarkSuite, Step
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.power.ctxmgr import get_power
+from repro_torch.power.methods import PowerMethod
 
 logger = logging.getLogger("repro_torch.bench")
 
@@ -155,3 +169,60 @@ def run_attempts(name: str, fn: Callable[[], dict], retries: int,
                 info.backoff_s += delay
     return False, {f"{name}_error":
                    f"{type(last_err).__name__}: {last_err}"}, info
+
+
+class Runner:
+    def __init__(self, suite: BenchmarkSuite, *,
+                 power_methods: Sequence[PowerMethod] = (),
+                 out_dir: str = "artifacts/bench_torch",
+                 tags: Optional[set] = None,
+                 power_interval_ms: float = 50.0,
+                 device: DeviceLike = None):
+        self.suite = suite
+        self.power_methods = list(power_methods)
+        self.out = pathlib.Path(out_dir) / suite.name
+        self.tags = tags
+        self.power_interval_ms = power_interval_ms
+        self.device = resolve_device(device)
+        self.records: list[dict] = []
+
+    def run(self, verbose: bool = True) -> list[dict]:
+        self.out.mkdir(parents=True, exist_ok=True)
+        write_manifest(self.out, self.device, {"suite": self.suite.name})
+        steps = self.suite.select_steps(self.tags)
+        points = self.suite.points()
+        for i, pt in enumerate(points):
+            context: dict = {"out_dir": str(self.out)}
+            rec = dict(pt)
+            for step in steps:
+                ok, metrics = self._run_step(step, pt, context)
+                rec.update(metrics)
+                if not ok:
+                    break
+            self.records.append(rec)
+            if verbose:
+                print(f"[{self.suite.name}] {i + 1}/{len(points)} {rec}")
+            save_results(self.records, self.out, "results")
+        return self.records
+
+    def _run_step(self, step: Step, pt: dict, context: dict):
+        def attempt():
+            if self.power_methods:
+                with get_power(self.power_methods,
+                               self.power_interval_ms) as scope:
+                    metrics = step.fn(pt, context)
+                edf, _ = scope.energy()
+                metrics[f"{step.name}_energy_wh"] = float(
+                    sum(edf.col("energy_wh")))
+            else:
+                metrics = step.fn(pt, context)
+            return metrics
+
+        ok, metrics, info = run_attempts(
+            step.name, attempt, step.retries,
+            log_prefix=f"[{self.suite.name}] ")
+        metrics[f"{step.name}_attempts"] = info.attempts
+        return ok, metrics
+
+    def result_table(self) -> str:
+        return table(self.records, self.suite.result_columns)

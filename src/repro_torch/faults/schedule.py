@@ -235,6 +235,7 @@ class FlakyPower:
     def __init__(self, inner, fail_from: int, fail_count: int):
         self.inner = inner
         self.name = inner.name
+        self.kind = getattr(inner, "kind", "power")
         self.fail_from = int(fail_from)
         self.fail_count = int(fail_count)
         self.reads = 0

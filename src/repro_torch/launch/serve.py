@@ -1,19 +1,22 @@
 """Serving CLI of the port (``src/repro/launch/serve.py``): one
-fixed-batch generation (``--mode batch``), or continuous-batching or
-fixed-policy service of synthetic Poisson load over the paged (default)
-or slotted KV cache, with energy per token.
+fixed-batch generation (``--mode batch``, the default), or
+continuous-batching or fixed-policy service of synthetic Poisson load
+over the slotted (default) or paged KV cache, with energy per token.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --mode batch --batch 4 --prompt-len 64 --gen 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
-      --preset full --mode continuous --slots 8 --requests 32 --rate 50
+      --preset full --mode continuous --cache paged --slots 8 \\
+      --requests 32 --rate 50
 
-Runs on the CUDA card by default (energy from NVML's counter);
-``--device cpu`` runs the plain PyTorch path with synthetic power. The
-default mode is ``continuous`` (the reference's is ``batch``). The
-encdec and vlm families serve through ``--mode batch`` only, with the
-reference's stub side inputs: zero encoder frames or patch embeddings
-in bf16.
+The defaults are the reference's: ``--arch gpt-117m``, ``--mode batch``
+and ``--cache slotted``. Runs on the CUDA card by default (energy from
+NVML's counter); ``--device cpu`` runs the plain PyTorch path with
+synthetic power. ``--prefix-cache`` (paged only) has no counterpart in
+the reference's launcher. The encdec and vlm families serve through
+``--mode batch`` only, with the reference's stub side inputs: zero
+encoder frames or patch embeddings in bf16.
 """
 from __future__ import annotations
 
@@ -53,15 +56,18 @@ def _run_batch(args, c, params, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="gpt-117m")
     ap.add_argument("--preset", choices=["full", "tiny"], default="tiny")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mode", choices=["batch", "continuous", "fixed"],
-                    default="continuous",
+                    default="batch",
                     help="batch = one fixed-batch generate; continuous/"
                          "fixed = scheduled serving under Poisson load")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--cache", choices=["slotted", "paged"], default="paged")
+    ap.add_argument("--cache", choices=["slotted", "paged"],
+                    default="slotted",
+                    help="KV layout: dense per-slot rows or the paged "
+                         "block-table pool (serve.cache.PagedKVCache)")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=64)

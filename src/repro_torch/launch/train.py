@@ -3,15 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-117m \
       --preset tiny --steps 50 --ckpt-dir /tmp/ckpt --device cpu
 
-Port of ``src/repro/launch/train.py`` (``make_data_fn`` for every
-model family, with a vlm's patch and an encdec's frame inputs, and
-``main`` with its flags). ``--device`` defaults to the CUDA
-card and raises without one; ``--preset full`` trains the full-width
-config (on the card: bf16 compute, fp32 master weights). A
-``--placement`` of more than one device exits with the reference's
-message: multi-device training is ROADMAP Queue 1 item 8. The
-reference's ``make_data_iter`` (its ``ShardedLoader`` path) has no port;
-the step-indexed ``make_data_fn`` gives the same batches.
+Port of ``src/repro/launch/train.py`` (``make_data_iter``, the
+``ShardedLoader`` path, and the step-indexed ``make_data_fn``, which
+give the same batches, for every model family, with a vlm's patch and
+an encdec's frame inputs; and ``main`` with its flags). ``--device``
+defaults to the CUDA card and raises without one; ``--preset full``
+trains the full-width config (on the card: bf16 compute, fp32 master
+weights). A ``--placement`` of more than one device exits with the
+reference's message: multi-device training is ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ import torch
 from repro_torch.bench.spec import Placement
 from repro_torch.configs import get_config
 from repro_torch.core import tree
+from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faults.schedule import TRAIN_PRESETS, FaultSchedule
@@ -31,6 +31,47 @@ from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import (StepConfig, init_train_state,
                                     make_train_step)
+
+
+def _side_inputs(c, global_batch: int, dev: torch.device) -> dict:
+    """A vlm's ``patch_embeds`` (B, n_patches, D) or an encdec's
+    ``enc_frames`` (B, enc_seq, D): zeros in bf16, as the reference's."""
+    side = {"vlm": ("patch_embeds", c.n_patches),
+            "encdec": ("enc_frames", c.enc_seq)}.get(c.family)
+    if side is None:
+        return {}
+    return {side[0]: torch.zeros((global_batch, side[1], c.d_model),
+                                 dtype=torch.bfloat16, device=dev)}
+
+
+def make_data_iter(c, global_batch: int, seq_len: int, seed: int = 0,
+                   device: DeviceLike = None):
+    """The loader form: a generator of batches through a
+    ``ShardedLoader`` (rank 0 of 1) over the reference's samples, row
+    ``i % 4096`` of a seeded ``synthetic_tokens`` table, tokens
+    ``row[:-1]``, labels ``row[1:]``, plus :func:`_side_inputs`. The
+    loader's thread builds numpy batches; this generator moves each to
+    ``device`` and closes the loader when it is closed or collected."""
+    dev = resolve_device(device)
+    toks = synthetic_tokens(4096, seq_len, c.vocab, seed=seed)
+
+    def sample(idx: int):
+        row = toks[idx % toks.shape[0]]
+        return {"tokens": row[:-1], "labels": row[1:]}
+
+    loader = ShardedLoader(sample, global_batch)
+
+    def gen():
+        try:
+            for batch in loader:
+                out = {k: torch.from_numpy(batch[k]).to(dev)
+                       for k in ("tokens", "labels")}
+                out.update(_side_inputs(c, global_batch, dev))
+                yield out
+        finally:
+            loader.close()
+
+    return gen()
 
 
 def make_data_fn(c, global_batch: int, seq_len: int, seed: int = 0,
@@ -42,10 +83,8 @@ def make_data_fn(c, global_batch: int, seq_len: int, seed: int = 0,
     indexing by step keeps batch ``N`` identical whether the run reached
     step ``N`` directly or through three crash/resume cycles, which is
     what makes the resumed loss trace bit-equal to the uninterrupted
-    one. The reference's samples: row ``i`` of a seeded
-    ``synthetic_tokens`` table, tokens ``row[:-1]``, labels ``row[1:]``;
-    a vlm's batch also has ``patch_embeds`` (B, n_patches, D), an encdec's
-    ``enc_frames`` (B, enc_seq, D), zeros in bf16 as the reference's.
+    one. Same sample indexing as :func:`make_data_iter` (rank 0 of 1),
+    so the two forms produce identical batches at every step.
     """
     dev = resolve_device(device)
     toks = synthetic_tokens(4096, seq_len, c.vocab, seed=seed)
@@ -54,11 +93,7 @@ def make_data_fn(c, global_batch: int, seq_len: int, seed: int = 0,
         idx = (step * global_batch + np.arange(global_batch)) % toks.shape[0]
         rows = torch.from_numpy(toks[idx])
         out = {"tokens": rows[:, :-1].to(dev), "labels": rows[:, 1:].to(dev)}
-        side = {"vlm": ("patch_embeds", c.n_patches),
-                "encdec": ("enc_frames", c.enc_seq)}.get(c.family)
-        if side is not None:
-            out[side[0]] = torch.zeros((global_batch, side[1], c.d_model),
-                                       dtype=torch.bfloat16, device=dev)
+        out.update(_side_inputs(c, global_batch, dev))
         return out
 
     return data

@@ -187,7 +187,7 @@ class ServeEngine:
     ``bridge.params_from_numpy``) on ``device`` — the CUDA card unless
     the caller passes ``device="cpu"``. ``max_len`` is the total
     per-slot capacity (prompt + generated tokens); ``cache`` the layout
-    (``"paged"``, the port's default, or ``"slotted"``, the reference's);
+    (``"slotted"``, the default, as in the reference, or ``"paged"``);
     ``decode_window`` caps how many decode steps a fused run keeps in
     flight (1 syncs every token). ``kv_dtype`` picks the pool layout
     (``"fp32"``: the model's activation dtype; ``"int8"``: codes +
@@ -209,7 +209,7 @@ class ServeEngine:
     def __init__(self, c: Optional[ModelConfig] = None,
                  params: Params = None, *,
                  n_slots: int = 4, max_len: int = 256,
-                 cache: str = "paged", block_size: int = 16,
+                 cache: str = "slotted", block_size: int = 16,
                  n_blocks: Optional[int] = None,
                  prefix_cache: bool = False, kv_dtype: str = "fp32",
                  decode_window: int = 8, sched: str = "phased",

@@ -175,7 +175,7 @@ def test_power_auto_on_cpu_raises_and_substitutes_nothing(tmp_path):
                   "--out", str(tmp_path)])
     cpu = torch.device("cpu")
     with pytest.raises(KeyError, match="unknown power method"):
-        select_power_methods("rapl", cpu)
+        select_power_methods("tpu_model", cpu)
     methods, label = select_power_methods("synthetic", cpu)
     assert label == "synthetic" and methods[0].name == "synthetic"
     assert select_power_methods("none", cpu) == ([], "none")
@@ -200,4 +200,7 @@ def test_multi_device_placement_raises(tmp_path):
     assert one.status == "ok" and one.metrics["tok_s_per_device"] == 10.0
     assert two.status == "deferred" and two.n_devices == 2
     assert "dp2 needs 2 devices, process has 1" in two.error
-    assert "Queue 1 item 8" in two.error and not two.metrics
+    assert "Queue 1 item 8" in two.error
+    assert list(two.metrics) == ["slurm_script"]
+    assert two.metrics["slurm_script"] in two.error
+    assert "--points placement=dp2" in open(two.metrics["slurm_script"]).read()

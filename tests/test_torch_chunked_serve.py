@@ -55,6 +55,7 @@ def _engine(setup, **kw):
     kw.setdefault("max_len", MAX_LEN)
     kw.setdefault("block_size", BS)
     kw.setdefault("decode_window", 8)
+    kw.setdefault("cache", "paged")
     return ServeEngine(c, p, device="cpu", **kw)
 
 

@@ -40,6 +40,10 @@ on the card against the CPU. Fixed-batch ``generate`` of reduced
 whisper-small and llava-next-34b and their three AdamW steps on the card
 against the CPU, the q-chunked attention against full ``sdpa`` on the
 card, and a slot-faulted chunked serve equal to its fault-free twin.
+The harness: one ``heatmap`` dp1 cell through the bench CLI on NVML's
+energy counter (full gpt-117m), ``make_data_iter``'s batches on the card
+equal to the CPU's, ``FallbackPower`` over the NVML pair keeping its
+column an energy counter while its primary fails, and RAPL probed.
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -79,7 +83,7 @@ from repro_torch.power.ctxmgr import get_power
 from repro_torch.power.methods import NvmlEnergy, NvmlPower
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.requests import Request
-from repro_torch.launch.train import make_data_fn
+from repro_torch.launch.train import make_data_fn, make_data_iter
 from repro_torch.parallel import grad_sync as gs
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.data.synthetic import synthetic_images
@@ -664,8 +668,8 @@ def _card_vs_cpu(card, engine_kw, serve_kw, budget=12, step=1):
     streams, engines = {}, {}
     for dev in ("cpu", "cuda"):
         p = params if dev == "cpu" else _to(params, card)
-        eng = ServeEngine(c, p, block_size=16, prefix_cache=True,
-                          device=dev, **engine_kw)
+        eng = ServeEngine(c, p, cache="paged", block_size=16,
+                          prefix_cache=True, device=dev, **engine_kw)
         ops.reset_launch_counts()
         out = eng.serve(reqs, **serve_kw)
         if dev == "cuda":
@@ -1161,3 +1165,63 @@ def test_checkpoint_round_trip_of_a_resnet_train_state(card, tmp_path):
     for a, b in zip(tree.leaves(got), tree.leaves((p, o))):
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+def test_heatmap_dp1_cell_on_the_energy_counter(card, tmp_path):
+    from repro_torch.bench import cli
+    from repro_torch.bench.records import load_records
+    rc = cli.main(["run", "--suite", "heatmap", "--points",
+                   "placement=dp1,global_batch=8", "--power", "auto",
+                   "--out", str(tmp_path), "--quiet"])
+    assert rc == 0
+    (rec,) = load_records(tmp_path / "heatmap" / "results.json")
+    m = rec.metrics
+    print(f"\nheatmap dp1 gb=8: {m['tokens_per_s']:.1f} tok/s, "
+          f"{m['ms']:.2f} ms, {m['iters']} iters, {m['tokens_per_wh']:.1f} "
+          f"tokens/Wh, mfu {m['mfu']:.5f}")
+    assert rec.status == "ok" and rec.power_source == "nvml_energy"
+    assert m["model_scale"] == "full" and m["n_params"] > 1e8
+    assert m["loss_last"] < m["loss_first"]
+    assert m["seconds"] * m["iters"] >= 0.5
+    for k in ("tokens_per_s", "tokens_per_wh", "mfu", "peak_mem_gb"):
+        assert np.isfinite(m[k]) and m[k] > 0, k
+
+
+@pytest.mark.parametrize("arch", ["gpt-117m", "whisper-small"])
+def test_make_data_iter_on_the_card_equals_the_cpu(card, arch):
+    c = get_config(arch).reduced()
+    on_card = make_data_iter(c, 4, 32, seed=1, device=card)
+    on_cpu = make_data_iter(c, 4, 32, seed=1, device="cpu")
+    try:
+        for _ in range(3):
+            a, b = next(on_card), next(on_cpu)
+            assert a.keys() == b.keys()
+            for k in a:
+                assert a[k].device.type == "cuda"
+                assert torch.equal(a[k].cpu(), b[k]), k
+    finally:
+        on_card.close()
+        on_cpu.close()
+
+
+def test_fallback_power_keeps_its_column_an_energy_counter(card):
+    res = chip_smoke.fallback_probe(card, window_s=3.0, fail_from=5)
+    print(f"\nfallback {res['wh_fallback']:.6f} Wh vs counter "
+          f"{res['wh_counter']:.6f} Wh over 3 s: rel err "
+          f"{res['rel_err']:.5f}; {res['label']}")
+    assert res["kind"] == "energy" and res["degraded"]
+    assert res["columns"] == ["nvml_energy:nvml:0"]
+    assert res["label"] == "nvml_energy+fallback:nvml"
+    assert res["fallback_reads"] > 0 and res["wh_fallback"] > 0
+    assert res["rel_err"] <= chip_smoke.FALLBACK_TOL
+
+
+def test_rapl_probe_is_a_bool_and_reads_finite_watts(card):
+    from repro_torch.power.methods import RaplPower
+    rapl = RaplPower()
+    assert isinstance(rapl.available(), bool)
+    res = chip_smoke.rapl_probe(card, window_s=0.5)
+    print(f"\nRAPL: {res}")
+    if res["available"]:
+        assert res["watts"] and all(np.isfinite(v) and v >= 0
+                                    for v in res["watts"].values())

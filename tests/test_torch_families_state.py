@@ -238,8 +238,8 @@ def test_hybrid_on_int8_pools_matches_reference():
                                   kv_dtype="int8").serve(
         [ref_requests.Request(**dataclasses.asdict(r)) for r in reqs],
         policy="continuous")
-    eng = ServeEngine(c, p, n_slots=3, max_len=64, block_size=16,
-                      kv_dtype="int8", device="cpu")
+    eng = ServeEngine(c, p, n_slots=3, max_len=64, cache="paged",
+                      block_size=16, kv_dtype="int8", device="cpu")
     got = eng.serve(reqs)
     streams = lambda o: {r.rid: list(r.tokens) for r in o.results}
     assert stream_agreement(streams(want), streams(got)) >= 0.95
@@ -257,8 +257,9 @@ def test_prefix_cache_and_chunked_prefill_are_refused(arch):
     p = lm.init(c, torch.Generator().manual_seed(0), "cpu")
     for kw in (dict(prefix_cache=True), dict(sched="chunked")):
         with pytest.raises(ValueError, match="mamba layers"):
-            ServeEngine(c, p, max_len=64, device="cpu", **kw)
-    eng = ServeEngine(c, p, n_slots=2, max_len=64, device="cpu")
+            ServeEngine(c, p, max_len=64, cache="paged", device="cpu", **kw)
+    eng = ServeEngine(c, p, n_slots=2, max_len=64, cache="paged",
+                      device="cpu")
     req = [Request(rid=0, prompt=np.arange(5, dtype=np.int32),
                    max_new_tokens=2)]
     with pytest.raises(ValueError, match="mamba layers"):

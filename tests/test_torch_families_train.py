@@ -131,7 +131,8 @@ def test_adamw_steps_match_reference(models):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launchers_run_the_family(arch, capsys):
     out = serve_cli.main(["--arch", arch, "--preset", "tiny", "--device",
-                          "cpu", "--requests", "3", "--prompt-len", "16",
+                          "cpu", "--mode", "continuous", "--cache", "paged",
+                          "--requests", "3", "--prompt-len", "16",
                           "--gen", "6", "--slots", "2"])
     assert out.summary.n_requests == 3
     assert all(r.finish_reason == "length" for r in out.results)

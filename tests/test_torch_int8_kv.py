@@ -353,7 +353,7 @@ def runs(setup):
         out["ref", sched] = ref_eng.serve(ref_reqs, sched=sched)
         for kv in ("fp32", "int8"):
             eng = ServeEngine(c, p, n_slots=N_SLOTS, max_len=MAX_LEN,
-                              block_size=BS, kv_dtype=kv,
+                              cache="paged", block_size=BS, kv_dtype=kv,
                               prefix_cache=prefix, device="cpu")
             out[kv, sched] = eng, eng.serve(reqs, sched=sched)
     return out
@@ -413,8 +413,9 @@ def test_int8_engine_hands_the_scales_to_both_paged_ops(setup, monkeypatch):
     monkeypatch.setattr(ops, "paged_decode_attention", spy("decode", real_d))
     monkeypatch.setattr(ops, "paged_prefill_attention",
                         spy("prefill", real_p))
-    eng = ServeEngine(c, p, n_slots=N_SLOTS, max_len=MAX_LEN, block_size=BS,
-                      kv_dtype="int8", prefix_cache=True, device="cpu")
+    eng = ServeEngine(c, p, n_slots=N_SLOTS, max_len=MAX_LEN, cache="paged",
+                      block_size=BS, kv_dtype="int8", prefix_cache=True,
+                      device="cpu")
     eng.serve(reqs, sched="chunked")
     assert eng.paged_prefills > 0
     assert len(seen["prefill"]) == eng.paged_prefills * c.n_layers

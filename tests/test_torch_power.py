@@ -117,8 +117,8 @@ def test_engine_attributes_counter_energy(tiny):
     c, p = tiny
     clock = FakeClock()
     counter = FakeCounter(clock, period=0.05)
-    eng = ServeEngine(c, p, n_slots=2, max_len=32, block_size=8,
-                      device="cpu", power_methods=[counter])
+    eng = ServeEngine(c, p, n_slots=2, max_len=32, cache="paged",
+                      block_size=8, device="cpu", power_methods=[counter])
     eng.clock = clock
     reqs = poisson_requests(4, 1e6, c.vocab, prompt_len=6, seed=0,
                             short=(3, 5), long=(3, 5))
@@ -153,8 +153,8 @@ def test_engine_refuses_mixed_power_kinds_and_raises_on_a_failed_read(tiny):
     with pytest.raises(ValueError, match="mixed kinds"):
         ServeEngine(c, p, device="cpu", power_methods=[
             FakeCounter(clock), SyntheticPower()])
-    eng = ServeEngine(c, p, n_slots=2, max_len=32, block_size=8,
-                      device="cpu",
+    eng = ServeEngine(c, p, n_slots=2, max_len=32, cache="paged",
+                      block_size=8, device="cpu",
                       power_methods=[FakeCounter(clock, fail=True)])
     reqs = poisson_requests(2, 1e6, c.vocab, prompt_len=6, seed=0,
                             short=(2, 3), long=(2, 3))
@@ -216,7 +216,7 @@ def test_nvml_energy_reads_joules_and_raises_on_error():
 
 def test_auto_and_nvml_raise_off_the_card(tmp_path):
     cpu = torch.device("cpu")
-    assert POWER_CHOICES == ("auto", "nvml", "synthetic", "none")
+    assert POWER_CHOICES == ("auto", "nvml", "rapl", "synthetic", "none")
     for prefer in ("auto", "nvml"):
         with pytest.raises(RuntimeError, match="board power"):
             select_power_methods(prefer, cpu)

@@ -78,7 +78,7 @@ def _port_run(setup, prefix, window=8, policy="continuous", power=(),
               n_blocks=None):
     _, c, _, p, reqs = setup
     eng = ServeEngine(c, p, n_slots=N_SLOTS, max_len=MAX_LEN,
-                      block_size=BS, prefix_cache=prefix,
+                      cache="paged", block_size=BS, prefix_cache=prefix,
                       decode_window=window, device="cpu",
                       power_methods=power, n_blocks=n_blocks)
     return eng, eng.serve(reqs, policy=policy)
@@ -226,8 +226,9 @@ def test_nvml_power_raises_without_library(tmp_path):
 
 
 def test_cli_tiny_on_cpu(capsys):
-    out = serve_cli.main(["--preset", "tiny", "--device", "cpu",
-                          "--requests", "4", "--slots", "2",
+    out = serve_cli.main(["--arch", "llama3.2-3b", "--preset", "tiny",
+                          "--device", "cpu", "--mode", "continuous",
+                          "--cache", "paged", "--requests", "4", "--slots", "2",
                           "--prompt-len", "8", "--gen", "4",
                           "--prefix-cache"])
     assert out.summary.n_requests == 4

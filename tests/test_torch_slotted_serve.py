@@ -303,8 +303,8 @@ def test_warmup_takes_the_measured_scheduler(setup, monkeypatch):
     """``warmup(sched=...)`` serves under that scheduler (serve_slo warms
     each cell under its own)."""
     _, c, _, p = setup
-    eng = ServeEngine(c, p, n_slots=2, max_len=32, block_size=BS,
-                      n_blocks=5, device="cpu")
+    eng = ServeEngine(c, p, n_slots=2, max_len=32, cache="paged",
+                      block_size=BS, n_blocks=5, device="cpu")
     seen = []
     serve = eng.serve
 
