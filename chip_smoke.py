@@ -3,14 +3,14 @@
 
   python3 chip_smoke.py [--profile | --times | --train [--profile] |
                          --families [--profile] | --generate [--profile] |
-                         --harness]
+                         --harness | --dryrun]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs twelve phases, any failure of which exits non-zero:
+instance, then runs thirteen phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -258,11 +258,29 @@ instance, then runs twelve phases, any failure of which exits non-zero:
      counter's, and its label must name the fallback. ``--profile``
      also traces one gb=32 heatmap step: the device-busy share, the
      launches and the device time by kind and range.
+  12. dry run — (a) ``launch.dryrun.run_cells`` over every (arch x
+     shape) cell of the reference on ``meta`` tensors, in
+     ``DRYRUN_WORKERS`` processes: 33 cells ``ok``, the 7 ``long_500k``
+     cells of quadratic attention skipped, 0 failed; the per-cell table
+     (TFLOP, TB moved unfused, estimated peak GB, ``fits_hbm_80g``,
+     bottleneck, roofline step time) and the wall are printed; (b) real
+     steps on the card of ``REAL_STEP_CELLS`` (``dryrun.real_step``,
+     seeded random weights, zero caches): the FLOPs
+     ``FlopCounterMode`` counts on CUDA tensors must equal the meta
+     count exactly and ``max_memory_allocated`` above the step's
+     baseline must lie within ``PEAK_TOL`` of the meta estimate (the
+     phase names both otherwise); the step time and its share of the
+     roofline bound are printed, not gated. Phase 1 also holds the
+     dense decode's grouped ``sdpa`` against its repeat one in bf16 at
+     full llama3.2-3b and llava-next-34b head shapes
+     (``check_grouped_decode``).
 
 ``--train`` runs phases 7 and 8 alone (no kernel is built: the training
 paths launch none) and prints no result line. ``--families`` builds the
 kernels and runs phase 9 alone, and ``--generate`` phase 10 alone; neither
 prints a result line. ``--harness [--profile]`` runs phase 11 alone (no
+kernel is built) and prints no result line.
+``--dryrun`` runs the grouped-decode check and phase 12 alone (no
 kernel is built) and prints no result line.
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
@@ -713,6 +731,7 @@ def phase_kernels(dev) -> dict:
             check_kernel("rmsnorm", worst, ops.rmsnorm(x, s),
                          plain_fp32(ref.rmsnorm_ref, x, s), dtype,
                          f"rows={rows} d={d}")
+    check_grouped_decode(dev)
     return worst
 
 
@@ -3000,6 +3019,114 @@ REPLACES = {
 }
 
 
+#: phase 12b: (arch, shape, batch) of the real steps held against the
+#: dry run's counts; the batch cut where one card does not hold the
+#: cell's, and listed in the record's ``reduced``
+REAL_STEP_CELLS = (("qwen2-0.5b", "decode_32k", None),
+                   ("mamba2-1.3b", "decode_32k", None),
+                   ("mamba2-1.3b", "long_500k", None),
+                   ("qwen2-0.5b", "prefill_32k", 1),
+                   ("qwen2-0.5b", "train_4k", 4))
+#: phase 12b: |measured - estimated| peak bytes over the estimate
+PEAK_TOL = 0.10
+#: phase 12a: the dry run's cell processes (the card machine's cores)
+DRYRUN_WORKERS = 8
+#: phase 1: (arch, H, Kh, Dh) of the grouped-vs-repeat dense decode check
+GROUPED_SHAPES = (("llama3.2-3b", 24, 8, 128), ("llava-next-34b", 56, 8, 128))
+
+
+def check_grouped_decode(dev) -> None:
+    """The dense decode's grouped ``sdpa`` against its repeat one, bf16
+    on the card, at full llama3.2-3b and llava-next-34b head shapes: 8
+    rows at per-row positions over a 4096-row cache, under phase 1's
+    gate."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for arch, h, kh, dh in GROUPED_SHAPES:
+        b, t = 8, 4096
+        q = torch.randn((b, 1, h, dh), generator=gen, device=dev)
+        k = torch.randn((b, t, kh, dh), generator=gen, device=dev)
+        v = torch.randn((b, t, kh, dh), generator=gen, device=dev)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        pos = torch.randint(0, t, (b, 1), generator=gen, device=dev)
+        mask = (torch.arange(t, device=dev)[None, :] <= pos)[:, None, None]
+        got = attention.sdpa(q, k, v, mask, impl="grouped")
+        want = attention.sdpa(q, k, v, mask, impl="repeat")
+        torch.cuda.synchronize()
+        err, ratio, share = check_close(got, want, torch.bfloat16)
+        log(f"[kernels] grouped dense decode {arch} H={h} Kh={kh} Dh={dh} "
+            f"B={b} T={t} bf16 vs repeat: max_err={err:.3e} "
+            f"max_err_ratio={ratio:.3e} mismatch_share={share:.3e}")
+
+
+def phase_dryrun(dev) -> None:
+    """Phase 12: (a) the dry run of every (arch x shape) cell on ``meta``
+    (``launch.dryrun.run_cells``, ``DRYRUN_WORKERS`` processes): 33 cells
+    ``ok``, the 7 ``long_500k`` cells of quadratic attention skipped, 0
+    failed, its table and wall printed; (b) real steps on the card of
+    ``REAL_STEP_CELLS``: FLOPs under ``FlopCounterMode`` on CUDA tensors
+    equal the meta count exactly, ``max_memory_allocated`` within
+    ``PEAK_TOL`` of the meta estimate, and the step time beside the
+    roofline bound (printed, not gated)."""
+    from repro_torch.configs import ASSIGNED, SHAPES, get_config, skipped_cells
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    results = dryrun.run_cells(list(ASSIGNED), list(SHAPES),
+                               [dryrun.MESH], dryrun.ART,
+                               workers=DRYRUN_WORKERS)
+    wall = time.perf_counter() - t0
+    ok = [r for r in results if "roofline" in r]
+    skipped = [r for r in results if "skipped" in r]
+    failed = [r for r in results if "error" in r]
+    log(f"[dryrun] {'arch':26s} {'shape':12s} {'TFLOP':>10s} "
+        f"{'TB moved':>10s} {'peak GB':>9s} fits80 {'bound':10s} "
+        f"{'bound s':>10s}")
+    for r in ok:
+        rf = r["roofline"]
+        log(f"[dryrun] {r['arch']:26s} {r['shape']:12s} "
+            f"{r['cost_analysis']['flops'] / 1e12:10.2f} "
+            f"{r['cost_analysis']['bytes_accessed'] / 1e12:10.3f} "
+            f"{r['bytes_per_device'] / 1e9:9.2f} "
+            f"{str(r['fits_hbm_80g']):6s} {rf['bottleneck']:10s} "
+            f"{rf['step_time_s']:10.4f}")
+    for r in skipped:
+        log(f"[dryrun] {r['arch']:26s} {r['shape']:12s} skipped: "
+            f"{r['skipped']}")
+    log(f"[dryrun] {len(ok)} ok, {len(skipped)} skipped, {len(failed)} "
+        f"failed in {wall:.1f} s ({DRYRUN_WORKERS} processes, meta)")
+    assert not failed, [(r["arch"], r["shape"], r["error"]) for r in failed]
+    assert (len(ok), len(skipped)) == (33, 7), (len(ok), len(skipped))
+    assert {(r["arch"], r["shape"]) for r in skipped} == \
+        {(a, "long_500k") for a, _s, _why in skipped_cells()}
+    for arch, sname, batch in REAL_STEP_CELLS:
+        shape = SHAPES[sname]
+        reduced = {}
+        if batch is not None and batch != shape.global_batch:
+            reduced = {"global_batch": [shape.global_batch, batch]}
+            shape = dataclasses.replace(shape, global_batch=batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rec = dryrun.real_step(get_config(arch), shape, dev)
+        rec["reduced"] = reduced
+        est, got = rec["peak_bytes_estimate"], rec["peak_bytes_measured"]
+        rec["peak_rel_err"] = (got - est) / est
+        rec["wall_s"] = time.perf_counter() - t1
+        log(f"[dryrun] real step {json.dumps(rec)}")
+        log(f"[dryrun] real step {arch} {sname} B={shape.global_batch}: "
+            f"{rec['step_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms "
+            f"({rec['bottleneck']}), share {rec['roofline_share']:.4f}; "
+            f"peak {got / 1e9:.3f} GB measured vs {est / 1e9:.3f} GB "
+            f"estimated ({rec['peak_rel_err']:+.4f}); FLOPs "
+            f"{rec['flops_device']:.6e} card vs {rec['flops_meta']:.6e} meta")
+        assert rec["flops_device"] == rec["flops_meta"], rec
+        assert abs(rec["peak_rel_err"]) <= PEAK_TOL, (
+            f"{arch} {sname}: peak {got} B measured, {est} B estimated")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[wall] phase 12 {time.perf_counter() - t0:.1f} s")
+
+
 def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
          peak_dtype, shape, dev_t, source=None):
     """One JSON row; the bound is the larger of the bytes over HBM rate
@@ -3067,6 +3194,12 @@ def main() -> int:
         log(f"[wall] phase 11 alone {time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
+    if "--dryrun" in sys.argv[1:]:
+        check_grouped_decode(dev)
+        phase_dryrun(dev)
+        log(f"[wall] phase 12 alone {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     if "--train" in sys.argv[1:]:
         phase_train(dev, profile="--profile" in sys.argv[1:])
         phase_resnet(dev, profile="--profile" in sys.argv[1:])
@@ -3107,6 +3240,7 @@ def main() -> int:
     gen_counts, gen_errs = phase_generate(dev,
                                           profile="--profile" in sys.argv[1:])
     phase_harness(dev, profile="--profile" in sys.argv[1:])
+    phase_dryrun(dev)
     for row in rows:               # the worst over phases 1, 9 and 10
         row["max_abs_err"] = max(row["max_abs_err"],
                                  family_errs.get(row["name"], 0.0),

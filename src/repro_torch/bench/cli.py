@@ -21,7 +21,8 @@ Port of ``src/repro/bench/cli.py``: ``list``, ``run``, ``report`` and
 and raises when there is none; ``--smoke`` (or the ``smoke`` tag, as in
 the reference) selects each workload's reduced point set. One process
 runs every selected workload on one device, so there is no device-count
-re-exec.
+re-exec; ``run`` re-execs itself once only for opt-in environment
+tuning (``envtune``: ``REPRO_TCMALLOC=1`` preloads tcmalloc).
 
 Each record also prints the classic ``name,us_per_call,derived`` CSV
 line. ``run`` ends with ``all benchmarks complete`` and exits non-zero
@@ -30,10 +31,13 @@ when a point has status ``error``.
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
+import subprocess
 import sys
 from typing import Optional, Sequence
 
+from repro_torch.bench import envtune
 from repro_torch.bench import workloads  # noqa: F401 - populates the registry
 from repro_torch.bench.compare import (
     MISSING, NOISE_K, POWER_MISMATCH, compare_sets, load_result_set,
@@ -277,6 +281,22 @@ def cmd_compare(args) -> int:
     return rc
 
 
+def reexec_tuned(argv: Sequence[str]) -> Optional[int]:
+    """Re-exec the CLI once with the requested environment tuning applied
+    (a preload must land before the dynamic loader maps the process) and
+    return its exit code; None when nothing is pending."""
+    if not envtune.pending():
+        return None
+    env = envtune.apply(dict(os.environ))
+    # the child must find repro_torch even when the parent got it via
+    # sys.path
+    src_dir = str(pathlib.Path(__file__).resolve().parents[2])
+    env["PYTHONPATH"] = ":".join(
+        p for p in (src_dir, env.get("PYTHONPATH", "")) if p)
+    return subprocess.run([sys.executable, "-m", "repro_torch.bench", *argv],
+                          env=env).returncode
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(
@@ -349,7 +369,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.cmd == "list":
         return cmd_list(args)
     if args.cmd == "run":
-        return cmd_run(args)
+        rc = reexec_tuned(argv)
+        return cmd_run(args) if rc is None else rc
     if args.cmd == "compare":
         return cmd_compare(args)
     return cmd_report(args)

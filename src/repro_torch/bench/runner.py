@@ -16,8 +16,9 @@ for it) and the script, and ``metrics["slurm_script"]`` its path; the
 sweep's one-device cells still measure. The runner stamps the
 cross-placement scaling metrics (``records.stamp_scaling_metrics``)
 into every sweep, and a spec's ``compare_tols`` into each record's
-``noise`` (``noise["tols"]``), which ``bench.compare`` reads. The
-reference's environment tuning (``envtune``) has no port.
+``noise`` (``noise["tols"]``), which ``bench.compare`` reads, and the
+applied environment tuning (``envtune``) into each record's metrics as
+``env_tuning``.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.bench import envtune
 from repro_torch.bench.context import RunContext
 from repro_torch.bench.records import (
     ResultRecord, save_records, stamp_scaling_metrics,
@@ -160,6 +162,12 @@ class WorkloadRunner:
             rec.metrics.update(metrics or {})
         if backoff_total > 0.0 or rec.attempts > 1:
             rec.metrics["retry_backoff_s"] = round(backoff_total, 6)
+        # environment-tuning provenance (tcmalloc preload): a tuned run
+        # must never silently compare against an untuned baseline as if
+        # only the code changed
+        tuning = envtune.active()
+        if tuning:
+            rec.metrics["env_tuning"] = tuning
         dt = time.perf_counter() - t0
         if self.watchdog.observe(len(self.records), dt):
             rec.metrics["straggler"] = True

@@ -2,12 +2,16 @@
 
 Every selectable ``--arch`` id maps to a ModelConfig, as in the
 reference: its ten ``ASSIGNED`` architectures and the paper's GPT
-models, and, apart, the ResNets (``RESNET_REGISTRY``).
+models, and, apart, the ResNets (``RESNET_REGISTRY``); the dry-run
+cells (``cells``, ``skipped_cells``) over ``SHAPES``.
 """
 from __future__ import annotations
 
 from repro_torch.configs import resnet50 as _resnet50
-from repro_torch.configs.base import ModelConfig, vocab_pad
+from repro_torch.configs.base import (
+    DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K, ModelConfig,
+    ShapeConfig, vocab_pad,
+)
 from repro_torch.configs.command_r_35b import CONFIG as _command_r_35b
 from repro_torch.configs.gpt_models import GPT_117M, GPT_800M, GPT_13B, GPT_175B
 from repro_torch.configs.granite_8b import CONFIG as _granite_8b
@@ -60,5 +64,29 @@ def get_config(arch: str) -> ModelConfig:
         ) from None
 
 
-__all__ = ["ASSIGNED", "ModelConfig", "PAPER_MODELS", "REGISTRY",
-           "RESNET_REGISTRY", "get_config", "vocab_pad"]
+def cells(archs=None, shapes=None):
+    """All (arch, shape) benchmark cells, honoring long_500k applicability."""
+    out = []
+    for a in archs or ASSIGNED:
+        cfg = get_config(a)
+        for s in shapes or SHAPES:
+            shp = SHAPES[s]
+            if shp.name == "long_500k" and not cfg.long_context_ok:
+                continue  # quadratic full-attention arch: documented skip
+            out.append((cfg, shp))
+    return out
+
+
+def skipped_cells(archs=None):
+    out = []
+    for a in archs or ASSIGNED:
+        cfg = get_config(a)
+        if not cfg.long_context_ok:
+            out.append((cfg.name, "long_500k", "full quadratic attention"))
+    return out
+
+
+__all__ = ["ASSIGNED", "DECODE_32K", "LONG_500K", "ModelConfig",
+           "PAPER_MODELS", "PREFILL_32K", "REGISTRY", "RESNET_REGISTRY",
+           "SHAPES", "ShapeConfig", "TRAIN_4K", "cells", "get_config",
+           "skipped_cells", "vocab_pad"]

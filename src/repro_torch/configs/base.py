@@ -1,7 +1,8 @@
 """Model configuration for the PyTorch port.
 
 Port of ``src/repro/configs/base.py``: the frozen :class:`ModelConfig`
-with ``.reduced()`` and ``padded_vocab``. Framework-neutral, kept as the
+with ``.reduced()`` and ``padded_vocab``, and the input shapes of the
+dry-run cells (:class:`ShapeConfig`, ``SHAPES``). Framework-neutral, kept as the
 port's own copy so that ``repro_torch`` imports nothing of ``repro``.
 """
 from __future__ import annotations
@@ -9,6 +10,32 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell's input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES: dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
 
 
 def vocab_pad(vocab: int, multiple: int = 256) -> int:

@@ -14,9 +14,9 @@ each task, ``RANK`` and ``LOCAL_RANK`` from ``SLURM_PROCID`` and
 
 The port trains and serves on one device: a script of more than one
 rank starts processes that wait for multi-device support (ROADMAP Queue
-1 item 8). The reference's dry-run script (``repro.launch.dryrun``) has
-no port (Queue 1 item 12), so :func:`write_launch_scripts` renders the
-training scripts only.
+1 item 8). :func:`write_launch_scripts` renders the training scripts
+and the dry run's (``repro_torch.launch.dryrun --all``), which counts
+every cell on ``meta`` tensors in one task.
 """
 from __future__ import annotations
 
@@ -115,7 +115,8 @@ def render_bench_job(*, workload: str, placement, point: dict,
 
 
 def write_launch_scripts(out_dir, archs, system: SystemConfig | None = None):
-    """Render train scripts for every arch (one node and two)."""
+    """Render train scripts for every arch (one node and two) and the
+    dry-run script (one task)."""
     system = system or SystemConfig()
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -130,4 +131,9 @@ def write_launch_scripts(out_dir, archs, system: SystemConfig | None = None):
             p = out / f"train_{arch}_{tag}.sbatch"
             p.write_text(script)
             written.append(str(p))
+    dry = render_job(job_name="dryrun", module="repro_torch.launch.dryrun",
+                     args="--all", system=system, n_nodes=1,
+                     tasks_per_node=1)
+    (out / "dryrun.sbatch").write_text(dry)
+    written.append(str(out / "dryrun.sbatch"))
     return written

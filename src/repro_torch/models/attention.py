@@ -5,8 +5,10 @@ reference's numerics cast for cast: q is scaled in q.dtype, scores are
 fp32, the mask bias is ``finfo(float32).min`` (not -inf) and the softmax
 weights are cast back to q.dtype before the PV product.
 
-Ported: ``qkv_proj``, ``make_causal_mask``, ``sdpa`` (the reference's
-``impl="repeat"`` formulation), ``out_proj``, ``attend``,
+Ported: ``qkv_proj``, ``make_causal_mask``, ``sdpa`` (both of the
+reference's formulations: ``impl="repeat"`` repeats K/V to the H query
+heads, ``impl="grouped"`` contracts queries grouped as (Kh, G) against
+the Kh K/V heads without repeating them), ``out_proj``, ``attend``,
 ``sdpa_chunked_q`` (the q-chunked path above ``CHUNK_THRESHOLD``),
 ``self_attention`` (the training path), ``cross_attention`` and
 ``encoder_kv`` (the encdec decoder's cross slots), ``prefill_attention``
@@ -16,9 +18,15 @@ and its dense per-row and shared-position branches), each paged branch
 on fp pools and on int8 pools with their scales. The paged branches call
 ``repro_torch.kernels.ops``, which launches the CUDA kernels for CUDA
 tensors; the dense branches go through ``sdpa``, as in the reference.
+``impl`` takes the reference's defaults: ``"repeat"`` for training,
+prefill and cross-attention, ``"grouped"`` for decode.
+:func:`skip_attention_core` zeroes the attention core of :func:`attend`
+(the reference's perf probe, used by ``launch.hillclimb``).
 """
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
 from typing import Any, Optional
 
 import torch
@@ -37,6 +45,23 @@ Params = Any
 CHUNK_THRESHOLD = 1 << 31
 #: query rows a chunk (the reference's real-pass ``q_chunk``)
 Q_CHUNK = 256
+
+#: sdpa's two einsum formulations
+IMPLS = ("repeat", "grouped")
+
+# Perf probe: replace the attention CORE (scores, softmax, PV) of
+# ``attend`` with zeros and keep the projections, so that counting a
+# program with and without it isolates attention's share.
+_SKIP_CORE: ContextVar[bool] = ContextVar("attn_skip_core", default=False)
+
+
+@contextlib.contextmanager
+def skip_attention_core():
+    tok = _SKIP_CORE.set(True)
+    try:
+        yield
+    finally:
+        _SKIP_CORE.reset(tok)
 
 
 def attn_init(gen, c: ModelConfig, lead=()) -> Params:
@@ -92,22 +117,33 @@ def make_causal_mask(s: int, t: int, window: Optional[int] = None,
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: Optional[torch.Tensor]) -> torch.Tensor:
+         mask: Optional[torch.Tensor], impl: str = "repeat") -> torch.Tensor:
     """q: (B,S,H,Dh); k,v: (B,T,Kh,Dh); mask broadcastable to (B,1,S,T)
-    or None (bidirectional). fp32 softmax; K/V heads are repeated to H."""
-    h, dh = q.shape[2], q.shape[3]
+    or None (bidirectional). fp32 softmax. ``impl="repeat"`` repeats the
+    K/V heads to H; ``"grouped"`` views q as (B,S,Kh,G,Dh) and contracts
+    each group against its K/V head (equal to repeat where H == Kh)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r}: one of {IMPLS}")
+    b, s, h, dh = q.shape
     kh = k.shape[2]
     scale = 1.0 / torch.sqrt(
         torch.full((), dh, dtype=torch.float32, device=q.device)).to(q.dtype)
     q = q * scale
-    if h != kh:
-        k = k.repeat_interleave(h // kh, dim=2)
-        v = v.repeat_interleave(h // kh, dim=2)
-    scores = torch.einsum("bshk,bthk->bhst", q, k).float()
+    if impl == "repeat" or h == kh:
+        if h != kh:
+            k = k.repeat_interleave(h // kh, dim=2)
+            v = v.repeat_interleave(h // kh, dim=2)
+        scores = torch.einsum("bshk,bthk->bhst", q, k).float()
+        if mask is not None:
+            scores = scores + _mask_bias(mask)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bhst,bthk->bshk", w, v)
+    qg = q.reshape(b, s, kh, h // kh, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
     if mask is not None:
-        scores = scores + _mask_bias(mask)
+        scores = scores + _mask_bias(mask)[:, None]
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhst,bthk->bshk", w, v)
+    return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, dh)
 
 
 def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:
@@ -115,6 +151,7 @@ def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:
 
 
 def sdpa_chunked_q(q, k, v, *, causal: bool, window: Optional[int],
+                   impl: str = "repeat",
                    q_chunk: int = Q_CHUNK) -> torch.Tensor:
     """Memory-bounded attention: a loop over query chunks, each of which
     materializes only a (B, H, q_chunk, T_vis) score block. Causal with a
@@ -133,7 +170,7 @@ def sdpa_chunked_q(q, k, v, *, causal: bool, window: Optional[int],
         if causal and window is None:
             mask = make_causal_mask(q_chunk, t, None, q_offset=start,
                                     device=q.device)
-            return sdpa(qi, k, v, mask[None, None])
+            return sdpa(qi, k, v, mask[None, None], impl)
         if causal:
             vis = min(q_chunk + min(window, t), t)
             k0 = min(max(start + q_chunk - vis, 0), t - vis)
@@ -141,8 +178,8 @@ def sdpa_chunked_q(q, k, v, *, causal: bool, window: Optional[int],
             kpos = k0 + torch.arange(vis, device=q.device)[None, :]
             mask = (kpos <= qpos) & (kpos > qpos - window)
             return sdpa(qi, k[:, k0:k0 + vis], v[:, k0:k0 + vis],
-                        mask[None, None])
-        return sdpa(qi, k, v, None)
+                        mask[None, None], impl)
+        return sdpa(qi, k, v, None, impl)
 
     outs = []
     for start in range(0, s, q_chunk):
@@ -158,40 +195,47 @@ def sdpa_chunked_q(q, k, v, *, causal: bool, window: Optional[int],
 sdpa_chunked_q.calls = 0
 
 
-def attend(c: ModelConfig, q, k, v, *, causal: bool) -> torch.Tensor:
+def attend(c: ModelConfig, q, k, v, *, causal: bool,
+           impl: str = "repeat") -> torch.Tensor:
     """Full attention, or the q-chunked path when the score tensor holds
     more than ``CHUNK_THRESHOLD`` elements and the queries are whole
     chunks of ``Q_CHUNK`` (otherwise full ``sdpa``, as the reference
-    falls back)."""
+    falls back). Under :func:`skip_attention_core` the core is zeros
+    (kept dependent on k and v, as the reference's probe keeps it)."""
     b, s = q.shape[:2]
     t = k.shape[1]
+    if _SKIP_CORE.get():
+        return torch.zeros_like(q) + 0.0 * (
+            k[:, :1].sum() + v[:, :1].sum()).to(q.dtype)
     if b * c.n_heads * s * t > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
-        return sdpa_chunked_q(q, k, v, causal=causal, window=c.attn_window)
+        return sdpa_chunked_q(q, k, v, causal=causal, window=c.attn_window,
+                              impl=impl)
     mask = None
     if causal:
         mask = make_causal_mask(s, t, c.attn_window, device=q.device)[None, None]
-    return sdpa(q, k, v, mask)
+    return sdpa(q, k, v, mask, impl)
 
 
 def self_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
                    causal: bool = True,
-                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   positions: Optional[torch.Tensor] = None,
+                   impl: str = "repeat") -> torch.Tensor:
     """Training self-attention over the full sequence."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = qkv_proj(c, p, x, positions if c.use_rope else None)
-    return out_proj(p, attend(c, q, k, v, causal=causal))
+    return out_proj(p, attend(c, q, k, v, causal=causal, impl=impl))
 
 
 def cross_attention(c: ModelConfig, p: Params, x: torch.Tensor,
-                    enc_kv: tuple) -> torch.Tensor:
+                    enc_kv: tuple, impl: str = "repeat") -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V
     (:func:`encoder_kv`): queries get ``bq``, no RoPE, no mask."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     k, v = enc_kv
-    return out_proj(p, sdpa(q, k, v, None))
+    return out_proj(p, sdpa(q, k, v, None, impl))
 
 
 def encoder_kv(c: ModelConfig, p: Params, enc_out: torch.Tensor):
@@ -205,6 +249,7 @@ def encoder_kv(c: ModelConfig, p: Params, enc_out: torch.Tensor):
 
 def prefill_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
                       positions: Optional[torch.Tensor] = None,
+                      impl: str = "repeat",
                       paged_prefix: Optional[tuple] = None):
     """Causal self-attention that also returns the suffix K/V.
 
@@ -225,7 +270,7 @@ def prefill_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
                                            window=c.attn_window,
                                            k_scale=k_scale, v_scale=v_scale)
         return out_proj(p, out.to(q.dtype)), (k, v)
-    return out_proj(p, attend(c, q, k, v, causal=True)), (k, v)
+    return out_proj(p, attend(c, q, k, v, causal=True, impl=impl)), (k, v)
 
 
 def _quantized_block_write(pool: torch.Tensor, scale: torch.Tensor,
@@ -255,7 +300,7 @@ def _quantized_block_write(pool: torch.Tensor, scale: torch.Tensor,
 
 def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     pos, *,
+                     pos, *, impl: str = "grouped",
                      block_tables: Optional[torch.Tensor] = None,
                      n_kv_blocks: Optional[int] = None,
                      cache_k_scale: Optional[torch.Tensor] = None,
@@ -282,10 +327,11 @@ def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
     scatter, and a (B, T) mask that also applies the window), or one
     position shared by every row (an int or a 0-d tensor: a slice write,
     and with a window shorter than T attention over the window's slice
-    only).
+    only). ``impl`` is the dense branches' ``sdpa`` formulation; the
+    paged kernel is grouped by construction.
     """
     if block_tables is None:
-        return _dense_decode(c, p, x, cache_k, cache_v, pos)
+        return _dense_decode(c, p, x, cache_k, cache_v, pos, impl)
     if pos.ndim != 1:
         raise ValueError("paged decode needs per-slot positions (B,)")
     q, k_new, v_new = qkv_proj(c, p, x, pos[:, None] if c.use_rope else None)
@@ -309,7 +355,7 @@ def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
 
 def _dense_decode(c: ModelConfig, p: Params, x: torch.Tensor,
                   cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  pos) -> torch.Tensor:
+                  pos, impl: str) -> torch.Tensor:
     """The reference's two dense branches of ``decode_attention``
     (``src/repro/models/attention.py:440-470``), writing in place."""
     b = x.shape[0]
@@ -333,7 +379,8 @@ def _dense_decode(c: ModelConfig, p: Params, x: torch.Tensor,
         if w is not None and w < t:
             # per-row starts preclude a shared slice; mask instead
             m = m & (kpos > positions - w)
-        return out_proj(p, sdpa(q, cache_k, cache_v, m[:, None, None, :]))
+        return out_proj(p, sdpa(q, cache_k, cache_v, m[:, None, None, :],
+                                impl))
     cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
     cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
     if w is not None and w < t:
@@ -344,4 +391,4 @@ def _dense_decode(c: ModelConfig, p: Params, x: torch.Tensor,
         k_att, v_att = cache_k, cache_v
         kpos = torch.arange(t, device=x.device)
     mask = (kpos <= pos)[None, None, None, :]
-    return out_proj(p, sdpa(q, k_att, v_att, mask))
+    return out_proj(p, sdpa(q, k_att, v_att, mask, impl))

@@ -30,7 +30,9 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -39,6 +41,13 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_mlp, apply_norm, mlp_init, norm_init
 
 Params = Any
+
+#: matmuls whose outputs ``remat="dots"`` saves; ``torch.einsum`` lowers
+#: every contraction to ``bmm``, a contraction without batch dimensions
+#: to a ``bmm`` of batch 1
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM = torch.ops.aten.bmm.default
+
 
 def period_of(c: ModelConfig) -> int:
     """Layers in one period of the layer pattern."""
@@ -153,24 +162,40 @@ def _unstack(tree: Params, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _cross(c: ModelConfig, sp: Params, x: torch.Tensor, ekv) -> torch.Tensor:
+def _cross(c: ModelConfig, sp: Params, x: torch.Tensor, ekv,
+           impl: str = "repeat") -> torch.Tensor:
     """The slot's cross-attention residual (none without ``ekv``)."""
     if ekv is None:
         return x
     h = apply_norm(c, sp["norm_x"], x)
-    return x + attn.cross_attention(c, sp["cross"], h, (ekv["k"], ekv["v"]))
+    return x + attn.cross_attention(c, sp["cross"], h, (ekv["k"], ekv["v"]),
+                                    impl)
 
 
 def _slot_forward(c: ModelConfig, sp: Params, x: torch.Tensor, causal: bool,
-                  mixer: str, ffn: Optional[str], ekv=None):
+                  mixer: str, ffn: Optional[str], ekv, impl: str):
     h = apply_norm(c, sp["norm1"], x)
     if mixer == "attn":
-        h = attn.self_attention(c, sp["attn"], h, causal=causal)
+        h = attn.self_attention(c, sp["attn"], h, causal=causal, impl=impl)
     else:
         h = ssm_mod.mamba_forward(c, sp["mamba"], h)
-    x, aux = _ffn(c, sp, _cross(c, sp, x + h, ekv), ffn)
+    x, aux = _ffn(c, sp, _cross(c, sp, x + h, ekv, impl), ffn)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) \
         if aux is None else aux
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``:
+    save the outputs of matmuls without batch dimensions (``mm``,
+    ``addmm``, a ``bmm`` of batch 1), recompute everything else."""
+    if op in _MATMULS or (op is _BMM and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(
+        lambda ctx, op, *a, **k: _dots_policy(ctx, op, *a, **k))
 
 
 def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
@@ -179,17 +204,12 @@ def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
     """Run the full layer stack, no caches. x: (B, S, D) -> (B, S, D),
     aux_loss (summed over the MoE slots). ``remat="full"`` recomputes
     each layer in the backward (``torch.utils.checkpoint``), saving only
-    the layer inputs; ``"none"`` keeps every activation. ``enc_kv``: the
-    encoder's K/V for the cross slots (encdec)."""
-    if impl != "repeat":
-        raise NotImplementedError(
-            f"impl={impl!r}: the port's sdpa is the reference's 'repeat' "
-            "formulation")
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs) is not ported: ROADMAP "
-            "Queue 1 item 5, what the training slice left")
-    if remat not in ("full", "none"):
+    the layer inputs; ``"dots"`` saves the layer's matmul outputs and
+    recomputes the rest (selective checkpointing, :func:`_dots_policy`);
+    ``"none"`` keeps every activation. ``impl`` is ``sdpa``'s
+    formulation. ``enc_kv``: the encoder's K/V for the cross slots
+    (encdec)."""
+    if remat not in ("full", "dots", "none"):
         raise ValueError(f"remat {remat!r}: full, dots or none")
     kinds = slot_kinds(c)
     n = _n_periods(layers["slot0"])
@@ -199,15 +219,15 @@ def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(n):
         for i, (mixer, ffn) in enumerate(kinds):
-            sp = per_slot[i][j]
-            ekv = None if enc_kv is None else per_ekv[i][j]
-            if remat == "full":
-                # no op in a layer draws random numbers: no RNG state to keep
-                x, a = checkpoint(_slot_forward, c, sp, x, causal, mixer, ffn,
-                                  ekv, use_reentrant=False,
-                                  preserve_rng_state=False)
+            args = (c, per_slot[i][j], x, causal, mixer, ffn,
+                    None if enc_kv is None else per_ekv[i][j], impl)
+            if remat == "none":
+                x, a = _slot_forward(*args)
             else:
-                x, a = _slot_forward(c, sp, x, causal, mixer, ffn, ekv)
+                # no op in a layer draws random numbers: no RNG state to keep
+                kw = {"context_fn": _dots_context} if remat == "dots" else {}
+                x, a = checkpoint(_slot_forward, *args, use_reentrant=False,
+                                  preserve_rng_state=False, **kw)
             aux = aux + a
     return x, aux
 
@@ -218,6 +238,7 @@ def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
 
 
 def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
+                  impl: str = "repeat",
                   positions: Optional[torch.Tensor] = None,
                   enc_kv: Params = None,
                   paged_prefix: Params = None,
@@ -253,6 +274,7 @@ def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
                           paged_tables)
                 h, (k, v) = attn.prefill_attention(c, sp["attn"], h,
                                                    positions=positions,
+                                                   impl=impl,
                                                    paged_prefix=pp)
                 new = {"k": k, "v": v}
             else:
@@ -261,15 +283,15 @@ def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
                 new = {"ssm": hstate, "conv": conv_tail}
             for name, t in new.items():
                 out[f"slot{i}"].setdefault(name, []).append(t)
-            x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j)),
-                           ffn)
+            x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j),
+                                         impl), ffn)
     return x, {slot: {name: torch.stack(ts) for name, ts in tree.items()}
                for slot, tree in out.items()}
 
 
 def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
                  caches: Params, pos: torch.Tensor, *,
-                 enc_kv: Params = None,
+                 impl: str = "grouped", enc_kv: Params = None,
                  block_tables: Optional[torch.Tensor] = None,
                  n_kv_blocks: Optional[int] = None):
     """One-token decode through the stack. Every attention layer writes
@@ -278,7 +300,8 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
     ``(B, max_blocks)`` table; without, its dense rows at ``pos`` (per
     row, or shared). Every mamba layer overwrites its state rows (idle
     rows too: the next insert overwrites them). ``enc_kv`` feeds the
-    cross slots (encdec). Returns (x, caches) — the caches object itself,
+    cross slots (encdec). ``impl`` is the dense attention's and the cross
+    slots' ``sdpa`` formulation. Returns (x, caches) — the caches object itself,
     updated."""
     kinds = slot_kinds(c)
     for j in range(_n_periods(layers["slot0"])):
@@ -289,7 +312,7 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
             if mixer == "attn":
                 k_scale, v_scale = _scales(sc, j)
                 h = attn.decode_attention(c, sp["attn"], h, sc["k"][j],
-                                          sc["v"][j], pos,
+                                          sc["v"][j], pos, impl=impl,
                                           block_tables=block_tables,
                                           n_kv_blocks=n_kv_blocks,
                                           cache_k_scale=k_scale,
@@ -299,8 +322,8 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
                     c, sp["mamba"], h, sc["conv"][j], sc["ssm"][j])
                 sc["conv"][j].copy_(conv_s)
                 sc["ssm"][j].copy_(ssm_s)
-            x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j)),
-                           ffn)
+            x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j),
+                                         impl), ffn)
     return x, caches
 
 

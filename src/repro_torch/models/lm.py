@@ -3,9 +3,11 @@ encoder-decoder (the whisper backbone).
 
 Port of ``src/repro/models/lm.py``: ``init`` (the port's own seeded
 initializer, drawing the reference's distributions from a
-``torch.Generator``), ``encode``, ``forward`` (training: ``remat`` and
+``torch.Generator``), ``init_abstract`` (the same tree on the ``meta``
+device: shapes and dtypes, no storage), ``encode``, ``forward`` (training: ``remat`` and
 ``impl`` as in the reference; returns the MoE aux loss summed over the
-stack), ``prefill`` and ``decode_step``. Both front ends are stubs, in
+stack), ``prefill`` and ``decode_step`` (``impl`` with the reference's
+defaults: ``"repeat"`` for prefill, ``"grouped"`` for decode). Both front ends are stubs, in
 the reference too: an encdec model takes precomputed encoder frames
 ``enc_frames`` (B, enc_seq, D), a vlm precomputed patch embeddings
 ``patch_embeds`` (B, n_patches, D), which go before the text (RoPE
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -52,6 +55,25 @@ def init(c: ModelConfig, generator: Optional[torch.Generator] = None,
                         "norm": norm_init(c, dev),
                         "pos": pos.to(param_dtype_of(c))}
     return p
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every torch call that names a device gets ``meta`` instead."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def init_abstract(c: ModelConfig) -> Params:
+    """Shape-only params: :func:`init`'s tree on the ``meta`` device (the
+    reference's ``jax.eval_shape`` of its init), so no memory is taken
+    and no random number is drawn. The CPU generator only satisfies
+    ``init``'s signature."""
+    with _OnMeta():
+        return init(c, torch.Generator(), "cpu")
 
 
 def _inputs_to_embeds(c: ModelConfig, p: Params, tokens: torch.Tensor,
@@ -134,7 +156,7 @@ def forward(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
 def prefill(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
             patch_embeds: Optional[torch.Tensor] = None,
             enc_frames: Optional[torch.Tensor] = None,
-            last_pos: Optional[torch.Tensor] = None,
+            impl: str = "repeat", last_pos: Optional[torch.Tensor] = None,
             pos_offset: int = 0, paged_prefix: Params = None,
             paged_tables: Optional[torch.Tensor] = None):
     """Process a (right-padded) prompt batch; return (logits at each
@@ -158,7 +180,7 @@ def prefill(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
     if has_prefix:
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device)[None, :] + pos_offset
-    x, caches = blocks.stack_prefill(c, p["layers"], x,
+    x, caches = blocks.stack_prefill(c, p["layers"], x, impl=impl,
                                      positions=positions, enc_kv=enc_kv,
                                      paged_prefix=paged_prefix,
                                      paged_tables=paged_tables)
@@ -173,13 +195,15 @@ def prefill(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
 
 def decode_step(c: ModelConfig, p: Params, token: torch.Tensor,
                 caches: Params, pos, *, enc_kv: Params = None,
+                impl: str = "grouped",
                 block_tables: Optional[torch.Tensor] = None,
                 n_kv_blocks: Optional[int] = None):
     """token: (B, 1); pos: (B,) per-slot positions, or one position
     shared by every row (an int or a 0-d tensor; dense caches only).
     ``block_tables`` selects the paged pools, else ``caches`` holds dense
     rows (the slotted cache). ``enc_kv``: an encdec model's cross K/V
-    (``prefill``'s third result). The caches are updated in place.
+    (``prefill``'s third result). ``impl``: the dense attention's
+    ``sdpa`` formulation. The caches are updated in place.
     Returns (logits, caches)."""
     if torch.is_tensor(pos) and pos.ndim == 1:
         positions = pos[:, None]
@@ -187,7 +211,7 @@ def decode_step(c: ModelConfig, p: Params, token: torch.Tensor,
         positions = torch.full_like(token, int(pos))
     x = embed_tokens(c, p["embed"], token, positions)
     x, caches = blocks.stack_decode(c, p["layers"], x, caches, pos,
-                                    enc_kv=enc_kv,
+                                    impl=impl, enc_kv=enc_kv,
                                     block_tables=block_tables,
                                     n_kv_blocks=n_kv_blocks)
     x = apply_norm(c, p["final_norm"], x)

@@ -1,7 +1,9 @@
 """KV and state caches: the slotted row pool, and the paged block pools
 with their host allocator and prefix index.
 
-Port of ``src/repro/serve/cache.py``: the slotted-cache ops
+Port of ``src/repro/serve/cache.py``: ``abstract_caches`` (the caches
+a prefill emits, on the ``meta`` device: the dry run's shapes), the
+slotted-cache ops
 (``grow_caches``, ``slotted_cache``, ``insert_slot``, ``reset_slot``,
 ``insert_rows``, ``compact_slots``), ``PagedKVCache`` (trash block 0,
 host free list, ``ensure``/``free``/``adopt``/``make_writable``, the
@@ -52,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
 from repro_torch.models.blocks import period_of, slot_kinds
 from repro_torch.models.common import dtype_of, param_dtype_of
 from repro_torch.models.ssm import mamba_state_shapes
@@ -66,6 +69,30 @@ POOL = ("k", "v", "k_scale", "v_scale")
 
 class CacheOOM(RuntimeError):
     """The paged pool ran out of free blocks (admission control signal)."""
+
+
+def abstract_caches(c: ModelConfig, batch: int, seq_len: int,
+                    abstract_params: Params):
+    """The caches and encoder K/V a prefill of ``batch`` rows of
+    ``seq_len`` positions emits, as ``meta`` tensors (no storage), from
+    a prefill traced on ``meta`` with ``abstract_params``
+    (``lm.init_abstract``). Returns ``((caches, enc_kv), kw)``, ``kw``
+    holding the side inputs' meta tensors (a vlm's ``patch_embeds``, an
+    encdec's ``enc_frames``), as the reference returns its
+    ``eval_shape``."""
+    meta = torch.device("meta")
+    kw = {}
+    s_text = seq_len - (c.n_patches if c.family == "vlm" else 0)
+    tokens = torch.empty((batch, s_text), dtype=torch.int32, device=meta)
+    if c.family == "vlm":
+        kw["patch_embeds"] = torch.empty((batch, c.n_patches, c.d_model),
+                                         dtype=dtype_of(c), device=meta)
+    if c.family == "encdec":
+        kw["enc_frames"] = torch.empty((batch, c.enc_seq, c.d_model),
+                                       dtype=dtype_of(c), device=meta)
+    with torch.no_grad():
+        _logits, caches, enc_kv = lm.prefill(c, abstract_params, tokens, **kw)
+    return (caches, enc_kv), kw
 
 
 def _rows_to_blocks(small: torch.Tensor, block_size: int) -> torch.Tensor:

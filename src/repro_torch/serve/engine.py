@@ -128,22 +128,24 @@ _RECURRENT_REFUSAL = (
 SIDE_INPUTS = ("encdec", "vlm")
 
 
-def make_prefill_fn(c: ModelConfig):
+def make_prefill_fn(c: ModelConfig, impl: str = "repeat"):
     """``prefill(params, tokens, extras) -> (logits, caches, enc_kv)``,
     ``extras`` holding a vlm's ``patch_embeds`` or an encdec's
-    ``enc_frames``."""
+    ``enc_frames``; ``impl`` is ``sdpa``'s formulation."""
     def prefill_step(params, tokens, extras):
         return lm.prefill(c, params, tokens,
                           patch_embeds=extras.get("patch_embeds"),
-                          enc_frames=extras.get("enc_frames"))
+                          enc_frames=extras.get("enc_frames"), impl=impl)
     return prefill_step
 
 
-def make_decode_fn(c: ModelConfig):
+def make_decode_fn(c: ModelConfig, impl: str = "grouped"):
     """``decode(params, token, caches, pos, enc_kv=None) -> (logits,
-    caches)``, the caches updated in place."""
+    caches)``, the caches updated in place; ``impl`` is the dense
+    attention's ``sdpa`` formulation."""
     def serve_step(params, token, caches, pos, enc_kv=None):
-        return lm.decode_step(c, params, token, caches, pos, enc_kv=enc_kv)
+        return lm.decode_step(c, params, token, caches, pos, enc_kv=enc_kv,
+                              impl=impl)
     return serve_step
 
 

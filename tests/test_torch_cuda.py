@@ -43,7 +43,11 @@ card, and a slot-faulted chunked serve equal to its fault-free twin.
 The harness: one ``heatmap`` dp1 cell through the bench CLI on NVML's
 energy counter (full gpt-117m), ``make_data_iter``'s batches on the card
 equal to the CPU's, ``FallbackPower`` over the NVML pair keeping its
-column an energy counter while its primary fails, and RAPL probed.
+column an energy counter while its primary fails, and RAPL probed. The
+dry run: the grouped dense decode against the repeat one in bf16 at full
+head shapes, the meta FLOP count of a reduced train step equal to the
+card's (and its peak within 10 % of the estimate), and ``remat="dots"``'s
+peak between ``"none"``'s and ``"full"``'s.
 
 Every test here is marked ``cuda`` and skips where there is no card.
 This file imports neither JAX nor ``repro``, so it runs on a machine
@@ -1225,3 +1229,57 @@ def test_rapl_probe_is_a_bool_and_reads_finite_watts(card):
     if res["available"]:
         assert res["watts"] and all(np.isfinite(v) and v >= 0
                                     for v in res["watts"].values())
+
+
+# ---------------------------------------------------------------------------
+# The grouped formulation, the dry run's counts, remat="dots" (card)
+# ---------------------------------------------------------------------------
+
+
+def test_grouped_dense_decode_equals_repeat_in_bf16(card):
+    """Phase 1's grouped-vs-repeat check: bf16 at full llama3.2-3b and
+    llava-next-34b head shapes, under the card's bf16 gate."""
+    chip_smoke.check_grouped_decode(card)
+
+
+def test_meta_flops_equal_cuda_flops_of_a_reduced_train_step(card):
+    import dataclasses
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    c = get_config("llama3.2-3b").reduced()
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=128,
+                                global_batch=4)
+    rec = dryrun.real_step(c, shape, card)
+    print(f"\n{rec}")
+    assert rec["flops_device"] == rec["flops_meta"] > 0
+    assert abs(rec["peak_bytes_measured"] - rec["peak_bytes_estimate"]) <= \
+        0.10 * rec["peak_bytes_estimate"]
+
+
+def test_remat_dots_peak_lies_between_none_and_full(card):
+    """remat="dots"'s memory gate: one gpt-117m microbatch's
+    value_and_grad at batch 8 x 512 peaks higher than with ``"full"``
+    and lower than with ``"none"``, with gradients equal to ``"full"``'s
+    at 1e-4."""
+    from repro_torch.train import step as train_step
+    c = get_config("gpt-117m")
+    params = lm.init(c, torch.Generator(device=card).manual_seed(0), card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    toks = torch.randint(0, c.vocab, (8, 512), generator=gen, device=card)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    peaks, grads = {}, {}
+    for remat in ("none", "dots", "full"):
+        vg = train_step.value_and_grad(train_step.make_loss_fn(
+            c, StepConfig(remat=remat)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(card)
+        torch.cuda.reset_peak_memory_stats(card)
+        _, grads[remat] = vg(params, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated(card) - base
+    print(f"\npeak above the params, GB: " + ", ".join(
+        f"{k} {v / 1e9:.3f}" for k, v in peaks.items()))
+    assert peaks["full"] < peaks["dots"] < peaks["none"]
+    for a, b in zip(tree.leaves(grads["dots"]), tree.leaves(grads["full"])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-4, atol=1e-4)

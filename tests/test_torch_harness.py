@@ -226,9 +226,12 @@ def test_slurm_script_rendering():
 def test_write_launch_scripts(tmp_path):
     written = slurm.write_launch_scripts(tmp_path, ["granite-8b",
                                                     "qwen2-0.5b"])
-    assert len(written) == 4  # 2 archs x 2 node counts; no dry-run port
+    assert len(written) == 5  # 2 archs x 2 node counts + the dry run
     text = (tmp_path / "train_granite-8b_node2.sbatch").read_text()
     assert "--arch granite-8b" in text and "#SBATCH --nodes=2" in text
+    dry = (tmp_path / "dryrun.sbatch").read_text()
+    assert "repro_torch.launch.dryrun --all" in dry
+    assert "#SBATCH --nodes=1" in dry and "#SBATCH --ntasks-per-node=1" in dry
 
 
 @pytest.mark.parametrize("placement,nodes,tasks", [("dp2", 1, 2),

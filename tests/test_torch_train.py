@@ -9,7 +9,9 @@ and the same batches (a numpy seed) through both packages:
     norm clip at rtol 1e-6;
   * gradients of the gpt-117m and llama3.2-3b reduced losses against
     ``jax.grad`` of the reference's at rtol 1e-4 / atol 1e-6, with full
-    remat and without (the port's two give equal bits);
+    remat and without (the port's two give equal bits), and with
+    ``remat="dots"`` against the reference's (and the matmul outputs
+    its policy saved counted);
   * three ``make_train_step`` steps (k = 1 and 4 microbatches, fp32 and
     bf16 gradient buffers) for AdamW and Adafactor against the
     reference's jitted step: losses at rtol 1e-5, params and optimizer
@@ -26,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from repro.bench.spec import Placement as RefPlacement
 from repro.configs import get_config as ref_get_config
@@ -43,7 +46,7 @@ from repro.train import step as ref_step
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import tree
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.parallel import compress
 from repro_torch.parallel import grad_sync as gs
 from repro_torch.train import loss, optimizer
@@ -189,6 +192,53 @@ def test_gradients_match_reference(arch):
     assert not any(t.requires_grad for t in tree.leaves(p))
 
 
+@pytest.mark.parametrize("arch", ["gpt-117m", "llama3.2-3b"])
+def test_remat_dots_matches_full_and_the_reference(arch, monkeypatch):
+    """``remat="dots"`` (selective checkpointing with the policy of
+    ``dots_with_no_batch_dims_saveable``): gradients equal ``"full"``'s
+    and the reference's ``remat="dots"`` at 1e-4, and the policy saved
+    exactly the outputs of the matmuls without batch dimensions (q, k,
+    v and out projections, the MLP's matmuls: one ``bmm`` of batch 1
+    or ``mm`` each, 7 a SwiGLU layer, 6 a GELU layer) and recomputed the
+    rest (the attention's batched products among them)."""
+    rc, c = _configs(arch)
+    rp = ref_lm.init(jax.random.key(0), rc)
+    p = bridge.params_from_numpy(_np(rp), "cpu")
+    rb, pb = _batch(c)
+    ref_fn = ref_step.make_loss_fn(rc, ref_step.StepConfig(remat="dots"))
+    (want_l, _), want = jax.value_and_grad(
+        lambda q: ref_fn(q, rb), has_aux=True)(rp)
+    decisions = []
+    policy = blocks._dots_policy
+
+    def spy(ctx, op, *args, **kw):
+        out = policy(ctx, op, *args, **kw)
+        if not ctx.is_recompute:
+            decisions.append((op, out))
+        return out
+
+    monkeypatch.setattr(blocks, "_dots_policy", spy)
+    grads = {}
+    for remat in ("dots", "full"):
+        vg = train_step.value_and_grad(train_step.make_loss_fn(
+            c, train_step.StepConfig(remat=remat)))
+        (l, _), grads[remat] = vg(p, pb)
+        np.testing.assert_allclose(float(l), float(want_l), rtol=1e-6)
+    _assert_tree_close(grads["dots"], want, 1e-6, 1e-4, "dots")
+    for a, b in zip(tree.leaves(grads["dots"]), tree.leaves(grads["full"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    saved = [op for op, d in decisions
+             if d == CheckpointPolicy.MUST_SAVE]
+    per_layer = 7 if c.act == "swiglu" else 6
+    assert len(saved) == per_layer * c.n_layers
+    assert all(op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default) for op in saved)
+    recomputed = [op for op, d in decisions
+                  if d != CheckpointPolicy.MUST_SAVE]
+    assert torch.ops.aten.bmm.default in recomputed     # q k^T, p v
+    assert len(recomputed) > len(saved)
+
+
 def test_training_forward_matches_the_serving_prefill():
     """``lm.forward`` (the training path, no caches) gives the logits
     ``lm.prefill`` (``stack_prefill``) gives at the last position (the
@@ -205,13 +255,18 @@ def test_training_forward_matches_the_serving_prefill():
 
 
 def test_forward_options_that_are_not_ported_raise():
+    """Every option of the reference is ported: ``remat="dots"`` and
+    ``impl="grouped"`` give the defaults' logits; an option the
+    reference does not have raises."""
     _, c = _configs("gpt-117m")
     p = lm.init(c, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        lm.forward(c, p, toks, remat="dots")
-    with pytest.raises(NotImplementedError, match="repeat"):
-        lm.forward(c, p, toks, impl="grouped")
+    want, _ = lm.forward(c, p, toks)
+    for kw in ({"remat": "dots"}, {"impl": "grouped"}):
+        torch.testing.assert_close(lm.forward(c, p, toks, **kw)[0], want,
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="impl"):
+        lm.forward(c, p, toks, impl="flash")
     with pytest.raises(ValueError, match="remat"):
         lm.forward(c, p, toks, remat="some")
     with pytest.raises(TypeError, match="ResNetConfig"):
