@@ -3,14 +3,14 @@
 
   python3 chip_smoke.py [--profile | --times | --train [--profile] |
                          --families [--profile] | --generate [--profile] |
-                         --harness | --dryrun]
+                         --harness | --dryrun | --parallel]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs thirteen phases, any failure of which exits non-zero:
+instance, then runs fourteen phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -274,6 +274,25 @@ instance, then runs thirteen phases, any failure of which exits non-zero:
      dense decode's grouped ``sdpa`` against its repeat one in bf16 at
      full llama3.2-3b and llava-next-34b head shapes
      (``check_grouped_decode``).
+  13. parallel — data-parallel and pipeline-parallel ranks
+     (``launch.mesh.spawn``) that share the one card over gloo (NCCL
+     takes one card a rank; the script says so on a line): (a)
+     ``llm_train``'s dp2 step on full-width gpt-800m, sequence
+     ``PAR_SEQ``, global batch ``PAR_BATCH``, fp32 sync with ZeRO-1
+     AdamW slices: per rank the losses of ``PAR_STEPS`` steps, ms a
+     step, ``max_memory_allocated`` beside the reckoned memory, and a
+     digest of the params, which must be equal across the ranks; (b) a
+     reduced fp32 gpt-800m (TF32 off) at dp2 against dp1 on the card
+     (losses at rtol 1e-4), its int8 sync against the same dp2 run on
+     CPU ranks (error-feedback codes within one, in at most 0.1 % of
+     entries), and the dp2 reduced ResNet step with BatchNorm synced
+     over the ranks against its dp1 step (rtol 1e-4); (c)
+     ``pipeline_gpt``'s pp4 forward at full gpt-117m width, 8
+     microbatches of global batch ``PP_BATCH``, four ranks on the card,
+     against the sequential forward of the same layers under phase 1's
+     bf16 gate, with its ``bubble_fraction`` (3/11) and ms. Every number
+     it prints carries ``PAR_NOTE`` and the card's name and power limit;
+     a rank that fails fails the phase.
 
 ``--train`` runs phases 7 and 8 alone (no kernel is built: the training
 paths launch none) and prints no result line. ``--families`` builds the
@@ -281,7 +300,9 @@ kernels and runs phase 9 alone, and ``--generate`` phase 10 alone; neither
 prints a result line. ``--harness [--profile]`` runs phase 11 alone (no
 kernel is built) and prints no result line.
 ``--dryrun`` runs the grouped-decode check and phase 12 alone (no
-kernel is built) and prints no result line.
+kernel is built) and prints no result line. ``--parallel`` runs phase
+13 alone (no kernel is built: no kernel is on the data-parallel or
+pipeline path) and prints no result line.
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
 (neither is measured there), and no result line: for timing another
@@ -373,11 +394,12 @@ INT8_POOL_BLOCKS = 129
 SERVE_POINTS = "cache=slotted,cache=paged,policy=continuous"
 SLO_POINTS = ("trace=long_prefill,cache=paged,kv_dtype=fp32",
               "trace=shared_prefix,kv_dtype=fp32,sched=phased")
-#: phase 6's depth (``bench run --layers``): llama3.2-3b's first 14 of
+#: phase 6's depth (``bench run --layers``): llama3.2-3b's first 12 of
 #: its 28 layers at full width. The cells are host-bound, so their wall
 #: scales with the layers' launches: at full depth phase 6 took 558-815
-#: s of the script's 732-1087 s on the card machine's hosts
-SERVE_LAYERS = 14
+#: s of the script's 732-1087 s on the card machine's hosts, at 14
+#: layers 311.5-376.3 s of 763.0-926.7 s (the latter with phase 13)
+SERVE_LAYERS = 12
 #: phase 7's measured steps per llm_train cell: two windows of two
 #: ~0.9 s steps, many times the NVML energy counter's ~100 ms update
 #: interval
@@ -3127,6 +3149,317 @@ def phase_dryrun(dev) -> None:
     log(f"[wall] phase 12 {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data-parallel and pipeline-parallel ranks on one card
+# ---------------------------------------------------------------------------
+
+#: phase 13: every number it prints carries this note beside the card
+PAR_NOTE = "ranks share one card over gloo; not a scaling number"
+#: 13a: llm_train's dp2 cell on full-width gpt-800m (sequence, global
+#: batch, steps); 13c: pipeline_gpt's pp4 forward on full-width gpt-117m
+PAR_SEQ, PAR_BATCH, PAR_STEPS = 128, 16, 3
+#: 13a syncs the accumulated gradients once a step: the card's default
+#: (each microbatch's buckets as they come) moves 4x the bytes through
+#: gloo's host all-reduce, 12-37 s a step on an H100 at 700 W against
+#: 5-9 s, and overlaps nothing on one card; 13b runs the overlapped path
+PAR_OVERLAP = False
+PP_BATCH = 32
+
+
+def _par(msg: str, card: str) -> None:
+    log(f"[parallel] {msg} ({card}; {PAR_NOTE})")
+
+
+def _digest(tree_) -> str:
+    """sha256 over every leaf's bytes, in the reference's leaf order."""
+    import hashlib
+    from repro_torch.core import tree
+    h = hashlib.sha256()
+    for x in tree.leaves(tree_):
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ranks_wait(world) -> None:
+    """Wait for the card and, in a world of ranks, for every rank."""
+    if world.device.type == "cuda":
+        torch.cuda.synchronize(world.device)
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+
+
+def _dp_lm(world, c, mode: str, k: int, seq: int, gb: int, steps: int,
+           overlap=None, cpu_init: bool = False):
+    """``steps`` dp steps of ``make_dp_train_step`` from seeded weights on
+    this rank's world: (losses, ms a step, params, sync state). The
+    weights are drawn on the run's device, or with ``cpu_init`` on the
+    CPU and copied (the same weights on the card and on the CPU)."""
+    from repro_torch.bench.spec import Placement
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.launch.mesh import mesh_for
+    from repro_torch.parallel import grad_sync as gs
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import StepConfig, init_train_state
+    dev = world.device
+    oc = OptConfig(warmup=2, total_steps=1000)
+    at = torch.device("cpu") if cpu_init else dev
+    p, o = init_train_state(c, oc, torch.Generator(device=at).manual_seed(0),
+                            at)
+    p, o = tree.tree_map(lambda t: t.to(dev), (p, o))
+    plan = shd.make_plan(c, mesh_for(Placement.of(f"dp{world.world_size}")),
+                         ShapeConfig("par", seq, gb, "train"))
+    p, o, zero = shd.shard_train_state(plan, p, o, c)
+    sync = gs.default_sync(mode, dev)
+    if overlap is not None:
+        sync = dataclasses.replace(sync, overlap=overlap)
+    step = gs.make_dp_train_step(c, oc, StepConfig(microbatches=k),
+                                 plan=plan, sync=sync, zero=zero)
+    s = gs.init_sync_state(p, sync)
+    toks = torch.from_numpy(synthetic_tokens(gb, seq, c.vocab)[:, :seq])
+    batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1).to(dev)}
+    losses, ms = [], []
+    for _ in range(steps):
+        _ranks_wait(world)
+        t0 = time.perf_counter()
+        p, o, s, m = step(p, o, s, batch)
+        losses.append(float(m["loss"]))
+        _ranks_wait(world)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, p, s, sync
+
+
+def _dp_resnet(world_or_dev, steps: int = 3):
+    """Reduced fp32 ResNet, ``steps`` AdamW steps on one global batch:
+    under a dp2 plan (BatchNorm synced) in a world, else on one device."""
+    from repro_torch.bench.spec import Placement
+    from repro_torch.configs.resnet50 import CONFIG
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.launch.mesh import mesh_for
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.core import tree
+    from repro_torch.train.step import init_train_state, make_resnet_train_step
+    world = None if isinstance(world_or_dev, torch.device) else world_or_dev
+    dev = world_or_dev if world is None else world.device
+    c = CONFIG.reduced(img_size=64, width=16, dtype="float32",
+                       param_dtype="float32")
+    oc = OptConfig(warmup=2, total_steps=1000)
+    p, o = init_train_state(c, oc, torch.Generator().manual_seed(0),
+                            torch.device("cpu"))
+    p, o = tree.tree_map(lambda t: t.to(dev), (p, o))
+    kw = {}
+    if world is not None:
+        plan = shd.make_dp_plan(mesh_for(Placement.of("dp2")))
+        p, o, zero = shd.shard_train_state(plan, p, o)
+        kw = {"plan": plan, "zero": zero}
+    step = make_resnet_train_step(c, oc, **kw)
+    imgs, labels = synthetic_images(8, c.img_size, c.n_classes)
+    batch = {"images": torch.from_numpy(imgs).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    losses = []
+    for _ in range(steps):
+        p, o, m = step(p, o, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def par_rank_dp(world, card: str) -> dict:
+    """Phase 13a and 13b's card side, one rank of two on one card."""
+    from repro_torch.bench.workloads.llm_train import _microbatches
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": world.rank}
+    # 13a: full-width gpt-800m, llm_train's dp2 cell, fp32 sync
+    c = get_config("gpt-800m")
+    k = _microbatches(PAR_BATCH, world.world_size)
+    torch.cuda.reset_peak_memory_stats(world.device)
+    losses, ms, p, _, sync = _dp_lm(world, c, "fp32", k, PAR_SEQ, PAR_BATCH,
+                                    PAR_STEPS, overlap=PAR_OVERLAP)
+    out["13a"] = {"losses": losses, "ms": ms, "k": k,
+                  "overlap": sync.overlap,
+                  "peak_gb": torch.cuda.max_memory_allocated(world.device)
+                  / 1e9, "digest": _digest(p)}
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 13b: reduced fp32 gpt-800m, fp32 and int8 sync; reduced ResNet
+    rc = get_config("gpt-800m").reduced(dtype="float32",
+                                        param_dtype="float32")
+    for mode, overlap in (("fp32", None), ("int8", False)):
+        losses, _, p, s, sync = _dp_lm(world, rc, mode, 4, 64, 16, 3,
+                                       overlap=overlap, cpu_init=True)
+        out[f"13b-{mode}"] = {"losses": losses, "sync": s.cpu().numpy(),
+                              "digest": _digest(p),
+                              "overlap": sync.overlap}
+    out["13b-resnet"] = _dp_resnet(world)
+    return out
+
+
+def par_rank_int8(world) -> dict:
+    """The reduced fp32 gpt-800m's int8 dp run on this rank's world (13b
+    holds the card's ranks against CPU ranks)."""
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rc = get_config("gpt-800m").reduced(dtype="float32",
+                                        param_dtype="float32")
+    losses, _, _, s, _ = _dp_lm(world, rc, "int8", 4, 64, 16, 3,
+                                overlap=False, cpu_init=True)
+    return {"losses": losses, "sync": s.cpu().numpy()}
+
+
+def par_rank_pipeline(world) -> dict:
+    """Phase 13c: pipeline_gpt's pp4 forward at full gpt-117m width, one
+    stage a rank; rank 0 also runs the same layers in sequence."""
+    from repro_torch.bench.spec import Placement
+    from repro_torch.bench.workloads.pipeline_gpt import (
+        N_MICROBATCH, N_STAGES, SEQ, layer_fn_for)
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.launch.mesh import mesh_for
+    from repro_torch.models import lm
+    from repro_torch.parallel.pipeline import (bubble_fraction,
+                                               pipeline_forward,
+                                               stage_params_split)
+    dev = world.device
+    c = get_config("gpt-117m")
+    params = lm.init(c, torch.Generator(device=dev).manual_seed(0), dev)
+    mesh = mesh_for(Placement.of({"pp": N_STAGES}))
+    fn = layer_fn_for(c)
+    sp = stage_params_split(params["layers"], N_STAGES)
+    toks = torch.from_numpy(synthetic_tokens(PP_BATCH, SEQ, c.vocab)[:, :SEQ])
+    out = {"rank": world.rank, "bubble": bubble_fraction(N_STAGES,
+                                                         N_MICROBATCH)}
+    with torch.no_grad():
+        x = lm._inputs_to_embeds(c, params, toks.to(dev), None)
+        x_mb = x.reshape(N_MICROBATCH, PP_BATCH // N_MICROBATCH, SEQ,
+                         c.d_model)
+        ms = []
+        for _ in range(4):
+            _ranks_wait(world)
+            t0 = time.perf_counter()
+            y = pipeline_forward(mesh, "stage", fn, sp, x_mb)
+            _ranks_wait(world)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["ms"] = ms
+        if world.rank == 0:
+            want = fn(params["layers"], x)
+            err, ratio, share = check_close(y.reshape(want.shape), want,
+                                            torch.bfloat16)
+            out["gate"] = (err, ratio, share)
+    return out
+
+
+def phase_parallel(dev) -> None:
+    """Phase 13: data-parallel and pipeline-parallel ranks through gloo on
+    the one card (``launch.mesh.spawn(..., backend="gloo")``): (a)
+    llm_train's dp2 step on full-width gpt-800m, equal param digests
+    across ranks; (b) reduced fp32 gpt-800m dp2 against dp1 on the card
+    (losses at rtol 1e-4), its int8 sync against the same run on CPU
+    ranks (error-feedback codes within one, in at most 0.1 % of
+    entries), the dp2 ResNet step with synced BatchNorm against dp1;
+    (c) pipeline_gpt's pp4 forward at full gpt-117m width against the
+    sequential forward under phase 1's bf16 gate."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    t_start = time.perf_counter()
+    torch.empty(1, device=dev)      # this process's context, for its stats
+    card = card_line()
+    log(f"[parallel] ranks share one card: gloo (launch.mesh.spawn, "
+        f"backend='gloo'), not nccl, which takes one card a rank")
+    c = get_config("gpt-800m")
+    n = c.param_count()
+    gb = 1e-9
+    k = 4
+    reckon = {"params bf16": 2 * n * gb, "one microbatch's bf16 grads":
+              2 * n * gb, "fp32 grad accumulator": 4 * n * gb,
+              "fp32 bucket copy of the grads": 4 * n * gb,
+              "AdamW m, v, master: half under ZeRO-1": 3 * 4 * n * gb / 2}
+    log(f"[parallel] 13a reckoning per rank, {n / 1e9:.3f} B params: "
+        + ", ".join(f"{key} {v:.1f} GB" for key, v in reckon.items())
+        + f"; about {sum(reckon.values()):.1f} GB before activations "
+        f"(microbatches {k})")
+    t0 = time.perf_counter()
+    ranks = spawn(par_rank_dp, 2, args=(card,), device=dev, backend="gloo")
+    t_dp = time.perf_counter() - t0
+    for r in ranks:
+        a = r["13a"]
+        _par(f"13a gpt-800m dp2 rank {r['rank']}: seq {PAR_SEQ}, global "
+             f"batch {PAR_BATCH}, microbatches {a['k']}, fp32 sync "
+             f"overlap={a['overlap']}: losses {a['losses']}, ms a step "
+             f"{[round(x, 1) for x in a['ms']]}, max_memory_allocated "
+             f"{a['peak_gb']:.2f} GB (reckoned ~{sum(reckon.values()):.1f} "
+             f"GB), params digest {a['digest']}", card)
+    digests = {r["13a"]["digest"] for r in ranks}
+    assert len(digests) == 1, f"rank param digests differ: {digests}"
+    one = types.SimpleNamespace(rank=0, world_size=1, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    full1, ms1, p1, _, _ = _dp_lm(one, c, "fp32", k, PAR_SEQ, PAR_BATCH,
+                                  PAR_STEPS, overlap=PAR_OVERLAP)
+    del p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    _par(f"13a gpt-800m dp1 beside it (one process, the same global "
+         f"batch and steps): losses {full1}, ms a step "
+         f"{[round(x, 1) for x in ms1]}, max_memory_allocated "
+         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", card)
+    assert all(np.isfinite(r["13a"]["losses"]).all() for r in ranks)
+    for mode in ("fp32", "int8"):
+        assert ranks[0][f"13b-{mode}"]["digest"] == \
+            ranks[1][f"13b-{mode}"]["digest"], mode
+    # 13b: dp1 on the card, int8 dp2 on CPU ranks
+    rc = get_config("gpt-800m").reduced(dtype="float32",
+                                        param_dtype="float32")
+    dp1, _, _, _, _ = _dp_lm(one, rc, "fp32", 4, 64, 16, 3, overlap=False,
+                             cpu_init=True)
+    fp32 = ranks[0]["13b-fp32"]["losses"]
+    _par(f"13b reduced fp32 {rc.name}: dp2 losses (fp32 buckets, overlap="
+         f"{ranks[0]['13b-fp32']['overlap']}) {fp32}, dp1 {dp1}", card)
+    np.testing.assert_allclose(fp32, dp1, rtol=1e-4)
+    cpu = spawn(par_rank_int8, 2, device="cpu")
+    flipped, total = 0, 0
+    for r, c_ in zip(ranks, cpu):
+        g, w = r["13b-int8"]["sync"][0], c_["sync"][0]
+        diff = np.abs(g - w)
+        assert (diff <= 2.5 * np.abs(w).max(-1, keepdims=True) + 1e-7).all(), \
+            "an int8 code moved by more than one"
+        flipped += int((diff > 1e-6).sum())
+        total += diff.size
+    _par(f"13b int8 dp2 card vs cpu ranks: losses {ranks[0]['13b-int8']['losses']}"
+         f" vs {cpu[0]['losses']}, error-state codes flipped {flipped} of "
+         f"{total}", card)
+    assert flipped <= 1e-3 * total, (flipped, total)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        r1 = _dp_resnet(dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    r2 = ranks[0]["13b-resnet"]
+    _par(f"13b reduced fp32 ResNet (TF32 off) dp2 with synced BatchNorm: "
+         f"losses {r2}, dp1 {r1}", card)
+    np.testing.assert_allclose(r2, r1, rtol=1e-4)
+    # 13c: the pipeline
+    t0 = time.perf_counter()
+    pp = spawn(par_rank_pipeline, 4, device=dev, backend="gloo")
+    t_pp = time.perf_counter() - t0
+    err, ratio, share = pp[0]["gate"]
+    steady = pp[0]["ms"][1:]
+    _par(f"13c pipeline_gpt pp4 full gpt-117m, {PP_BATCH} x 64 tokens in 8 "
+         f"microbatches: vs the sequential forward max_err={err:.3e} "
+         f"max_err_ratio={ratio:.3e} (bf16 tol {TOL[torch.bfloat16]:.3e}) "
+         f"mismatch_share={share:.3e}; bubble_fraction {pp[0]['bubble']:.4f}"
+         f"; ms a forward {[round(x, 1) for x in pp[0]['ms']]} (steady mean "
+         f"{sum(steady) / len(steady):.1f})", card)
+    assert pp[0]["bubble"] == 3 / 11
+    log(f"[wall] phase 13 {time.perf_counter() - t_start:.1f} s (13a+13b "
+        f"ranks {t_dp:.1f} s, 13c ranks {t_pp:.1f} s)")
+
+
 def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
          peak_dtype, shape, dev_t, source=None):
     """One JSON row; the bound is the larger of the bytes over HBM rate
@@ -3200,6 +3533,11 @@ def main() -> int:
         log(f"[wall] phase 12 alone {time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
+    if "--parallel" in sys.argv[1:]:
+        phase_parallel(dev)
+        log(f"[wall] phase 13 alone {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     if "--train" in sys.argv[1:]:
         phase_train(dev, profile="--profile" in sys.argv[1:])
         phase_resnet(dev, profile="--profile" in sys.argv[1:])
@@ -3241,6 +3579,7 @@ def main() -> int:
                                           profile="--profile" in sys.argv[1:])
     phase_harness(dev, profile="--profile" in sys.argv[1:])
     phase_dryrun(dev)
+    phase_parallel(dev)
     for row in rows:               # the worst over phases 1, 9 and 10
         row["max_abs_err"] = max(row["max_abs_err"],
                                  family_errs.get(row["name"], 0.0),

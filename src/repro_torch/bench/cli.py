@@ -20,9 +20,15 @@ Port of ``src/repro/bench/cli.py``: ``list``, ``run``, ``report`` and
 ``run`` runs on the card unless given ``--device cpu``
 and raises when there is none; ``--smoke`` (or the ``smoke`` tag, as in
 the reference) selects each workload's reduced point set. One process
-runs every selected workload on one device, so there is no device-count
-re-exec; ``run`` re-execs itself once only for opt-in environment
-tuning (``envtune``: ``REPRO_TCMALLOC=1`` preloads tcmalloc).
+runs every selected workload; a point whose placement spans N devices
+runs in N ranks that the runner starts (gloo processes on the CPU, up
+to ``REPRO_MAX_LOCAL_DEVICES``, default 8; one NCCL rank a card on
+cards) or is deferred with its sbatch script, in the place of the
+reference's forced host platform. Under a launcher that set
+``WORLD_SIZE`` (``launch/slurm.py``'s scripts) the process joins that
+world and rank 0 writes the records. ``run`` re-execs itself once only
+for opt-in environment tuning (``envtune``: ``REPRO_TCMALLOC=1``
+preloads tcmalloc).
 
 Each record also prints the classic ``name,us_per_call,derived`` CSV
 line. ``run`` ends with ``all benchmarks complete`` and exits non-zero
@@ -50,6 +56,7 @@ from repro_torch.bench.spec import (
 )
 from repro_torch.core.results import heatmap, table
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh
 from repro_torch.power.methods import POWER_CHOICES
 
 DEFAULT_OUT = "artifacts/bench_torch"
@@ -128,6 +135,10 @@ def cmd_run(args) -> int:
         return 0
     smoke = args.smoke or "smoke" in (_parse_list(args.tags) or [])
     overrides = _parse_points(args.points)
+    world = None
+    if mesh.env_world_size() > 1:
+        world = mesh.init_world(device)
+        device = world.device
     failures = []
     for spec in specs:
         print(f"\n###### {spec.name} — {spec.analog} ######", flush=True)
@@ -135,7 +146,7 @@ def cmd_run(args) -> int:
             spec, device=device, out_dir=args.out, power=args.power,
             warmup=args.warmup, iters=args.iters, smoke=smoke,
             point_overrides=overrides, retries=args.retries,
-            layers=args.layers)
+            layers=args.layers, world=world)
         records = runner.run(verbose=args.verbose)
         _render(spec, records)
         _emit_lines(spec, records)

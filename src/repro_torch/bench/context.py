@@ -5,8 +5,12 @@ its label, warmup/iters timing with trapezoid-integrated energy, and a
 cross-point memo. Where the reference blocks on ``jax.block_until_ready``
 the port calls ``torch.cuda.synchronize(device)`` when the run is on the
 card (PyTorch returns before the card has finished). The context carries
-the run's explicit ``device``; the reference's ``mesh()`` has no port
-(one device only, ROADMAP Queue 1 item 8).
+the run's explicit ``device`` and, as the reference's, the current
+point's ``placement`` and its ``mesh()``: in a rank the runner started,
+the process-group mesh of the rank's world (``launch.mesh``), and for a
+one-device point a mesh of one rank. With a mesh of several ranks
+``sync`` also waits for every rank (a barrier), so the ranks enter each
+timed window together.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch.mesh import mesh_for
 from repro_torch.power.ctxmgr import get_power
 from repro_torch.power.methods import PowerMethod
 
@@ -59,8 +65,9 @@ class RunContext:
                  power_source: str = "none",
                  power_interval_ms: float = 20.0,
                  warmup: int = 1, iters: int = 3, smoke: bool = False,
-                 layers: Optional[int] = None):
+                 layers: Optional[int] = None, mesh=None):
         self.device = device
+        self._mesh = mesh
         self.out_dir = pathlib.Path(out_dir)
         self.power_methods = list(power_methods)
         self.power_source = power_source
@@ -80,10 +87,31 @@ class RunContext:
             self.cache[key] = factory()
         return self.cache[key]
 
+    def mesh(self, placement=None):
+        """The mesh of ``placement`` (default: the current point's): the
+        world's in a rank, else a mesh of one rank."""
+        placement = placement or self.placement
+        if placement is None:
+            raise RuntimeError("RunContext has no placement — mesh() is "
+                               "only valid inside a point's build")
+        if self._mesh is not None:
+            if tuple(self._mesh.shape.values()) != placement.mesh_shape:
+                raise ValueError(f"the world's mesh {self._mesh} is not "
+                                 f"{placement.label}")
+            return self._mesh
+        if placement.n_devices != 1:
+            raise RuntimeError(f"{placement.label} needs ranks; the runner "
+                               f"starts them")
+        return self.memo(("mesh", placement.label), lambda: mesh_for(
+            placement))
+
     def sync(self) -> None:
-        """Wait for the card's queued work (a no-op on the CPU)."""
+        """Wait for the card's queued work (a no-op on the CPU) and, in a
+        world of several ranks, for every rank."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self._mesh is not None and self._mesh.size > 1:
+            dist.barrier()
 
     def measure(self, fn: Callable, *args, warmup: Optional[int] = None,
                 iters: Optional[int] = None, power: bool = True,

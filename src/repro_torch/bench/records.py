@@ -308,7 +308,8 @@ def scaling_base_key(rec: ResultRecord) -> tuple:
     return (rec.workload, params, rec.power_source)
 
 
-def stamp_scaling_metrics(records: list) -> None:
+def stamp_scaling_metrics(records: list,
+                          device_cap: Optional[int] = None) -> None:
     """Derive the cross-placement scaling metrics for one result set.
 
     Every ok record with a throughput metric gains ``tok_s_per_device``
@@ -318,6 +319,11 @@ def stamp_scaling_metrics(records: list) -> None:
     relative to 1 device: 1.0 = linear scaling) and
     ``wh_per_token_scaling`` (energy per token relative to 1 device:
     1.0 = energy parity).
+
+    ``device_cap`` (the reference's emulation cap): when N "devices" are
+    ranks sharing ``cap`` host cores, the per-device figures normalize
+    by ``n_eff = min(n, cap)`` (recorded as ``effective_devices``) and
+    ``wh_per_token_scaling`` is rescaled by ``n_eff / n``.
     """
     ones = {}
     for r in records:
@@ -337,7 +343,10 @@ def stamp_scaling_metrics(records: list) -> None:
         if not math.isfinite(tp):
             continue
         n = max(r.n_devices, 1)
-        r.metrics.setdefault("tok_s_per_device", tp / n)
+        n_eff = n if device_cap is None else max(min(n, int(device_cap)), 1)
+        if n_eff != n:
+            r.metrics.setdefault("effective_devices", n_eff)
+        r.metrics.setdefault("tok_s_per_device", tp / n_eff)
         if n == 1:
             continue
         base = ones.get(scaling_base_key(r))
@@ -348,7 +357,7 @@ def stamp_scaling_metrics(records: list) -> None:
         except (TypeError, ValueError):
             continue
         if math.isfinite(base_tp) and base_tp > 0.0:
-            r.metrics["scaling_efficiency"] = (tp / n) / base_tp
+            r.metrics["scaling_efficiency"] = (tp / n_eff) / base_tp
         eff_name = next((m for m in EFFICIENCY_METRICS
                          if m in r.metrics and m in base.metrics), None)
         if eff_name is None:
@@ -359,8 +368,11 @@ def stamp_scaling_metrics(records: list) -> None:
         except (TypeError, ValueError):
             continue
         if all(math.isfinite(v) and v > 0.0 for v in (cur_eff, base_eff)):
-            # (Wh/token at n devices) / (Wh/token at 1) == eff_1 / eff_n
-            r.metrics["wh_per_token_scaling"] = base_eff / cur_eff
+            # (Wh/token at n devices) / (Wh/token at 1) == eff_1 / eff_n;
+            # with ranks sharing cores, n_eff/n cancels the power model
+            # billing each rank as a full device
+            r.metrics["wh_per_token_scaling"] = (
+                (base_eff / cur_eff) * (n_eff / n))
 
 
 def scaling_floor_violations(records: list, floor: float) -> list:

@@ -14,10 +14,12 @@ a metrics dict. Cross-point state (inputs, weights) lives in
 workload.
 
 ``Placement`` names a device mesh by parallelism axis (``{"dp": 4}``,
-``{"dp": 2, "tp": 2}``), as in the reference; the port runs one device
-only so far, and the runner records a point whose placement spans more
-than one as ``deferred`` (ROADMAP Queue 1 item 8). The reference's jax
-mesh-axis mapping has no port.
+``{"dp": 2, "tp": 2}``), as in the reference, and maps it onto the
+mesh axes the sharding rules name (``mesh_shape`` / ``mesh_axes``:
+``data`` and ``model`` always, ``stage`` for ``pp``). A point whose
+placement spans more than one device runs in that many ranks
+(``launch.mesh``) where the process can start them, and is recorded as
+``deferred`` with its sbatch script where it cannot.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ BuildFn = Callable[[dict, "object"], StepFns]
 KNOWN_TAGS = ("smoke", "full", "train", "serve", "vision", "kernels",
               "analysis")
 
+#: placement axis -> mesh axis name (the names the sharding rules in
+#: repro_torch.parallel.sharding key on; unknown axes pass through)
+MESH_AXIS_NAMES = {"dp": "data", "tp": "model", "pp": "stage", "pod": "pod"}
 #: canonical placement axis order — fixes the mesh's device-major order
 #: (lowest-bandwidth/lowest-frequency collective axes first) and makes
 #: every spelling of the same mesh produce one canonical label
@@ -110,6 +115,31 @@ class Placement:
 
     def dict(self) -> dict:
         return dict(self.axes)
+
+    def _mesh_entries(self) -> tuple:
+        """(mesh axis name, size) pairs. The "data" and "model" axes are
+        always present (size 1 when the placement doesn't use them): the
+        sharding rules name them unconditionally."""
+        sizes = self.dict()
+        entries = []
+        if "pod" in sizes:
+            entries.append(("pod", sizes.pop("pod")))
+        entries.append(("data", sizes.pop("dp", 1)))
+        entries.append(("model", sizes.pop("tp", 1)))
+        if "pp" in sizes:
+            entries.append(("stage", sizes.pop("pp")))
+        for a in sorted(sizes):     # unknown axes pass through by name
+            entries.append((MESH_AXIS_NAMES.get(a, a), sizes[a]))
+        return tuple(entries)
+
+    @property
+    def mesh_shape(self) -> tuple:
+        return tuple(n for _, n in self._mesh_entries())
+
+    @property
+    def mesh_axes(self) -> tuple:
+        """Mesh axis names (duck-typed by ``launch.mesh.mesh_for``)."""
+        return tuple(a for a, _ in self._mesh_entries())
 
     def __str__(self) -> str:
         return self.label

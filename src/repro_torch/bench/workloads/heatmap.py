@@ -14,11 +14,12 @@ step and records tokens/s and ms a step; the runner stamps
 
 What differs from the reference:
 
-  * **Placement.** The port runs on one device: the dp1 cells measure
-    (a batch is placed on the device; the reference's ``make_dp_plan``
-    only places it on a mesh), and the runner records the dp2, dp4 and
-    dp8 cells as ``deferred``, each with its sbatch script (ROADMAP
-    Queue 1 item 8).
+  * **Placement.** A dpN column runs in N ranks (``launch.mesh``)
+    under ``make_dp_plan``: each rank trains on its rows of the global
+    batch, the gradients are all-reduced to their mean (the reference's
+    GSPMD step computes the global mean) and AdamW's state is cut to
+    ZeRO-1 slices. A column the process cannot place (dp2 and wider on
+    one card) is ``deferred`` with its sbatch script.
   * **Model scale.** On the CPU a cell trains the reference's reduced
     gpt-117m (2 layers, d_model 128, vocab 2048), so its records can be
     held against the reference's; on a card, full-width, full-depth
@@ -56,6 +57,7 @@ from repro_torch.core import tree
 from repro_torch.core.metrics import mfu, tokens_per_s
 from repro_torch.core.params import Space
 from repro_torch.data.synthetic import synthetic_tokens
+from repro_torch.parallel import sharding as shd
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import (StepConfig, init_train_state,
                                     make_train_step)
@@ -81,18 +83,28 @@ def config(device: torch.device):
 
 
 def _setup(ctx):
-    """``(config, opt config, params, opt_state, step, model_scale,
-    n_params)`` on the run's device, built once."""
+    """``(config, opt config, params, opt_state, model_scale, n_params)``
+    on the run's device, built once."""
     def make():
         c, scale = config(ctx.device)
         oc = OptConfig(warmup=1, total_steps=100)
         gen = torch.Generator(device=ctx.device).manual_seed(SEED)
         params, opt_state = init_train_state(c, oc, gen, ctx.device)
         n_params = sum(p.numel() for p in tree.leaves(params))
-        step = make_train_step(c, oc, StepConfig())
-        return c, oc, params, opt_state, step, scale, n_params
+        return c, oc, params, opt_state, scale, n_params
 
     return ctx.memo("heatmap", make)
+
+
+def _dp_step(ctx, c, oc, params, placement: Placement):
+    """The placement's step and ZeRO-1 layout, once per placement."""
+    def make():
+        plan = shd.make_dp_plan(ctx.mesh(placement))
+        zero = shd.Zero1(plan, params)
+        return make_train_step(c, oc, StepConfig(), plan=plan,
+                               zero=zero), zero
+
+    return ctx.memo(("heatmap_dp", placement.label), make)
 
 
 @workload(
@@ -113,8 +125,9 @@ def _setup(ctx):
     heatmap_keys=("placement", "global_batch", "tokens_per_s"),
 )
 def build(pt, ctx):
-    """dp x batch train-step sweep (paper Fig. 4), one device."""
-    c, oc, params, opt_state, step, scale, n_params = _setup(ctx)
+    """dp x batch train-step sweep (paper Fig. 4)."""
+    c, oc, params, opt_state, scale, n_params = _setup(ctx)
+    step, zero = _dp_step(ctx, c, oc, params, Placement.of(pt["placement"]))
     gb = pt["global_batch"]
     toks = torch.from_numpy(synthetic_tokens(gb, SEQ, c.vocab)[:, :SEQ])
     toks = toks.to(ctx.device)
@@ -125,7 +138,7 @@ def build(pt, ctx):
         # the step updates its state in place, and the base state is
         # memoized across cells and retries: each cell trains a copy
         p = tree.tree_map(torch.Tensor.clone, params)
-        o = tree.tree_map(torch.Tensor.clone, opt_state)
+        o = shd.shard_opt_state(zero, opt_state)
         losses = []
 
         def one():
@@ -158,7 +171,8 @@ def build(pt, ctx):
         if cuda:
             out["peak_mem_gb"] = (torch.cuda.max_memory_allocated(ctx.device)
                                   / 1e9)
-            out["mfu"] = mfu(6 * n_params * gb * SEQ, m.seconds, 1)
+            out["mfu"] = mfu(6 * n_params * gb * SEQ, m.seconds,
+                             zero.mesh.size)
         return out
 
     return {"run": run}

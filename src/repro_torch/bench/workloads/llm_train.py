@@ -12,9 +12,13 @@ merit; the runner stamps ``tok_s_per_device``.
 
 What differs from the reference:
 
-  * **Placement.** The port runs on one device: the dp1 cells measure,
-    and the runner records the dp2 and dp4 cells as ``deferred``
-    (ROADMAP Queue 1 item 8).
+  * **Placement.** A dpN cell runs in N ranks (``launch.mesh``; gloo
+    processes on the CPU, one card a rank on cards), each training on
+    its rows of the global batch with the plan's dp group reducing the
+    buckets and AdamW's state cut to ZeRO-1 slices
+    (``parallel.sharding``); the microbatch count comes from the
+    per-rank batch, as the reference's. A cell the process cannot place
+    (dp2 on one card) is ``deferred`` with its sbatch script.
   * **Model scale.** On the CPU a cell trains the reference's reduced
     config (d_model 128, 4 layers), so its records can be held against
     the reference's; on a card, full-width, full-depth gpt-800m (bf16
@@ -34,13 +38,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.bench.spec import workload
+from repro_torch.bench.spec import Placement, workload
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import tree
 from repro_torch.core.metrics import tokens_per_s
 from repro_torch.core.params import Space
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.parallel import grad_sync as gs
+from repro_torch.parallel import sharding as shd
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import StepConfig, init_train_state
 
@@ -77,13 +83,29 @@ def base_state(ctx, arch: str):
     return ctx.memo(("llm_train", arch), make)
 
 
-def _step(ctx, c, oc, gb: int, mode: str):
+def _plan(ctx, c, params, placement: Placement):
+    """The placement's plan and ZeRO-1 layout, once per placement."""
+    def make():
+        plan = shd.make_plan(c, ctx.mesh(placement),
+                             ShapeConfig("bench", 0, 0, "train"))
+        return plan, shd.Zero1(plan, params, c)
+
+    return ctx.memo(("llm_train_plan", c.name, placement.label), make)
+
+
+def _step(ctx, c, oc, params, placement: Placement, gb: int, mode: str):
+    plan, zero = _plan(ctx, c, params, placement)
+    k = _microbatches(gb, shd.dp_size(plan))
+
     def make():
         sync = gs.default_sync(mode, ctx.device)
-        sc = StepConfig(microbatches=_microbatches(gb, 1))
-        return gs.make_dp_train_step(c, oc, sc, sync=sync), sync
+        sc = StepConfig(microbatches=k)
+        return gs.make_dp_train_step(c, oc, sc, plan=plan, sync=sync,
+                                     zero=zero), sync
 
-    return ctx.memo(("llm_train_step", c.name, gb, mode), make)
+    step, sync = ctx.memo(("llm_train_step", c.name, placement.label, gb,
+                           mode), make)
+    return step, sync, zero, k
 
 
 @workload(
@@ -103,10 +125,12 @@ def _step(ctx, c, oc, gb: int, mode: str):
     primary_metric="tokens_per_s",
 )
 def build(pt, ctx):
-    """LLM train-step sweep over global batch (one device)."""
+    """LLM train-step sweep over global batch x device placement."""
     arch, gb, seq = pt["arch"], pt["global_batch"], pt["seq"]
     c, oc, params, opt_state, scale, n_params = base_state(ctx, arch)
-    step, sync = _step(ctx, c, oc, gb, pt.get("grad_sync", "fp32"))
+    step, sync, zero, k = _step(ctx, c, oc, params,
+                                Placement.of(pt.get("placement", 1)), gb,
+                                pt.get("grad_sync", "fp32"))
     toks = torch.from_numpy(synthetic_tokens(gb, seq, c.vocab)[:, :seq])
     toks = toks.to(ctx.device)
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
@@ -116,7 +140,7 @@ def build(pt, ctx):
         # the step updates its state in place, and the base state is
         # memoized across cells and retries: each cell trains a copy
         p = tree.tree_map(torch.Tensor.clone, params)
-        o = tree.tree_map(torch.Tensor.clone, opt_state)
+        o = shd.shard_opt_state(zero, opt_state)
         s = gs.init_sync_state(p, sync)
         losses = []
 
@@ -136,7 +160,7 @@ def build(pt, ctx):
                "tokens_per_wh": (gb * seq / m.energy_wh)
                if m.energy_wh > 0 else 0.0,
                "loss_first": measured[0], "loss_last": measured[-1],
-               "microbatches": _microbatches(gb, 1),
+               "microbatches": k,
                "model_scale": scale, "n_params": n_params}
         if cuda:
             out["peak_mem_gb"] = (torch.cuda.max_memory_allocated(ctx.device)

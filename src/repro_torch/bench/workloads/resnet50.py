@@ -10,9 +10,14 @@ ms/step, energy/step and images/Wh; the runner stamps
 
 What differs from the reference:
 
-  * **Placement.** The port runs on one device: the dp1 cells measure,
-    and the runner records the dp2 and dp4 cells as ``deferred``
-    (ROADMAP Queue 1 item 8).
+  * **Placement.** A dpN cell runs in N ranks (``launch.mesh``) under
+    ``make_dp_plan``, as the reference's: params replicate, each rank
+    trains on its rows of the global batch, BatchNorm's statistics are
+    over every rank's rows (the reference's GSPMD step computes them
+    over the global batch), the gradients are all-reduced (Horovod's
+    all-reduce) and AdamW's state is cut to ZeRO-1 slices. A cell the
+    process cannot place (dp2 on one card) is ``deferred`` with its
+    sbatch script.
   * **Model scale.** On the CPU a cell trains the reference's reduced
     config (``CONFIG.reduced(img_size=64, width=16)``), so its records
     can be held against the reference's; on a card, full-width,
@@ -34,13 +39,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.bench.spec import workload
+from repro_torch.bench.spec import Placement, workload
 from repro_torch.configs.resnet50 import CONFIG
 from repro_torch.core import tree
 from repro_torch.core.metrics import PEAK_FLOPS_BF16, images_per_s
 from repro_torch.core.params import Space
 from repro_torch.data.synthetic import synthetic_images
 from repro_torch.models import resnet
+from repro_torch.parallel import sharding as shd
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import init_train_state, make_resnet_train_step
 
@@ -78,9 +84,17 @@ def base_state(ctx):
     primary_metric="images_per_s",
 )
 def build(pt, ctx):
-    """ResNet50 train-step sweep over global batch (one device)."""
+    """ResNet50 train-step sweep over global batch x device placement."""
     c, oc, params, opt_state, scale, n_params = base_state(ctx)
-    step = make_resnet_train_step(c, oc)
+
+    placement = Placement.of(pt.get("placement", 1))
+
+    def placed():
+        plan = shd.make_dp_plan(ctx.mesh(placement))
+        zero = shd.Zero1(plan, params)
+        return make_resnet_train_step(c, oc, plan=plan, zero=zero), zero
+
+    step, zero = ctx.memo(("resnet50_placed", placement.label), placed)
     gb = pt["global_batch"]
     imgs, labels = synthetic_images(gb, c.img_size, c.n_classes)
     batch = {"images": torch.from_numpy(imgs).to(ctx.device),
@@ -91,7 +105,7 @@ def build(pt, ctx):
         # the step updates its state in place, and the base state is
         # memoized across cells and retries: each cell trains a copy
         p = tree.tree_map(torch.Tensor.clone, params)
-        o = tree.tree_map(torch.Tensor.clone, opt_state)
+        o = shd.shard_opt_state(zero, opt_state)
         losses = []
 
         def one():
@@ -115,7 +129,8 @@ def build(pt, ctx):
             out["peak_mem_gb"] = (torch.cuda.max_memory_allocated(ctx.device)
                                   / 1e9)
             out["model_flop_share"] = (3 * resnet.forward_flops(c) * gb
-                                       / m.seconds / PEAK_FLOPS_BF16)
+                                       / m.seconds / PEAK_FLOPS_BF16
+                                       / zero.mesh.size)
         return out
 
     return {"train": train}

@@ -23,8 +23,12 @@ which the next in-place optimizer step changes, and on the card a copy
 must be complete before the host reads it. So the snapshot is an owned
 host copy of every leaf (``.to("cpu", copy=True)``, which waits for the
 copy), taken before ``save_async`` returns. ``restore`` places leaves
-into the template's dtypes and devices. The reference's ``shardings``
-(elastic resharding on restore) wait for ROADMAP Queue 1 item 8.
+into the template's dtypes and devices. In the place of the reference's
+``shardings`` (elastic resharding on restore) a dp world passes ``dp``
+(``parallel.sharding.DpCheckpoint``): on save every rank gathers the
+ZeRO-1 slices into whole leaves, the reference's layout, and rank 0
+alone writes; on restore every rank reads the whole leaves and cuts its
+own slices, for whatever dp size restores.
 """
 from __future__ import annotations
 
@@ -160,7 +164,7 @@ def latest_valid_step(out_dir) -> Optional[int]:
     return None
 
 
-def restore_resilient(template, out_dir):
+def restore_resilient(template, out_dir, dp=None):
     """Restore the newest *valid* checkpoint, skipping corrupted or
     partial steps (falls back to the previous atomic step).
 
@@ -170,7 +174,7 @@ def restore_resilient(template, out_dir):
     skipped: list[int] = []
     for s in reversed(_all_steps(out_dir)):
         if verify_step(out_dir, s):
-            tree, manifest = restore(template, out_dir, step=s)
+            tree, manifest = restore(template, out_dir, step=s, dp=dp)
             return tree, manifest, skipped
         skipped.append(s)
     raise FileNotFoundError(
@@ -185,9 +189,10 @@ def _load(path: pathlib.Path, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(template, out_dir, step: Optional[int] = None):
+def restore(template, out_dir, step: Optional[int] = None, dp=None):
     """Restore into the structure of ``template``: each leaf a new tensor
-    with the template leaf's dtype, on its device. Returns
+    with the template leaf's dtype, on its device (whole leaves, cut to
+    this rank's slices by ``dp`` when given). Returns
     ``(tree, manifest)``."""
     if step is None:
         step = latest_step(out_dir)
@@ -201,21 +206,34 @@ def restore(template, out_dir, step: Optional[int] = None):
         v = entries[_key(path)]
         t = _load(d / v["file"], v["dtype"])
         leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
-    return tree_util.unflatten(template, leaves), manifest
+    tree = tree_util.unflatten(template, leaves)
+    return (tree if dp is None else dp.local(tree)), manifest
 
 
 class CheckpointManager:
     """Async, retention-managed checkpointing for the training loop."""
 
-    def __init__(self, out_dir, keep: int = 3):
+    def __init__(self, out_dir, keep: int = 3, dp=None):
         self.out_dir = pathlib.Path(out_dir)
         self.keep = keep
+        #: a dp world's gather-then-rank-0-writes rule (DpCheckpoint)
+        self.dp = dp
         self._thread: Optional[threading.Thread] = None
         self._exc: Optional[BaseException] = None
         self.last_saved: Optional[int] = None
 
+    def _mine(self, tree):
+        """``tree`` whole, or None on a rank that does not write."""
+        if self.dp is None:
+            return tree
+        tree = self.dp.whole(tree)          # collective
+        return tree if self.dp.writer else None
+
     def save_async(self, tree, step: int, extra_meta: Optional[dict] = None):
         self.wait()  # one in-flight save at a time (re-raises prior failure)
+        tree = self._mine(tree)
+        if tree is None:
+            return
         flat = snapshot(tree)  # owned host copies, before returning
 
         def work():
@@ -231,9 +249,13 @@ class CheckpointManager:
 
     def save_sync(self, tree, step: int, extra_meta: Optional[dict] = None):
         self.wait()
-        save(tree, self.out_dir, step, extra_meta)
-        self.last_saved = step
-        self._gc()
+        mine = self._mine(tree)
+        if mine is not None:
+            save(mine, self.out_dir, step, extra_meta)
+            self.last_saved = step
+            self._gc()
+        if self.dp is not None:
+            self.dp.barrier()   # every rank returns once the step is written
 
     def wait(self):
         """Join any in-flight save; re-raise an exception it captured

@@ -12,9 +12,11 @@ lesson), and ``torch.distributed``'s rendezvous variables: ``MASTER_ADDR``
 each task, ``RANK`` and ``LOCAL_RANK`` from ``SLURM_PROCID`` and
 ``SLURM_LOCALID``. No ``REPRO_TPU`` or ``JAX_*`` variable is set.
 
-The port trains and serves on one device: a script of more than one
-rank starts processes that wait for multi-device support (ROADMAP Queue
-1 item 8). :func:`write_launch_scripts` renders the training scripts
+Each task joins the world from those variables (``launch.mesh.
+init_world``): the bench CLI runs the points whose placement fills the
+world and rank 0 writes the records; ``launch.train --placement dpN``
+trains as one of the N ranks. :func:`write_launch_scripts` renders the
+training scripts
 and the dry run's (``repro_torch.launch.dryrun --all``), which counts
 every cell on ``meta`` tensors in one task.
 """
@@ -115,8 +117,9 @@ def render_bench_job(*, workload: str, placement, point: dict,
 
 
 def write_launch_scripts(out_dir, archs, system: SystemConfig | None = None):
-    """Render train scripts for every arch (one node and two) and the
-    dry-run script (one task)."""
+    """Render train scripts for every arch (one node and two, every task
+    a rank of the script's dp world) and the dry-run script (one
+    task)."""
     system = system or SystemConfig()
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -126,7 +129,8 @@ def write_launch_scripts(out_dir, archs, system: SystemConfig | None = None):
             script = render_job(
                 job_name=f"train_{arch}_{tag}",
                 module="repro_torch.launch.train",
-                args=f"--arch {arch} --preset full",
+                args=(f"--arch {arch} --preset full --placement "
+                      f"dp{nodes * system.gpus_per_node}"),
                 system=system, n_nodes=nodes)
             p = out / f"train_{arch}_{tag}.sbatch"
             p.write_text(script)

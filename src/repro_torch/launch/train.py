@@ -9,24 +9,37 @@ give the same batches, for every model family, with a vlm's patch and
 an encdec's frame inputs; and ``main`` with its flags). ``--device``
 defaults to the CUDA card and raises without one; ``--preset full``
 trains the full-width config (on the card: bf16 compute, fp32 master
-weights). A ``--placement`` of more than one device exits with the
-reference's message: multi-device training is ROADMAP Queue 1 item 8.
+weights). A data-parallel ``--placement`` (``dp2``, ``dp4``, ...)
+trains in that many ranks (``launch.mesh``): joined from the
+environment when a launcher started them (``WORLD_SIZE`` set, as
+``launch/slurm.py``'s scripts do), else spawned here (gloo processes on
+the CPU; NCCL ranks, one a card, on cards). Each rank trains on its rows of the global batch with
+the gradients all-reduced and AdamW's state cut to ZeRO-1 slices
+(``train.step``'s dp plan), rank 0 prints and writes the checkpoints
+(``CheckpointManager(dp=...)``). A placement with ``tp > 1`` exits:
+tensor parallelism across ranks is ROADMAP Queue 1 item 8; a fault
+schedule runs on one rank only.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 
 import numpy as np
 import torch
 
 from repro_torch.bench.spec import Placement
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import tree
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faults.schedule import TRAIN_PRESETS, FaultSchedule
 from repro_torch.faults.supervisor import run_supervised
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.parallel import sharding as shd
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import (StepConfig, init_train_state,
@@ -99,7 +112,7 @@ def make_data_fn(c, global_batch: int, seq_len: int, seed: int = 0,
     return data
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt-117m")
     ap.add_argument("--preset", choices=["full", "tiny"], default="tiny",
@@ -124,32 +137,84 @@ def main(argv=None):
                          "Placement spelling the bench sweeps use")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+
+def _train_rank(world, argv):
+    """One rank of a spawned dp world: rank 0 returns the result."""
+    res = run(parse_args(argv), world)
+    return res if world.rank == 0 else None
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    placement = Placement.of(args.placement)
+    sizes = placement.dict()
+    if sizes.get("tp", 1) > 1 or sizes.get("pp", 1) > 1:
+        raise SystemExit(f"error: placement {placement.label}: "
+                         f"{shd.NOT_EXECUTED} (the pipeline runs in the "
+                         f"pipeline_gpt workload)")
+    n = placement.n_devices
+    if n == 1:
+        return run(args)
+    if args.fault_preset and args.fault_preset != "none":
+        raise SystemExit(f"error: placement {placement.label}: a fault "
+                         f"schedule runs on one rank (--placement dp1)")
+    if mesh_mod.env_world_size() > 1:
+        world = mesh_mod.init_world(args.device)
+        if world.world_size != n:
+            raise SystemExit(f"error: placement {placement.label} needs {n} "
+                             f"ranks, the world has {world.world_size}")
+        return run(args, world)
+    return mesh_mod.spawn(_train_rank, n, args=(argv,),
+                          device=args.device)[0]
+
+
+def run(args, world=None):
+    """Train as the flags say: on one device, or as a rank of ``world``
+    under the placement's dp plan."""
+    placement = Placement.of(args.placement)
+    dev = world.device if world is not None else resolve_device(args.device)
     c = get_config(args.arch)
     if args.preset == "tiny":
         c = c.reduced()
-    placement = Placement.of(args.placement)
-    if placement.n_devices > 1:
-        raise SystemExit(
-            f"error: placement {placement.label} needs "
-            f"{placement.n_devices} devices, process has 1; the port "
-            f"trains on one device (multi-device placement is ROADMAP "
-            f"Queue 1 item 8)")
     oc = OptConfig(lr=args.lr, warmup=max(args.steps // 20, 5),
                    total_steps=args.steps)
     sc = StepConfig(microbatches=args.microbatches)
-    step = make_train_step(c, oc, sc)
 
     # state is rebuilt per supervisor attempt (the step updates it in
     # place, so a crashed attempt's state cannot be reused), then the
     # loop's auto-resume overwrites it from the checkpoint
-    def init_state():
+    def fresh_state():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         return init_train_state(c, oc, gen, dev)
 
-    params, opt_state = init_state()
+    params, opt_state = fresh_state()
+    init_state, dp, quiet = fresh_state, None, False
+    if world is None:
+        step = make_train_step(c, oc, sc)
+    else:
+        plan = shd.make_plan(c, mesh_mod.mesh_for(placement),
+                             ShapeConfig("train_cli", args.seq_len,
+                                         args.global_batch, "train"))
+        params, opt_state, zero = shd.shard_train_state(plan, params,
+                                                        opt_state, c)
+        step = make_train_step(c, oc, sc, plan=plan, zero=zero)
+        dp = shd.DpCheckpoint(zero)
+        quiet = world.rank != 0
+
+        def init_state():
+            p, o = fresh_state()
+            return p, shd.shard_opt_state(zero, o)
+
+    with contextlib.redirect_stdout(io.StringIO()) if quiet \
+            else contextlib.nullcontext():
+        return _train(args, c, placement, dev, step, params, opt_state,
+                      init_state, dp)
+
+
+def _train(args, c, placement, dev, step, params, opt_state, init_state,
+           dp):
     n_params = sum(p.numel() for p in tree.leaves(params))
     print(f"[train] arch={c.name} params={n_params / 1e6:.1f}M "
           f"batch={args.global_batch} seq={args.seq_len} "
@@ -179,7 +244,7 @@ def main(argv=None):
               f"ckpt_fallbacks={sup.ckpt_fallbacks}")
     else:
         res = train_loop(step, params, opt_state, data, cfg,
-                         fail_at_step=args.fail_at_step)
+                         fail_at_step=args.fail_at_step, dp=dp)
     print(f"[train] done: steps={res.steps_run} "
           f"first_loss={res.losses[0]:.4f} last_loss={res.losses[-1]:.4f} "
           f"tokens/s={res.tokens_per_s:,.0f} resumed_from={res.resumed_from}")

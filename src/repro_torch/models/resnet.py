@@ -27,6 +27,13 @@ What the port does differently, and why the numbers do not move:
     batch statistics beside the output and every caller discards them
     (its running-stats state ``_bn_state`` is never updated), so the
     port returns the output alone and keeps no running statistics.
+  * **Data parallelism.** The reference runs the data-parallel step
+    under GSPMD, so its batch statistics are over the whole global
+    batch. Given a process group (``forward(..., stats_group=)``), the
+    port's BatchNorm all-reduces the per-channel sums of ``x`` and of
+    ``(x - mean)**2`` over the ranks (:class:`AllReduceSum`, whose
+    backward all-reduces the two gradient sums too), so every rank
+    normalizes by the global mean and biased variance.
 """
 from __future__ import annotations
 
@@ -34,10 +41,12 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.resnet50 import ResNetConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import group_size
 
 Params = Any
 
@@ -84,11 +93,41 @@ def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
     return F.max_pool2d(x, k, stride, padding=pad)
 
 
-def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+class AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; its gradient is the sum over the group
+    of the ranks' gradients (each rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-5,
+              group=None) -> torch.Tensor:
     """Batch-statistics BatchNorm over (N, H, W) of ``x`` (N, C, H, W),
-    in fp32, cast back to ``x.dtype``."""
-    y = F.batch_norm(x.float(), None, None, p["scale"].float(),
-                     p["bias"].float(), training=True, eps=eps)
+    in fp32, cast back to ``x.dtype``; with ``group`` the statistics are
+    over every rank's rows (equal row counts)."""
+    if group is None:
+        y = F.batch_norm(x.float(), None, None, p["scale"].float(),
+                         p["bias"].float(), training=True, eps=eps)
+        return y.to(x.dtype)
+    xf = x.float()
+    n = xf.numel() // xf.shape[1] * group_size(group)
+    mean = AllReduceSum.apply(xf.sum((0, 2, 3)), group) / n
+    xc = xf - mean[:, None, None]
+    var = AllReduceSum.apply((xc * xc).sum((0, 2, 3)), group) / n
+    y = xc * torch.rsqrt(var + eps)[:, None, None]
+    y = y * p["scale"].float()[:, None, None] + p["bias"].float()[:, None,
+                                                                   None]
     return y.to(x.dtype)
 
 
@@ -106,13 +145,14 @@ def bottleneck_init(gen, cin, width, stride, dtype):
     return p
 
 
-def bottleneck(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
-    h = F.relu(batchnorm(p["bn1"], conv(x, p["conv1"])))
-    h = F.relu(batchnorm(p["bn2"], conv(h, p["conv2"], stride)))
-    h = batchnorm(p["bn3"], conv(h, p["conv3"]))
+def bottleneck(p: Params, x: torch.Tensor, stride: int,
+               group=None) -> torch.Tensor:
+    h = F.relu(batchnorm(p["bn1"], conv(x, p["conv1"]), group=group))
+    h = F.relu(batchnorm(p["bn2"], conv(h, p["conv2"], stride), group=group))
+    h = batchnorm(p["bn3"], conv(h, p["conv3"]), group=group)
     sc = x
     if "proj" in p:
-        sc = batchnorm(p["bn_proj"], conv(x, p["proj"], stride))
+        sc = batchnorm(p["bn_proj"], conv(x, p["proj"], stride), group=group)
     return F.relu(h + sc)
 
 
@@ -152,13 +192,16 @@ def init(c: ResNetConfig, generator: Optional[torch.Generator] = None,
     return p
 
 
-def forward(c: ResNetConfig, p: Params, images: torch.Tensor) -> torch.Tensor:
-    """images: (B, H, W, 3) -> logits (B, n_classes)."""
+def forward(c: ResNetConfig, p: Params, images: torch.Tensor,
+            stats_group=None) -> torch.Tensor:
+    """images: (B, H, W, 3) -> logits (B, n_classes); BatchNorm's
+    statistics over ``stats_group``'s ranks when given."""
     x = images.to(getattr(torch, c.dtype)).permute(0, 3, 1, 2)
-    x = F.relu(batchnorm(p["bn_stem"], conv(x, p["stem"], stride=2)))
+    x = F.relu(batchnorm(p["bn_stem"], conv(x, p["stem"], stride=2),
+                         group=stats_group))
     x = max_pool(x)
     for s, b, stride in _strides(c):
-        x = bottleneck(p["stages"][s][b], x, stride)
+        x = bottleneck(p["stages"][s][b], x, stride, stats_group)
     x = x.mean(dim=(2, 3))
     return x @ p["head"] + p["head_b"]
 

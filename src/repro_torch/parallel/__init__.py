@@ -1,2 +1,4 @@
-"""Gradient synchronisation and compression (port of
-``src/repro/parallel``; the one-device part)."""
+"""Sharding rules, ZeRO-1 slices, gradient synchronisation and
+compression, and the pipeline, across ``torch.distributed`` ranks (port
+of ``src/repro/parallel``; ``compat.py``, a ``shard_map`` shim, has no
+analog)."""

@@ -49,7 +49,8 @@ def train_loop(train_step: Callable, params: Params, opt_state: Params,
                hooks: Optional[list[Callable]] = None,
                fail_at_step: Optional[int] = None,
                faults: Optional[FaultSchedule] = None,
-               sleep_fn: Callable[[float], None] = time.sleep) -> LoopResult:
+               sleep_fn: Callable[[float], None] = time.sleep,
+               dp=None) -> LoopResult:
     """Run training with auto-resume + async checkpointing.
 
     ``data_iter`` may be a plain iterator or a *step-indexed* callable
@@ -66,8 +67,12 @@ def train_loop(train_step: Callable, params: Params, opt_state: Params,
     Resume goes through ``restore_resilient``: corrupted checkpoints are
     skipped (recorded in ``ckpt_skipped``) and the previous atomic step
     is used instead.
+
+    ``dp`` (``parallel.sharding.DpCheckpoint``) is a dp world's
+    checkpoint rule: ZeRO-1 slices gathered on save, rank 0 writing, and
+    cut again on restore, at whatever dp size resumes.
     """
-    mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts) \
+    mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts, dp=dp) \
         if cfg.ckpt_dir else None
     start_step = 0
     resumed_from = None
@@ -75,7 +80,7 @@ def train_loop(train_step: Callable, params: Params, opt_state: Params,
     if mgr is not None and latest_step(cfg.ckpt_dir) is not None:
         if latest_valid_step(cfg.ckpt_dir) is not None:
             (params, opt_state), manifest, ckpt_skipped = restore_resilient(
-                (params, opt_state), cfg.ckpt_dir)
+                (params, opt_state), cfg.ckpt_dir, dp=dp)
             start_step = manifest["step"]
             resumed_from = start_step
         # else: only corrupt checkpoints exist — start from scratch

@@ -18,7 +18,10 @@ snapshot, a test) copies it first. AdamW updates a leaf larger than
 arithmetic is elementwise, so the result is the same to the bit, and
 its fp32 temporaries stay a piece's size however large the stacked
 leaf (a layer-stacked expert weight of granite-moe-3b-a800m is 8 GB in
-fp32, and each of its half-dozen temporaries would be as large).
+fp32, and each of its half-dozen temporaries would be as large). Under a
+data-parallel plan AdamW's state holds this rank's ZeRO-1 slices (the
+reference's ``opt_state_shardings``), which ``adamw_update`` updates
+from the full synced gradient before gathering each parameter.
 """
 from __future__ import annotations
 
@@ -114,7 +117,12 @@ def adamw_init(oc: OptConfig, params: Params) -> Params:
 
 @torch.no_grad()
 def adamw_update(oc: OptConfig, grads: Params, state: Params,
-                 params: Params):
+                 params: Params, zero=None):
+    """One AdamW step in place. With ``zero`` (a
+    ``parallel.sharding.Zero1``) ``m`` / ``v`` / ``master`` hold this
+    rank's ZeRO-1 slices: the rank updates its slice of each parameter
+    from the full (synced) gradient, and the slices are gathered into
+    the full parameter. The clip's global norm is the full gradient's."""
     gs = tree.leaves(grads)
     gnorm = global_norm(gs)
     scale = _clip_scale(gnorm, oc.grad_clip)
@@ -123,18 +131,25 @@ def adamw_update(oc: OptConfig, grads: Params, state: Params,
     b1, b2 = oc.b1, oc.b2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    for leaf in zip(
+    for i, (g, m, v, master, p) in enumerate(zip(
             gs, tree.leaves(state["m"]), tree.leaves(state["v"]),
-            tree.leaves(state["master"]), tree.leaves(params), strict=True):
-        for g, m, v, master, p in _pieces(*leaf):
-            g = g.float() * scale
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * torch.square(g))
-            delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(oc.eps))
-            if master.ndim >= 1:  # decoupled weight decay, skip scalars
-                delta.add_(oc.weight_decay * master)
-            master.sub_(lr * delta)
-            p.copy_(master)
+            tree.leaves(state["master"]), tree.leaves(params), strict=True)):
+        sliced = zero is not None and zero.cuts[i]
+        if sliced:
+            full, g = p, zero.local(i, g)
+            p = torch.empty(master.shape, dtype=full.dtype,
+                            device=full.device)
+        for gp, mp, vp, masterp, pp in _pieces(g, m, v, master, p):
+            gp = gp.float() * scale
+            mp.mul_(b1).add_((1 - b1) * gp)
+            vp.mul_(b2).add_((1 - b2) * torch.square(gp))
+            delta = (mp / bc1).div_(torch.sqrt(vp / bc2).add_(oc.eps))
+            if masterp.ndim >= 1:  # decoupled weight decay, skip scalars
+                delta.add_(oc.weight_decay * masterp)
+            masterp.sub_(lr * delta)
+            pp.copy_(masterp)
+        if sliced:
+            full.copy_(zero.gather(i, p))
     state["step"] = step
     return params, state, {"gnorm": gnorm, "lr": lr}
 
@@ -193,9 +208,11 @@ def opt_init(oc: OptConfig, params):
         else adafactor_init(oc, params)
 
 
-def opt_update(oc: OptConfig, grads, state, params):
-    """One optimizer step, in place; ``(params, state, {"gnorm", "lr"})``."""
+def opt_update(oc: OptConfig, grads, state, params, zero=None):
+    """One optimizer step, in place; ``(params, state, {"gnorm", "lr"})``.
+    ``zero`` (AdamW only) names the ZeRO-1 slices the state holds;
+    Adafactor's factored state replicates, as in the reference."""
     with record_function("optimizer"):
         if oc.name == "adamw":
-            return adamw_update(oc, grads, state, params)
+            return adamw_update(oc, grads, state, params, zero)
         return adafactor_update(oc, grads, state, params)

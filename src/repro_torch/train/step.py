@@ -7,9 +7,15 @@ reference's nested dict of tensors (no ``nn.Module``); gradients come
 from ``torch.autograd.grad`` over the flattened leaves, taken through
 detached aliases that require grad, so the caller's tensors keep their
 flags. The reference's ``jax.lax.scan`` over microbatches is a Python
-loop here, so its ``unroll`` option has no port; nor have
+loop here, so its ``unroll`` option has no port. In the place of
 ``make_train_step``'s sharding arguments (GSPMD grad and batch
-constraints): multi-device placement is ROADMAP Queue 1 item 8.
+constraints) the port's steps take a data-parallel ``plan``
+(``parallel.sharding``): each rank computes on its rows of the global
+batch, the gradients are all-reduced to their mean, the loss is the
+mean over the ranks, and AdamW updates the ZeRO-1 slices (``zero``) of
+its state; GSPMD computes the same global means. ResNet's BatchNorm
+then takes its statistics over the ranks too (``models.resnet``).
+Tensor-parallel plans are ROADMAP Queue 1 item 8.
 
 The step updates ``params`` and ``opt_state`` in place (see
 ``train.optimizer``) and returns them.
@@ -26,8 +32,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.resnet50 import ResNetConfig
 from repro_torch.core import tree
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import dp_mean
 from repro_torch.models import lm, resnet
-from repro_torch.train.loss import classification_loss, next_token_loss
+from repro_torch.parallel import sharding as shd
+from repro_torch.train.loss import (classification_loss, next_token_loss,
+                                    token_denoms)
 from repro_torch.train.optimizer import OptConfig, opt_init, opt_update
 
 Params = Any
@@ -113,21 +122,46 @@ def make_loss_fn(c: ModelConfig, sc: StepConfig):
                                  patch_embeds=batch.get("patch_embeds"),
                                  enc_frames=batch.get("enc_frames"),
                                  impl=sc.impl, remat=sc.remat)
-        ce = next_token_loss(c, logits, batch["labels"], z_coef=sc.z_coef)
+        denom = batch.get("token_denom")
+        ce = next_token_loss(c, logits, batch["labels"], z_coef=sc.z_coef,
+                             denom=None if denom is None
+                             else denom.reshape(()))
         total = ce + c.router_aux_coef * aux
         return total, (ce, aux)
     return loss_fn
 
 
+def _dp_group(plan):
+    """The dp process group of an executable plan (None without one)."""
+    if plan is None:
+        return None
+    shd.check_executable(plan)
+    return plan.mesh.group(plan.dp)
+
+
+def _local_rows(plan, batch: dict) -> dict:
+    return batch if plan is None else shd.local_batch(plan, batch)
+
+
 def make_train_step(c: ModelConfig, oc: OptConfig,
-                    sc: StepConfig = StepConfig()):
+                    sc: StepConfig = StepConfig(), *, plan=None, zero=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, metrics ``loss``, ``ce``, ``aux``, ``gnorm``, ``lr`` (0-d
-    tensors on the params' device)."""
+    tensors on the params' device). Under a dp ``plan`` the step takes
+    the global batch and trains on this rank's rows of it, its loss the
+    token mean over every rank's rows (:func:`train.loss.token_denoms`),
+    with each leaf's gradient all-reduced to its fp32 mean; ``zero`` is the
+    ZeRO-1 layout of ``opt_state``."""
     vg = value_and_grad(make_loss_fn(c, sc))
     gdt = getattr(torch, sc.grad_dtype)
+    group = _dp_group(plan)
 
     def train_step(params: Params, opt_state: Params, batch: dict):
+        batch = _local_rows(plan, batch)
+        if group is not None:
+            # each microbatch's loss is its token mean over every rank
+            batch = dict(batch, token_denom=token_denoms(
+                batch["labels"], max(sc.microbatches, 1), group))
         if sc.microbatches <= 1:
             (loss, (ce, aux)), grads = vg(params, batch)
             grads = tree.tree_map(lambda g: g.to(gdt), grads)
@@ -137,8 +171,10 @@ def make_train_step(c: ModelConfig, oc: OptConfig,
                 vg, params, batch, k, gdt)
             grads = tree.tree_map(lambda g: (g / k).float(), grads)
             loss, ce, aux = loss / k, ce / k, aux / k
+        if group is not None:
+            grads, (loss, ce, aux) = dp_mean(grads, [loss, ce, aux], group)
         new_params, new_state, info = opt_update(oc, grads, opt_state,
-                                                 params)
+                                                 params, zero)
         metrics = {"loss": loss, "ce": ce, "aux": aux, **info}
         return new_params, new_state, metrics
 
@@ -146,27 +182,36 @@ def make_train_step(c: ModelConfig, oc: OptConfig,
 
 
 # ---------------------------------------------------------------------------
-# ResNet50 (one device; the reference's data-parallel all-reduce is
-# ROADMAP Queue 1 item 8)
+# ResNet50 (data-parallel: the Horovod-analog all-reduce)
 # ---------------------------------------------------------------------------
 
 
-def make_resnet_train_step(c: ResNetConfig, oc: OptConfig):
+def make_resnet_train_step(c: ResNetConfig, oc: OptConfig, *, plan=None,
+                           zero=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` over ``batch = {"images": (B, H, W, 3), "labels": (B,)}``:
     the classification loss, gradients cast to fp32, one optimizer
-    update in place; metrics ``loss``, ``gnorm``, ``lr``."""
+    update in place; metrics ``loss``, ``gnorm``, ``lr``. Under a dp
+    ``plan`` each rank trains on its rows of the global batch with
+    BatchNorm's statistics over every rank's rows, the gradients are
+    all-reduced to their mean and ``zero`` is the ZeRO-1 layout of
+    ``opt_state``."""
+    group = _dp_group(plan)
+
     def loss_fn(params, batch):
-        logits = resnet.forward(c, params, batch["images"])
+        logits = resnet.forward(c, params, batch["images"],
+                                stats_group=group)
         return classification_loss(logits, batch["labels"]), ()
 
     vg = value_and_grad(loss_fn)
 
     def train_step(params, opt_state, batch):
-        (loss, _), grads = vg(params, batch)
+        (loss, _), grads = vg(params, _local_rows(plan, batch))
         grads = tree.tree_map(lambda g: g.float(), grads)
+        if group is not None:
+            grads, (loss,) = dp_mean(grads, [loss], group)
         new_params, new_state, info = opt_update(oc, grads, opt_state,
-                                                 params)
+                                                 params, zero)
         return new_params, new_state, {"loss": loss, **info}
 
     return train_step

@@ -181,10 +181,12 @@ def test_power_auto_on_cpu_raises_and_substitutes_nothing(tmp_path):
     assert select_power_methods("none", cpu) == ([], "none")
 
 
-def test_multi_device_placement_raises(tmp_path):
-    """A point whose mesh spans more devices than the process drives is
-    recorded ``deferred`` (as the reference does), not raised, and the
-    sweep's one-device point still runs."""
+def test_multi_device_placement_raises(tmp_path, monkeypatch):
+    """A point whose mesh spans more devices than the process can place
+    (here: a cap of one local rank) is recorded ``deferred`` (as the
+    reference does), not raised, and the sweep's one-device point still
+    runs."""
+    monkeypatch.setenv("REPRO_MAX_LOCAL_DEVICES", "1")
     @workload("_two_devices", analog="test",
               space=Space({"placement": ["dp1", "dp2"]}))
     def build(pt, ctx):
@@ -199,8 +201,7 @@ def test_multi_device_placement_raises(tmp_path):
         unregister("_two_devices")
     assert one.status == "ok" and one.metrics["tok_s_per_device"] == 10.0
     assert two.status == "deferred" and two.n_devices == 2
-    assert "dp2 needs 2 devices, process has 1" in two.error
-    assert "Queue 1 item 8" in two.error
+    assert "dp2 needs 2 devices, process can place 1 (cpu)" in two.error
     assert list(two.metrics) == ["slurm_script"]
     assert two.metrics["slurm_script"] in two.error
     assert "--points placement=dp2" in open(two.metrics["slurm_script"]).read()

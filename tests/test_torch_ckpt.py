@@ -317,7 +317,7 @@ def test_train_cli_crash_mid_on_cpu(tmp_path, capsys):
 
 def test_train_cli_refuses_what_it_cannot_run(monkeypatch):
     with pytest.raises(SystemExit, match="Queue 1 item 8"):
-        train_cli.main(["--device", "cpu", "--placement", "dp2"])
+        train_cli.main(["--device", "cpu", "--placement", "dp2tp2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--steps", "1"])

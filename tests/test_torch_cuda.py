@@ -1283,3 +1283,31 @@ def test_remat_dots_peak_lies_between_none_and_full(card):
     assert peaks["full"] < peaks["dots"] < peaks["none"]
     for a, b in zip(tree.leaves(grads["dots"]), tree.leaves(grads["full"])):
         torch.testing.assert_close(a.float(), b.float(), rtol=1e-4, atol=1e-4)
+
+
+def test_an_nccl_world_larger_than_the_cards_raises(card):
+    """Nothing switches the backend silently: an NCCL world of one rank
+    more than the machine's cards raises before a rank starts."""
+    from repro_torch.launch import mesh as mesh_mod
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} ranks needs {n} cards"):
+        mesh_mod.spawn(chip_smoke.par_rank_int8, n, device=card)
+
+
+def test_int8_dp2_ranks_on_the_card_match_cpu_ranks(card):
+    """Two ranks share the card over gloo: the reduced fp32 gpt-800m's
+    int8 dp2 run against the same run on two CPU ranks, error-feedback
+    codes within one in at most 0.1 % of entries (phase 13b's check)."""
+    from repro_torch.launch import mesh as mesh_mod
+    on_card = mesh_mod.spawn(chip_smoke.par_rank_int8, 2, device=card,
+                             backend="gloo")
+    on_cpu = mesh_mod.spawn(chip_smoke.par_rank_int8, 2, device="cpu")
+    flipped = total = 0
+    for g, w in zip(on_card, on_cpu):
+        np.testing.assert_allclose(g["losses"], w["losses"], rtol=1e-4)
+        diff = np.abs(g["sync"] - w["sync"])
+        assert (diff <= 2.5 * np.abs(w["sync"]).max(-1, keepdims=True)
+                + 1e-7).all()
+        flipped += int((diff > 1e-6).sum())
+        total += diff.size
+    assert flipped <= 1e-3 * total, (flipped, total)

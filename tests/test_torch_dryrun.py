@@ -393,7 +393,8 @@ def test_dry_run_records_and_the_roofline_workload(reduced_cells, capsys):
     assert by["1xh100"]["metrics"]["n_rows"] == 7
     for mesh in ("single", "multi"):
         assert by[mesh]["status"] == "deferred"
-        assert "item 8" in by[mesh]["error"]
+        n = by[mesh]["n_devices"]
+        assert f"needs {n} devices, process can place" in by[mesh]["error"]
 
 
 def test_load_rows_read_reference_records_as_the_reference(tmp_path,

@@ -107,7 +107,7 @@ def runs(tmp_path_factory):
     return tmp, ref_load_records(tmp / "ref" / "heatmap" / "results.json")
 
 
-def test_smoke_records_hold_the_reference(runs, capsys):
+def test_smoke_records_hold_the_reference(runs, capsys, monkeypatch):
     tmp, ref_recs = runs
     rc = cli.main(["run", "--suite", "heatmap", "--smoke", "--device", "cpu",
                    "--power", "none", "--iters", "2", "--out",
@@ -117,11 +117,19 @@ def test_smoke_records_hold_the_reference(runs, capsys):
     assert "placement\\global_batch" in out
     recs = load_records(tmp / "port" / "heatmap" / "results.json")
     assert [r.point for r in recs] == [r.point for r in ref_recs]
-    assert [r.status for r in recs] == [r.status for r in ref_recs] == \
-        ["ok", "deferred"]
-    ok, deferred = recs
+    # the reference's process holds one device and defers dp2; the port
+    # runs it in two gloo ranks
+    assert [r.status for r in ref_recs] == ["ok", "deferred"]
+    assert [r.status for r in recs] == ["ok", "ok"]
+    ok, dp2 = recs
     missing = set(ref_recs[0].metrics) - set(ok.metrics)
     assert not missing, missing
+    assert set(dp2.metrics) == set(ok.metrics) | {"scaling_efficiency"}
+    assert dp2.metrics["tok_s_per_device"] == dp2.metrics["tokens_per_s"] / 2
+    assert dp2.metrics["scaling_efficiency"] > 0
+    # bf16 compute; the two ranks' gradient sum rounds differently
+    assert dp2.metrics["loss_first"] == pytest.approx(
+        ok.metrics["loss_first"], rel=1e-4)
     m = ok.metrics
     assert ok.power_source == "none" and m["model_scale"] == "reduced"
     assert m["n_params"] == sum(x.size for x in jax.tree.leaves(
@@ -131,7 +139,16 @@ def test_smoke_records_hold_the_reference(runs, capsys):
     assert "mfu" not in m and "peak_mem_gb" not in m
     assert all(c in ok.flat() for c in spec.get_workload(
         "heatmap").result_columns if c in ref_recs[0].flat())
-    assert deferred.n_devices == 2 and "Queue 1 item 8" in deferred.error
+    # a process that cannot place two ranks defers dp2 with its script
+    monkeypatch.setenv("REPRO_MAX_LOCAL_DEVICES", "1")
+    rc = cli.main(["run", "--suite", "heatmap", "--smoke", "--device", "cpu",
+                   "--power", "none", "--iters", "2", "--out",
+                   str(tmp / "capped"), "--quiet", "--points",
+                   "placement=dp2"])
+    assert rc == 0
+    deferred, = load_records(tmp / "capped" / "heatmap" / "results.json")
+    assert deferred.status == "deferred"
+    assert deferred.n_devices == 2 and "process can place 1" in deferred.error
     path = deferred.metrics["slurm_script"]
     assert path in deferred.error
     script = open(path).read()
@@ -154,10 +171,10 @@ def test_first_loss_matches_the_reference_on_its_weights():
         rp, ro, {"tokens": toks, "labels": jnp.roll(toks, -1, 1)})
     want = float(m["loss"])
     ctx = RunContext(device=torch.device("cpu"), warmup=0, iters=1)
-    c, oc, _, _, step, scale, _ = heatmap._setup(ctx)
+    c, oc, _, _, scale, _ = heatmap._setup(ctx)
     p, o = bridge.train_state_from_numpy(
         *jax.tree.map(np.asarray, (rp, ro)), device="cpu")
-    ctx.cache["heatmap"] = (c, oc, p, o, step, scale,
+    ctx.cache["heatmap"] = (c, oc, p, o, scale,
                             sum(t.numel() for t in tree.leaves(p)))
     out = spec.get_workload("heatmap").build(
         {"placement": "dp1", "global_batch": gb, "micro_batch": 1},

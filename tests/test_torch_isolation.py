@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import mesh
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeEngine
@@ -93,6 +94,16 @@ def test_engine_defaults_to_the_card(no_card):
 def test_cli_defaults_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--preset", "tiny", "--requests", "1"])
+
+
+def test_spawn_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.spawn(len, 2)
+
+
+def test_init_world_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.init_world(rank=0, world_size=1)
 
 
 def test_ops_on_cpu_run_the_plain_version_and_count_no_launch():

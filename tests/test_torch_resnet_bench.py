@@ -93,21 +93,20 @@ def test_smoke_records_hold_the_reference(runs, ref_state):
     rc, ref_recs, recs = runs
     assert rc == 0
     assert [r.point for r in recs] == [r.point for r in ref_recs]
-    assert [r.status for r in recs] == ["ok", "deferred"]
+    # the reference's process holds one device and defers dp2; the port
+    # runs it in two gloo ranks
+    assert [r.status for r in recs] == ["ok", "ok"]
     ref_ok = [r for r in ref_recs if r.ok]
     assert ref_ok, [r.error for r in ref_recs]
     ref_n = sum(x.size for x in jax.tree.leaves(ref_state[2]))
     for rec in recs:
-        if rec.status == "deferred":
-            assert "Queue 1 item 8" in rec.error and rec.n_devices == 2
-            continue
         missing = set(ref_ok[0].metrics) - set(rec.metrics)
         assert not missing, missing
         m = rec.metrics
         assert rec.power_source == "synthetic"
         assert m["model_scale"] == "reduced"
         assert m["n_params"] == ref_n
-        assert m["tok_s_per_device"] == m["images_per_s"] > 0
+        assert m["tok_s_per_device"] == m["images_per_s"] / rec.n_devices > 0
         assert m["images_per_wh"] > 0
         assert m["loss_last"] < m["loss_first"]
         assert "peak_mem_gb" not in m and "model_flop_share" not in m

@@ -111,18 +111,18 @@ def test_llm_train_point_holds_the_reference(runs):
     rc, ref_recs, recs = runs["llm_train"]
     assert rc == 0
     assert [r.point for r in recs] == [r.point for r in ref_recs]
-    assert [r.status for r in recs] == [r.status for r in ref_recs] == \
-        ["ok", "ok", "deferred", "deferred"]
-    for ref, rec in zip(ref_recs, recs):
-        if rec.status == "deferred":
-            assert "Queue 1 item 8" in rec.error and rec.n_devices == 2
-            continue
+    # the reference's process holds one device and defers dp2; the port
+    # runs it in two gloo ranks
+    assert [r.status for r in ref_recs] == ["ok", "ok", "deferred",
+                                            "deferred"]
+    assert [r.status for r in recs] == ["ok"] * 4
+    for ref, rec in zip(ref_recs[:2] * 2, recs):
         assert rec.power_source == "synthetic"
         missing = set(ref.metrics) - set(rec.metrics)
         assert not missing, missing
         m = rec.metrics
         assert m["model_scale"] == "reduced" and m["n_params"] > 0
-        assert m["tok_s_per_device"] == m["tokens_per_s"] > 0
+        assert m["tok_s_per_device"] == m["tokens_per_s"] / rec.n_devices > 0
         assert m["loss_last"] < m["loss_first"]
         assert m["microbatches"] == 4 and "peak_mem_gb" not in m
         assert all(c in rec.flat() for c in spec.get_workload(
