@@ -3,14 +3,14 @@
 
   python3 chip_smoke.py [--profile | --times | --train [--profile] |
                          --families [--profile] | --generate [--profile] |
-                         --harness | --dryrun | --parallel]
+                         --harness | --dryrun | --parallel | --sharded]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs fourteen phases, any failure of which exits non-zero:
+instance, then runs fifteen phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -293,6 +293,23 @@ instance, then runs fourteen phases, any failure of which exits non-zero:
      bf16 gate, with its ``bubble_fraction`` (3/11) and ms. Every number
      it prints carries ``PAR_NOTE`` and the card's name and power limit;
      a rank that fails fails the phase.
+  14. sharded — tensor-, expert- and fully-sharded layouts
+     (``parallel.sharding`` / ``parallel.layout``, the plan step
+     ``make_train_step(plan=...)``), ranks sharing the card over gloo:
+     (a) full-width gpt-800m tp2, ``PAR_STEPS`` steps at phase 13's
+     sequence and batch in ``SHARD_MICROBATCHES`` microbatch: losses, ms
+     a step, ``max_memory_allocated`` per
+     rank beside the bytes of its shards and optimizer slices, and each
+     rank's shards equal to its cut of the whole params gathered from
+     every rank's (the gather puts each block in its place); (b) reduced fp32 gpt-800m tp2 and dp2tp2 (four ranks) and
+     granite-moe-3b-a800m ep2 against dp1 on the card (TF32 off, losses
+     at rtol 1e-4); (c) the FLOPs ``FlopCounterMode`` counts on the card
+     in a tp2 rank's first 14a step equal the counting mesh's ``meta``
+     count of rank 0's program (``launch.dryrun.sharded_counts``)
+     exactly, as 12b holds one card's; (d) granite-moe-3b-a800m at full
+     width cut to ``MOE_TP_LAYERS`` layers, tp2 (its 40 experts over
+     ``model``): a falling loss and the peak per rank. Every number it
+     prints carries ``PAR_NOTE`` and the card's name and power limit.
 
 ``--train`` runs phases 7 and 8 alone (no kernel is built: the training
 paths launch none) and prints no result line. ``--families`` builds the
@@ -302,7 +319,8 @@ kernel is built) and prints no result line.
 ``--dryrun`` runs the grouped-decode check and phase 12 alone (no
 kernel is built) and prints no result line. ``--parallel`` runs phase
 13 alone (no kernel is built: no kernel is on the data-parallel or
-pipeline path) and prints no result line.
+pipeline path) and prints no result line, and ``--sharded`` phase 14
+(no kernel on the sharded training path either).
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
 (neither is measured there), and no result line: for timing another
@@ -394,12 +412,15 @@ INT8_POOL_BLOCKS = 129
 SERVE_POINTS = "cache=slotted,cache=paged,policy=continuous"
 SLO_POINTS = ("trace=long_prefill,cache=paged,kv_dtype=fp32",
               "trace=shared_prefix,kv_dtype=fp32,sched=phased")
-#: phase 6's depth (``bench run --layers``): llama3.2-3b's first 12 of
+#: phase 6's depth (``bench run --layers``): llama3.2-3b's first 4 of
 #: its 28 layers at full width. The cells are host-bound, so their wall
 #: scales with the layers' launches: at full depth phase 6 took 558-815
 #: s of the script's 732-1087 s on the card machine's hosts, at 14
-#: layers 311.5-376.3 s of 763.0-926.7 s (the latter with phase 13)
-SERVE_LAYERS = 12
+#: layers 311.5-376.3 s of 763.0-926.7 s (the latter with phase 13), at
+#: 12 the script 897.2 s; with phase 14's ranks 949.0 s at 8 and
+#: 893.2-1159.4 s at 6 (hosts differ by ~30 %, gloo's ranks by ~80 %), so
+#: 4
+SERVE_LAYERS = 4
 #: phase 7's measured steps per llm_train cell: two windows of two
 #: ~0.9 s steps, many times the NVML energy counter's ~100 ms update
 #: interval
@@ -3460,6 +3481,215 @@ def phase_parallel(dev) -> None:
         f"ranks {t_dp:.1f} s, 13c ranks {t_pp:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor-, expert- and fully-sharded layouts on one card
+# ---------------------------------------------------------------------------
+
+#: 14d: granite-moe-3b-a800m at full width cut to this many of its 32
+#: layers, tp2, global batch x sequence
+MOE_TP_LAYERS, MOE_TP_BATCH, MOE_TP_SEQ = 4, 8, 128
+#: 14a's microbatches: gloo stages every collective through the host,
+#: and each microbatch gathers the layers' ``wq`` / ``wk`` / ``wv`` and
+#: reduce-scatters their gradients again; at 13a's four, 4.17 GB a step
+#: took 10.6-48.7 s (one microbatch: 1.6 GB)
+SHARD_MICROBATCHES = 1
+
+
+def _sh(msg: str, card: str) -> None:
+    log(f"[sharded] {msg} ({card}; {PAR_NOTE})")
+
+
+def _shard_reckon(p, o) -> float:
+    """GB of a rank's param shards and optimizer slices."""
+    from repro_torch.core import tree
+    return sum(x.numel() * x.element_size()
+               for x in tree.leaves((p, o))) / 1e9
+
+
+def _plan_lm(world, c, placement, steps: int, gb: int, seq: int, k: int,
+             cpu_init: bool = False, flops: bool = False):
+    """``steps`` plan steps (``make_train_step(plan=...)``) from seeded
+    weights on one synthetic batch: (losses, ms a step, whether this
+    rank's param shards equal its cut of the whole params gathered from
+    all ranks' (True without a plan), GB of this rank's shards and
+    optimizer slices, the first step's FLOPs under ``FlopCounterMode``
+    with ``flops``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.bench.spec import Placement
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.launch.mesh import mesh_for
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (StepConfig, init_train_state,
+                                        make_train_step)
+    dev = world.device
+    oc = OptConfig(warmup=2, total_steps=1000)
+    at = torch.device("cpu") if cpu_init else dev
+    p, o = init_train_state(c, oc, torch.Generator(device=at).manual_seed(0),
+                            at)
+    p, o = tree.tree_map(lambda t: t.to(dev), (p, o))
+    sc = StepConfig(microbatches=k)
+    if placement is None:
+        step = make_train_step(c, oc, sc)
+        zero = None
+    else:
+        plan = shd.make_plan(c, mesh_for(Placement.of(placement)),
+                             ShapeConfig("par", seq, gb, "train"))
+        p, o, zero = shd.shard_train_state(plan, p, o, c)
+        step = make_train_step(c, oc, sc, plan=plan, zero=zero)
+    gb_ = _shard_reckon(p, o)
+    toks = torch.from_numpy(synthetic_tokens(gb, seq, c.vocab)[:, :seq])
+    batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1).to(dev)}
+    losses, ms, n_flops = [], [], None
+    for i in range(steps):
+        _ranks_wait(world)
+        t0 = time.perf_counter()
+        if flops and i == 0:
+            with FlopCounterMode(display=False) as fc:
+                p, o, m = step(p, o, batch)
+            n_flops = float(fc.get_total_flops())
+        else:
+            p, o, m = step(p, o, batch)
+        losses.append(float(m["loss"]))
+        _ranks_wait(world)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if zero is None:
+        return losses, ms, True, gb_, n_flops
+    cut = zero.shard(zero.unshard(p))
+    ok = all(torch.equal(a, b) for a, b in
+             zip(tree.leaves(cut), tree.leaves(p), strict=True))
+    return losses, ms, ok, gb_, n_flops
+
+
+def sharded_rank_pair(world) -> dict:
+    """Phase 14's two-rank work on the card: 14a (full gpt-800m tp2,
+    with 14c's FLOP count of its first step), 14b's reduced tp2 and ep2,
+    14d (granite-moe-3b at full width, ``MOE_TP_LAYERS`` layers, tp2)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": world.rank}
+    dev = world.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    k = SHARD_MICROBATCHES
+    losses, ms, shards_ok, gb_, n_flops = _plan_lm(
+        world, get_config("gpt-800m"), "tp2", PAR_STEPS, PAR_BATCH, PAR_SEQ,
+        k, flops=True)
+    out["14a"] = {"losses": losses, "ms": ms, "shards_ok": shards_ok,
+                  "shards_gb": gb_, "k": k, "flops": n_flops,
+                  "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, arch in (("14b-tp2", "gpt-800m"),
+                      ("14b-ep2", "granite-moe-3b-a800m")):
+        rc = get_config(arch).reduced(dtype="float32", param_dtype="float32")
+        out[key] = _plan_lm(world, rc, "tp2", 3, 16, 64, 4,
+                            cpu_init=True)[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    mc = dc.replace(get_config("granite-moe-3b-a800m"),
+                    n_layers=MOE_TP_LAYERS)
+    losses, ms, shards_ok, gb_, _ = _plan_lm(world, mc, "tp2", PAR_STEPS,
+                                             MOE_TP_BATCH, MOE_TP_SEQ, 1)
+    out["14d"] = {"losses": losses, "ms": ms, "shards_ok": shards_ok,
+                  "shards_gb": gb_,
+                  "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    return out
+
+
+def sharded_rank_quad(world) -> dict:
+    """14b's dp2tp2: reduced fp32 gpt-800m on four ranks of the card."""
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rc = get_config("gpt-800m").reduced(dtype="float32", param_dtype="float32")
+    losses, _ms, shards_ok, _gb, _f = _plan_lm(world, rc, "dp2tp2", 3, 16,
+                                               64, 4, cpu_init=True)
+    return {"losses": losses, "shards_ok": shards_ok}
+
+
+def phase_sharded(dev) -> None:
+    """Phase 14: tensor-, expert- and fully-sharded layouts, ranks sharing
+    the one card over gloo (``launch.mesh.spawn(..., backend="gloo")``):
+    (a) full-width gpt-800m tp2, ``PAR_STEPS`` steps at phase 13's
+    sequence and batch in ``SHARD_MICROBATCHES`` microbatches: losses,
+    ms a step, ``max_memory_allocated`` per
+    rank beside the bytes of its shards and optimizer slices, and each
+    rank's shards equal to its cut of the whole params gathered from
+    them; (b) reduced fp32
+    gpt-800m tp2 and dp2tp2 (four ranks) and granite-moe-3b-a800m ep2
+    against dp1 on the card, TF32 off, losses at rtol 1e-4; (c) a tp2
+    rank's first 14a step: its FLOPs under ``FlopCounterMode`` on the
+    card equal the counting mesh's ``meta`` count of rank 0's program
+    (``launch.dryrun.sharded_counts``) exactly; (d) granite-moe-3b-a800m
+    at full width cut to ``MOE_TP_LAYERS`` layers, tp2 (experts over
+    ``model``): a falling loss and the peak per rank."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape, spawn
+    t_start = time.perf_counter()
+    torch.empty(1, device=dev)
+    card = card_line()
+    log("[sharded] ranks share one card over gloo; step times are a code "
+        "path, not a scaling number")
+    t0 = time.perf_counter()
+    pair = spawn(sharded_rank_pair, 2, device=dev, backend="gloo")
+    quad = spawn(sharded_rank_quad, 4, device=dev, backend="gloo")
+    t_ranks = time.perf_counter() - t0
+    c = get_config("gpt-800m")
+    for r in pair:
+        a = r["14a"]
+        _sh(f"14a gpt-800m tp2 rank {r['rank']}: seq {PAR_SEQ}, global "
+             f"batch {PAR_BATCH}, microbatches {a['k']}: losses "
+             f"{a['losses']}, ms a step {[round(x, 1) for x in a['ms']]}, "
+             f"max_memory_allocated {a['peak_gb']:.2f} GB beside its "
+             f"shards and optimizer slices {a['shards_gb']:.2f} GB (the "
+             f"whole model {c.param_count() * 14 / 1e9:.2f} GB at 2 + 12 "
+             f"B a param), shards equal to their cut of the gathered "
+             f"whole: {a['shards_ok']}", card)
+    assert all(r["14a"]["shards_ok"] for r in pair), "14a gather misplaced"
+    assert all(np.isfinite(r["14a"]["losses"]).all() for r in pair)
+    one = types.SimpleNamespace(rank=0, world_size=1, device=dev)
+    for key, arch in (("14b-tp2", "gpt-800m"),
+                      ("14b-ep2", "granite-moe-3b-a800m")):
+        rc = get_config(arch).reduced(dtype="float32", param_dtype="float32")
+        dp1 = _plan_lm(one, rc, None, 3, 16, 64, 4, cpu_init=True)[0]
+        _sh(f"14b reduced fp32 {arch} {key[4:]}: losses {pair[0][key]}, "
+             f"dp1 {dp1}", card)
+        for r in pair:
+            np.testing.assert_allclose(r[key], dp1, rtol=1e-4)
+        if key == "14b-tp2":
+            _sh(f"14b reduced fp32 gpt-800m dp2tp2 (4 ranks): losses "
+                 f"{quad[0]['losses']}, dp1 {dp1}", card)
+            for r in quad:
+                np.testing.assert_allclose(r["losses"], dp1, rtol=1e-4)
+            assert all(r["shards_ok"] for r in quad)
+    got, k, stats, _plan, _oc = dryrun.sharded_counts(
+        c, ShapeConfig("par", PAR_SEQ, PAR_BATCH, "train"),
+        MeshShape((1, 2), ("data", "model")),
+        microbatch_size=PAR_BATCH // SHARD_MICROBATCHES)
+    flops = pair[0]["14a"]["flops"]
+    _sh(f"14c gpt-800m tp2 rank 0's step: FLOPs {flops:.6e} on the card "
+         f"vs {got.flops:.6e} meta (counting mesh, {k} microbatches); "
+         f"wire bytes counted {stats.total_wire_bytes:.6e} a rank a step",
+         card)
+    assert flops == got.flops, (flops, got.flops)
+    for r in pair:
+        d = r["14d"]
+        _sh(f"14d granite-moe-3b-a800m full width, {MOE_TP_LAYERS} of 32 "
+             f"layers, tp2 (ep) rank {r['rank']}: losses {d['losses']}, ms "
+             f"a step {[round(x, 1) for x in d['ms']]}, "
+             f"max_memory_allocated {d['peak_gb']:.2f} GB, shards and "
+             f"optimizer slices {d['shards_gb']:.2f} GB", card)
+        assert d["losses"][-1] < d["losses"][0], d["losses"]
+    assert all(r["14d"]["shards_ok"] for r in pair)
+    log(f"[wall] phase 14 {time.perf_counter() - t_start:.1f} s (ranks "
+        f"{t_ranks:.1f} s)")
+
+
 def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
          peak_dtype, shape, dev_t, source=None):
     """One JSON row; the bound is the larger of the bytes over HBM rate
@@ -3538,6 +3768,11 @@ def main() -> int:
         log(f"[wall] phase 13 alone {time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
+    if "--sharded" in sys.argv[1:]:
+        phase_sharded(dev)
+        log(f"[wall] phase 14 alone {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     if "--train" in sys.argv[1:]:
         phase_train(dev, profile="--profile" in sys.argv[1:])
         phase_resnet(dev, profile="--profile" in sys.argv[1:])
@@ -3580,6 +3815,7 @@ def main() -> int:
     phase_harness(dev, profile="--profile" in sys.argv[1:])
     phase_dryrun(dev)
     phase_parallel(dev)
+    phase_sharded(dev)
     for row in rows:               # the worst over phases 1, 9 and 10
         row["max_abs_err"] = max(row["max_abs_err"],
                                  family_errs.get(row["name"], 0.0),

@@ -18,7 +18,12 @@ What differs from the reference:
     buckets and AdamW's state cut to ZeRO-1 slices
     (``parallel.sharding``); the microbatch count comes from the
     per-rank batch, as the reference's. A cell the process cannot place
-    (dp2 on one card) is ``deferred`` with its sbatch script.
+    (dp2 on one card) is ``deferred`` with its sbatch script. A
+    placement with ``tp > 1`` (``--points placement=dp2tp2``; the Space
+    keeps the reference's dp placements) takes the reference's mixed
+    branch: the plan step (``train.step.make_train_step(plan=...)``,
+    the GSPMD step's counterpart) with each rank's param shards, ZeRO-2
+    gradient slices and no bucketed sync (``grad_sync`` does not apply).
   * **Model scale.** On the CPU a cell trains the reference's reduced
     config (d_model 128, 4 layers), so its records can be held against
     the reference's; on a card, full-width, full-depth gpt-800m (bf16
@@ -48,7 +53,8 @@ from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.parallel import grad_sync as gs
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.step import StepConfig, init_train_state
+from repro_torch.train.step import (StepConfig, init_train_state,
+                                    make_train_step)
 
 MICROBATCHES = 4
 SEED = 0
@@ -98,8 +104,17 @@ def _step(ctx, c, oc, params, placement: Placement, gb: int, mode: str):
     k = _microbatches(gb, shd.dp_size(plan))
 
     def make():
-        sync = gs.default_sync(mode, ctx.device)
         sc = StepConfig(microbatches=k)
+        if plan.tp_size > 1:
+            # the mixed dp x tp branch: the plan step, no bucketed sync
+            step = make_train_step(c, oc, sc, plan=plan, zero=zero)
+
+            def mixed(p, o, s, batch):
+                p, o, m = step(p, o, batch)
+                return p, o, s, m
+
+            return mixed, None
+        sync = gs.default_sync(mode, ctx.device)
         return gs.make_dp_train_step(c, oc, sc, plan=plan, sync=sync,
                                      zero=zero), sync
 
@@ -139,9 +154,10 @@ def build(pt, ctx):
     def train():
         # the step updates its state in place, and the base state is
         # memoized across cells and retries: each cell trains a copy
-        p = tree.tree_map(torch.Tensor.clone, params)
+        p = zero.shard(params) if zero.sharded else \
+            tree.tree_map(torch.Tensor.clone, params)
         o = shd.shard_opt_state(zero, opt_state)
-        s = gs.init_sync_state(p, sync)
+        s = None if sync is None else gs.init_sync_state(p, sync)
         losses = []
 
         def one():

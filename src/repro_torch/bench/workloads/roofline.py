@@ -8,11 +8,12 @@ full row table next to the workload's results. Analysis only: no model
 runs and no power is read, and an absent records directory yields an
 empty but green record, so smoke runs pass on fresh checkouts.
 
-The Space keeps the reference's ``single`` (256 chips) and ``multi``
-(512 chips) meshes, which only the multi-device port can count (ROADMAP
-Queue 1 item 8): their points carry those placements, so the runner
-records them as ``deferred``. It adds ``1xh100``, the one mesh the port
-counts, the only point the reference lacks.
+The Space keeps the reference's ``single`` (256 cards) and ``multi``
+(512 cards) meshes, whose records the dry run writes by counting rank
+0's program on a counting mesh (``python -m repro_torch.launch.dryrun
+--mesh single|multi|both``), and adds ``1xh100``, the one-card mesh,
+the only point the reference lacks. Every point renders records on the
+one process: none needs a placement.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from repro_torch.bench.spec import workload
 from repro_torch.core.params import Space
 from repro_torch.core.results import save_results, table
 
-#: mesh -> the placement a point of it needs
-MESHES = {"1xh100": "dp1", "single": "dp256", "multi": "dp512"}
+#: the meshes whose records a point renders
+MESHES = ("1xh100", "single", "multi")
 
 
 def _dryrun_dir() -> pathlib.Path:
@@ -69,8 +70,7 @@ def load_rows(mesh: str) -> list[dict]:
 @workload(
     "roofline",
     analog="par.Roofline table (per-device seconds/step, from dry-run)",
-    space=Space({"mesh": list(MESHES), "placement": list(MESHES.values())},
-                constraints=[lambda pt: MESHES[pt["mesh"]] == pt["placement"]]),
+    space=Space({"mesh": list(MESHES)}),
     tags=("analysis", "smoke", "full"),
     result_columns=["mesh", "n_rows", "n_compute_bound", "n_memory_bound",
                     "n_skipped"],

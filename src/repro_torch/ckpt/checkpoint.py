@@ -24,11 +24,12 @@ must be complete before the host reads it. So the snapshot is an owned
 host copy of every leaf (``.to("cpu", copy=True)``, which waits for the
 copy), taken before ``save_async`` returns. ``restore`` places leaves
 into the template's dtypes and devices. In the place of the reference's
-``shardings`` (elastic resharding on restore) a dp world passes ``dp``
-(``parallel.sharding.DpCheckpoint``): on save every rank gathers the
-ZeRO-1 slices into whole leaves, the reference's layout, and rank 0
-alone writes; on restore every rank reads the whole leaves and cuts its
-own slices, for whatever dp size restores.
+``shardings`` (elastic resharding on restore) a sharded world passes
+``dp`` (``parallel.sharding.DpCheckpoint``): on save every rank gathers
+its param shards and ZeRO-1 slices into whole leaves, the reference's
+layout, and rank 0 alone writes; on restore every rank reads the whole
+leaves and cuts its own shards and slices, for whatever plan restores
+(a dp2tp2 checkpoint restores into tp2 or one device).
 """
 from __future__ import annotations
 

@@ -2,13 +2,13 @@
 
 Port of ``src/repro/ckpt/elastic.py``. On failure of a node the
 controller restarts with fewer (or more) ranks; checkpoints hold whole
-leaves (host arrays + manifest; the ZeRO-1 slices are gathered on save,
-``CheckpointManager(dp=...)``), so a restore onto the new mesh only cuts
-them again. :func:`plan_rescale` derives the rescale plan and validates
-batch divisibility (copied, imports rewritten); :func:`reshard_state`
-is rewritten: the reference ``device_put``s the state onto the new
-mesh's shardings, the port cuts a whole state into this rank's part of
-the new world's mesh.
+leaves (host arrays + manifest; param shards and ZeRO-1 slices are
+gathered on save, ``CheckpointManager(dp=...)``), so a restore onto the
+new mesh only cuts them again. :func:`plan_rescale` derives the rescale
+plan and validates batch divisibility (copied, imports rewritten);
+:func:`reshard_state` is rewritten: the reference ``device_put``s the
+state onto the new mesh's shardings, the port cuts a whole state into
+this rank's part of the new world's mesh.
 """
 from __future__ import annotations
 
@@ -87,9 +87,9 @@ def reshard_state(state, c: ModelConfig, plan: RescalePlan,
                   shape: ShapeConfig, mesh: Optional[object] = None):
     """Build the new mesh (collective: the world must hold
     ``plan.new_shape``'s ranks) and its sharding plan, and cut a whole
-    ``(params, opt_state)`` into this rank's part. Returns ``(mesh,
-    sharding plan, (params, opt_state), zero)``; ``zero`` is the ZeRO-1
-    layout the train step takes."""
+    ``(params, opt_state)`` into this rank's part (param shards, ZeRO-1
+    slices). Returns ``(mesh, sharding plan, (params, opt_state),
+    zero)``; ``zero`` is the layout the train step takes."""
     mesh = make_mesh(plan.new_shape, plan.new_axes) if mesh is None \
         else mesh
     p = sh.make_plan(c, mesh, shape)

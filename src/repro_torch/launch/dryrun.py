@@ -43,14 +43,32 @@ What the counts mean:
   from ``EXTRAPOLATE_FROM`` and one more periods, and the tests hold
   that equal to the full-depth count.
 
+The production meshes. ``--mesh single|multi|both`` counts the
+reference's 256-card ``(16, 16)`` and 512-card ``(2, 16, 16)`` meshes
+(:func:`make_production_mesh`) by tracing **rank 0's program**
+on ``meta``: the plan of the cell (``parallel.sharding.make_plan``),
+every input at rank 0's local shape (``launch.specs`` with the plan:
+param shards, optimizer slices, batch rows, caches by ``cache_spec``),
+and a :class:`CountingMesh` in the place of the process groups:
+each collective returns a ``meta`` tensor of its result's shape and is
+recorded with its group size and ring wire bytes
+(``roofline.hlo.CollectiveStats``), and the link its group takes (8
+cards a node, ranks row-major: a group inside one node on NVLink, one
+across nodes on the network; the 16-wide ``model`` axis spans two
+nodes). The microbatch rule is the reference's for a mesh (the paper's
+4 rows, 1 for FSDP or > 16 B params, 2 above 4 B, per dp rank); a train
+step of k > 2 microbatches is counted from traces of one and two and
+extrapolated (every count is affine in k), its peak from two. The
+multi pass, as in the reference, is memory only: one trace of at most
+two microbatches, its counts scaled by k over their number. The
+collective term takes each group's link bandwidth
+(``roofline.analysis``).
+
 Not carried over: the XLA compile and its ``memory_analysis``, the
 collective parse of the compiled HLO (``roofline.hlo``), and the XLA:CPU
 artefacts ``_cpu_f32_param_dupe_bytes`` and ``bytes_per_device_tpu``
 (f32 twins of bf16 weights that XLA:CPU makes and a TPU does not), with
 ``fits_hbm_16g_raw_cpu``. ``fits_hbm_16g`` becomes ``fits_hbm_80g``.
-The reference's ``single`` and ``multi`` meshes (256 and 512 chips)
-need the sharding plan of ROADMAP Queue 1 item 8 and raise here; the one
-mesh is ``1xh100``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -58,10 +76,13 @@ Usage:
       --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       --real qwen2-0.5b:train_4k:4          # a real step, on the card
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
+      --arch granite-8b --shape train_4k    # rank 0 of 256 cards
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -84,16 +105,19 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import specs as specs_mod
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.blocks import period_of
 from repro_torch.models.common import dtype_of
+from repro_torch.parallel import layout as layout_mod
+from repro_torch.parallel import sharding as shd
 from repro_torch.roofline import analysis as roof
-from repro_torch.roofline.hlo import CollectiveStats
+from repro_torch.roofline.hlo import CollectiveStats, ring_wire_bytes
 from repro_torch.serve.cache import slotted_cache
 from repro_torch.serve.engine import make_decode_fn, make_prefill_fn
 from repro_torch.train.optimizer import OptConfig, opt_init, opt_update
-from repro_torch.train.step import StepConfig, make_train_step
+from repro_torch.train.step import StepConfig, batch_axes, make_train_step
 
 ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / \
     "dryrun_torch"
@@ -108,8 +132,8 @@ IMPL = {"train": "repeat", "prefill": "repeat", "decode": "grouped"}
 #: periods the FLOPs and bytes are extrapolated from (and that number
 #: plus one) when the depth is not counted whole
 EXTRAPOLATE_FROM = 2
-ITEM8 = ("the {} mesh needs the multi-device sharding plan: ROADMAP "
-         "Queue 1 item 8")
+#: the reference's production meshes, by name: multi-pod or not
+PRODUCTION = {"single": False, "multi": True}
 
 
 class Tally(TorchDispatchMode):
@@ -190,11 +214,12 @@ def count(fn: Callable[[], Any], inputs=()) -> Counts:
     return Counts(float(t.flops), float(t.bytes), float(t.peak))
 
 
-def _pick_opt(c: ModelConfig) -> OptConfig:
+def _pick_opt(c: ModelConfig, n_dev: int = N_DEV) -> OptConfig:
     # fp32 Adam + master = 12 B/param; when that alone would exceed half
-    # an H100's HBM, fall back to Adafactor (factored second moment), the
-    # reference's rule with the H100's 80 GB in place of v5e's 16 GiB.
-    if c.param_count() * 12 / N_DEV > HBM_BYTES / 2:
+    # an H100's HBM (spread over n_dev cards), fall back to Adafactor
+    # (factored second moment), the reference's rule with the H100's
+    # 80 GB in place of v5e's 16 GiB.
+    if c.param_count() * 12 / n_dev > HBM_BYTES / 2:
         return OptConfig(name="adafactor")
     return OptConfig()
 
@@ -224,11 +249,11 @@ def _depth(c: ModelConfig, n_periods: int,
 
 
 @contextlib.contextmanager
-def _program_ctx(c: ModelConfig):
-    """One device has no expert sharding: MoE cells count the dense
-    dispatch, as the reference's plan without experts sharded does."""
+def _program_ctx(c: ModelConfig, plan=None):
+    """The MoE dispatch the reference lowers: the dense one unless the
+    plan shards the experts (one device has no expert sharding)."""
     with contextlib.ExitStack() as st:
-        if c.n_experts:
+        if c.n_experts and (plan is None or not plan.ep):
             st.enter_context(moe_mod.moe_impl("dense"))
         yield
 
@@ -359,11 +384,23 @@ def cell_counts(c: ModelConfig, shape: ShapeConfig, *,
 
 def lower_cell(c: ModelConfig, shape: ShapeConfig, mesh_name: str = MESH, *,
                microbatch_size: int = 4,
-               step_overrides: Optional[dict] = None) -> dict:
+               step_overrides: Optional[dict] = None,
+               plan_overrides: Optional[dict] = None) -> dict:
     """Count one cell on ``meta``; return its record (the reference's
-    schema for one device, see the module docstring)."""
-    if mesh_name != MESH:
-        raise NotImplementedError(ITEM8.format(mesh_name))
+    schema, see the module docstring): on one H100, or rank 0 of a
+    production mesh (``single``, ``multi``)."""
+    if mesh_name in PRODUCTION:
+        return sharded_record(c, shape, mesh_name,
+                              make_production_mesh(
+                                  multi_pod=PRODUCTION[mesh_name]),
+                              microbatch_size=microbatch_size,
+                              step_overrides=step_overrides,
+                              plan_overrides=plan_overrides,
+                              metrics=mesh_name == "single")
+    if mesh_name != MESH or plan_overrides:
+        raise ValueError(f"mesh {mesh_name!r} (plan {plan_overrides}): "
+                         f"one of {[MESH, *PRODUCTION]}; a plan override "
+                         f"needs a production mesh")
     t0 = time.time()
     got, k = cell_counts(c, shape, microbatch_size=microbatch_size,
                          step_overrides=step_overrides)
@@ -385,6 +422,234 @@ def lower_cell(c: ModelConfig, shape: ShapeConfig, mesh_name: str = MESH, *,
         "cost_analysis": {"flops": got.flops, "bytes_accessed": got.bytes},
         "bytes_accessed_bound": "unfused: every op's inputs and outputs",
         "collectives": colls.to_dict(),
+        "roofline": r.to_dict(),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Rank 0 of a mesh: the sharded program on a counting mesh
+# ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Meshes of cards: rank 0's program, its collectives counted
+# ---------------------------------------------------------------------------
+
+
+#: cards a node: ranks ``8 n .. 8 n + 7`` share one node's NVLink
+NODE_CARDS = 8
+
+
+class CountingMesh(MeshShape):
+    """Rank ``rank``'s view of a mesh that runs no collective: each
+    collective returns a tensor of the right shape (``meta`` in, ``meta``
+    out) and records, into :attr:`stats`, its kind, group size, result
+    and ring wire bytes (``roofline.hlo.ring_wire_bytes``) and the link
+    its group takes (:meth:`link`): the dry run's mesh."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 rank: int = 0):
+        super().__init__(shape, axes, rank)
+        self.backend = "counting"
+        self.stats = CollectiveStats()
+
+    def link(self, axes) -> str:
+        """``nvlink`` when this rank's group over ``axes`` sits in one
+        node (ranks map row-major, :data:`NODE_CARDS` a node), else
+        ``network`` (``roofline.analysis.LINK_BWS`` prices both)."""
+        nodes = {r // NODE_CARDS for r in self.group_ranks(axes)}
+        return "nvlink" if len(nodes) == 1 else "network"
+
+    def _record(self, op: str, axes, result: torch.Tensor) -> None:
+        g = self.axes_size(axes)
+        if g == 1:
+            return
+        b = result.numel() * result.element_size()
+        self.stats.add(op, b, ring_wire_bytes(op, b, g), g,
+                       self.link(axes), "+".join(self._axes(axes)))
+
+    def all_reduce(self, t, axes, op: str = "sum"):
+        self._record("all-reduce", axes, t)
+        return t if self.axes_size(axes) == 1 else t.clone()
+
+    def all_gather(self, t, axes, dim: int = 0):
+        n = self.axes_size(axes)
+        if n == 1:
+            return t
+        out = torch.cat([t] * n, dim=dim)
+        self._record("all-gather", axes, out)
+        return out
+
+    def reduce_scatter(self, t, axes, dim: int = 0):
+        n = self.axes_size(axes)
+        if n == 1:
+            return t
+        out = t.narrow(dim, 0, t.shape[dim] // n).clone()
+        self._record("reduce-scatter", axes, out)
+        return out
+
+    def all_gather_object(self, obj, axes) -> list:
+        return [obj] * self.axes_size(axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """Single pod: (16, 16) ("data", "model") = 256 cards. Multi-pod:
+    (2, 16, 16) ("pod", "data", "model") = 512 cards; the "pod" axis is
+    data-parallel. A description without process groups (the dry run
+    counts rank 0's program on it through a :class:`CountingMesh`)."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+def mesh_microbatching(c: ModelConfig, plan, shape: ShapeConfig,
+                       microbatch_size: int = 4) -> int:
+    """The reference's microbatch count on a mesh: ``microbatch_size``
+    rows a dp rank, 1 with FSDP or above 16 B params, at most 2 above
+    4 B."""
+    if shape.kind != "train":
+        return 1
+    params_b = c.param_count()
+    if params_b > 16e9 or plan.fsdp:
+        microbatch_size = 1
+    elif params_b > 4e9:
+        microbatch_size = min(microbatch_size, 2)
+    per_dev = max(shape.global_batch // max(shd.dp_size(plan), 1), 1)
+    return max(per_dev // microbatch_size, 1)
+
+
+def sharded_counts(c: ModelConfig, shape: ShapeConfig, mesh: MeshShape, *,
+                   microbatch_size: int = 4,
+                   step_overrides: Optional[dict] = None,
+                   plan_overrides: Optional[dict] = None,
+                   metrics: bool = True) -> tuple:
+    """``(Counts, k, CollectiveStats, plan, optimizer)`` of rank 0's
+    program of the cell on ``mesh`` (a shape: no process group),
+    traced on ``meta`` under a ``CountingMesh``. A train step of ``k >
+    2`` microbatches is extrapolated from traces of one and two
+    (``metrics``) or scaled from one of two (``metrics=False``, the
+    memory pass)."""
+    cm = CountingMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    plan = shd.make_plan(c, cm, shape)
+    if plan_overrides:
+        plan = dataclasses.replace(plan, **plan_overrides)
+    shd.check_executable(plan)
+    whole = lm.init_abstract(c)
+    zero = shd.Zero1(plan, whole, c)
+    params = zero.shard(whole)
+    k = mesh_microbatching(c, plan, shape, microbatch_size)
+    oc = _pick_opt(c, cm.size) if shape.kind == "train" else None
+    if shape.kind == "train":
+        opt = shd.shard_opt_state(zero, opt_init(oc, whole))
+
+        def trace(kt: int):
+            cm.stats = CollectiveStats()
+            sc = StepConfig(microbatches=kt, remat="full",
+                            impl=plan.attn_impl, **(step_overrides or {}))
+            # the global rows of kt microbatches (on meta: no memory), so
+            # the step cuts this rank's rows as it does on the ranks
+            batch = specs_mod.train_batch_specs(
+                c, dataclasses.replace(shape, global_batch=kt * (
+                    shape.global_batch // k)))
+            step = make_train_step(c, oc, sc, plan=plan, zero=zero)
+            with _program_ctx(c, plan):
+                got = count(lambda: step(params, opt, batch),
+                            (params, opt, batch))
+            return got, cm.stats, batch
+
+        if k > 2 and metrics:
+            (g1, s1, _), (g2, s2, part) = trace(1), trace(2)
+            got = g1 + (g2 - g1) * (k - 1)
+            got.peak = g2.peak
+            stats = _combine([(s1, 2 - k), (s2, k - 1)])
+        else:
+            kt = min(k, 2)
+            got, stats, part = trace(kt)
+            got = Counts(got.flops * k / kt, got.bytes * k / kt, got.peak)
+            stats = _combine([(stats, k / kt)])
+        # the peak holds this rank's rows of the step, not the global
+        # rows the trace cut them from
+        full = specs_mod.train_batch_specs(c, shape, plan, k)
+        got.peak += _nbytes(full) - _nbytes(part)
+        return got, k, stats, plan, oc
+    axes = batch_axes(plan, shape.global_batch)
+    seq = plan.seq_axis if shape.kind == "decode" and not axes else None
+    lay = zero.layout(axes, seq)
+    with torch.no_grad(), _program_ctx(c, plan), layout_mod.use(lay):
+        if shape.kind == "prefill":
+            tokens, extras = specs_mod.prefill_specs(c, shape, plan)
+            fn = make_prefill_fn(c, plan.attn_impl)
+            got = count(lambda: fn(params, tokens, extras),
+                        (params, tokens, extras))
+        else:
+            token, caches, _pos, enc_kv = specs_mod.decode_specs(
+                c, shape, params, plan, lay)
+            cm.stats = CollectiveStats()       # the encoder is set-up
+            fn = make_decode_fn(c, IMPL["decode"])
+            got = count(lambda: fn(params, token, caches,
+                                   shape.seq_len - 1, enc_kv),
+                        (params, token, caches, enc_kv))
+    return got, k, cm.stats, plan, oc
+
+
+def _combine(weighted) -> CollectiveStats:
+    """Sum of ``CollectiveStats`` with weights (the reference's
+    ``_combine_colls``, groups included)."""
+    out = CollectiveStats()
+    for st, w in weighted:
+        for op, n in st.counts.items():
+            out.counts[op] += n * w
+        for op, b in st.result_bytes.items():
+            out.result_bytes[op] += b * w
+        for op, b in st.wire_bytes.items():
+            out.wire_bytes[op] += b * w
+        for axes, g in st.groups.items():
+            grp = out.groups.setdefault(axes, {
+                "size": g["size"], "link": g["link"],
+                "counts": collections.defaultdict(float),
+                "wire_bytes": 0.0})
+            for op, n in g["counts"].items():
+                grp["counts"][op] += n * w
+            grp["wire_bytes"] += g["wire_bytes"] * w
+    return out
+
+
+def sharded_record(c: ModelConfig, shape: ShapeConfig, mesh_name: str,
+                   mesh: MeshShape, **kw) -> dict:
+    """One cell's record on rank 0 of ``mesh`` (the reference's schema:
+    per-rank FLOPs, bytes, peak and ``fits_hbm_80g``, the collectives
+    with their groups and links, the roofline with each group's link
+    bandwidth)."""
+    t0 = time.time()
+    got, k, stats, plan, oc = sharded_counts(c, shape, mesh, **kw)
+    r = roof.analyze(c, shape, mesh_name=mesh_name, n_devices=mesh.size,
+                     flops_per_device=got.flops,
+                     hbm_bytes_per_device=got.bytes,
+                     wire_bytes_per_device=stats.total_wire_bytes,
+                     wire_bytes_by_link=stats.wire_bytes_by_link())
+    peak = int(got.peak)
+    rows = shape.global_batch // k
+    hints = shd.attn_hints(c, plan, rows, cache_seq=shape.seq_len
+                           if shape.kind == "decode" else 0,
+                           decode=shape.kind == "decode",
+                           seq_len=shape.seq_len)
+    return {
+        "arch": c.name, "shape": shape.name, "mesh": mesh_name,
+        "n_devices": mesh.size, "kind": shape.kind, "microbatches": k,
+        "optimizer": oc.name if oc is not None else None,
+        "plan": {"tp_heads": plan.tp_heads, "fsdp": plan.fsdp,
+                 "ep": plan.ep, "attn_impl": plan.attn_impl,
+                 "seq_axis": plan.seq_axis, "use_tp": plan.use_tp},
+        # the reference's sharding hints of the cell, as specs
+        "attn_hints": dataclasses.asdict(hints),
+        "metrics_s": round(time.time() - t0, 2),
+        "metrics_pass": kw.get("metrics", True),
+        "bytes_per_device": peak,
+        "fits_hbm_80g": peak < HBM_BYTES,
+        "cost_analysis": {"flops": got.flops, "bytes_accessed": got.bytes},
+        "bytes_accessed_bound": "unfused: every op's inputs and outputs",
+        "collectives": stats.to_dict(),
+        "links": {a: g["link"] for a, g in stats.groups.items()},
         "roofline": r.to_dict(),
     }
 
@@ -417,8 +682,9 @@ def run_cells(archs, shapes, meshes, out_dir: pathlib.Path,
     out_dir.mkdir(parents=True, exist_ok=True)
     todo, results = [], []
     for mesh_name in meshes:
-        if mesh_name != MESH:
-            raise NotImplementedError(ITEM8.format(mesh_name))
+        if mesh_name != MESH and mesh_name not in PRODUCTION:
+            raise ValueError(f"mesh {mesh_name!r}: one of "
+                             f"{[MESH, *PRODUCTION]}")
         for arch in archs:
             c = get_config(arch)
             for sname in shapes:

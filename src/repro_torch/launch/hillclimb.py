@@ -2,9 +2,15 @@
 
 Port of ``src/repro/launch/hillclimb.py``: runs named optimization
 variants over chosen (arch x shape) cells, re-counts each with the dry
-run (``launch.dryrun``) and records its roofline terms. Variants:
+run (``launch.dryrun``) and records its roofline terms. Every variant of
+one invocation counts on one mesh, so its records compare: ``--mesh
+single`` (the default, the reference's: rank 0 of the 256-card mesh),
+``multi`` or ``1xh100`` (one H100). Variants:
 
-  baseline      the one-device layout of ``launch.dryrun``
+  baseline      the plan of the mesh (one device: ``launch.dryrun``'s)
+  dp_only       the ``model`` axis re-purposed as extra data parallelism
+                (``use_tp=False``: no tensor parallelism, the batch over
+                every axis; for small archs whose TP is replicated)
   bf16_grads    Megatron's bf16 gradient buffer (``StepConfig.grad_dtype``)
   mbs{N}        micro-batch-size sweep (1, 2, 8)
   flash_attn    the attention core's counted traffic replaced by the
@@ -12,13 +18,16 @@ run (``launch.dryrun``) and records its roofline terms. Variants:
                 (``csrc/flash_attention.cu``): the core is counted with
                 ``models.attention.skip_attention_core`` and without
 
-``dp_only``, ``seq_parallel`` and ``moe_dshard`` change the sharding plan,
-which only the multi-device port has (ROADMAP Queue 1 item 8): they
-raise. Variants combine with ``+`` (``mbs2+bf16_grads``).
+``seq_parallel`` and ``moe_dshard`` change the plan to layouts the ranks
+do not execute yet (ROADMAP Queue 1 item 8): they raise. ``flash_attn``
+models one card's kernel and counts on ``--mesh 1xh100`` only. Variants
+combine with ``+`` (``mbs2+bf16_grads``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
-      --cell qwen2-0.5b:train_4k --variant baseline --variant mbs2
+      --cell qwen2-0.5b:train_4k --variant baseline --variant dp_only
+  PYTHONPATH=src python -m repro_torch.launch.hillclimb --mesh 1xh100 \\
+      --cell qwen2-0.5b:prefill_32k --variant baseline --variant flash_attn
 """
 from __future__ import annotations
 
@@ -39,9 +48,11 @@ VARIANTS: dict[str, dict] = {
     "bf16_grads": {"step": {"grad_dtype": "bfloat16"}},
     "flash_attn": {},
     "mbs1": {"mbs": 1}, "mbs2": {"mbs": 2}, "mbs8": {"mbs": 8},
+    "dp_only": {"plan": {"use_tp": False, "tp_heads": False, "ep": False,
+                         "attn_impl": "grouped"}},
+    "seq_parallel": {"plan": {"seq_parallel": True}},
+    "moe_dshard": {"plan": {"moe_dshard": True}},
 }
-#: variants that change the multi-device sharding plan
-PLAN_VARIANTS = ("dp_only", "seq_parallel", "moe_dshard")
 
 #: (query, group) rows a block of the bf16 flash kernel streams K/V for
 #: (``kRows`` of ``csrc/attention_mma.cuh``, which the flash kernel runs)
@@ -49,25 +60,33 @@ FLASH_ROWS = 64
 
 
 def run_variant(arch: str, shape_name: str, variant: str,
-                out_dir: pathlib.Path = ART) -> dict:
+                out_dir: pathlib.Path = ART,
+                mesh: str = "single") -> dict:
+    """Count one variant of one cell on ``mesh`` (the reference's
+    ``single`` by default) and write its record."""
     c = get_config(arch)
     shape = SHAPES[shape_name]
     kw: dict = {}
+    plan: dict = {}
     flash = False
     for part in variant.split("+"):
-        if part in PLAN_VARIANTS:
-            raise NotImplementedError(dryrun.ITEM8.format(
-                f"{part} variant's"))
         if part not in VARIANTS:
-            raise ValueError(f"unknown variant {part!r}: "
-                             f"{sorted(VARIANTS) + list(PLAN_VARIANTS)}")
+            raise ValueError(f"unknown variant {part!r}: {sorted(VARIANTS)}")
         spec = VARIANTS[part]
         if "mbs" in spec:
             kw["microbatch_size"] = spec["mbs"]
         if "step" in spec:
             kw.setdefault("step_overrides", {}).update(spec["step"])
+        plan.update(spec.get("plan", {}))
         flash = flash or part == "flash_attn"
-    rec = dryrun.lower_cell(c, shape, **kw)
+    if plan.get("use_tp") is False:     # every axis carries the batch
+        plan["dp"] = ("pod", "data", "model") if mesh == "multi" \
+            else ("data", "model")
+    if flash and mesh != dryrun.MESH:
+        raise ValueError("flash_attn models one card's kernel: --mesh "
+                         f"{dryrun.MESH}")
+    rec = dryrun.lower_cell(c, shape, mesh, plan_overrides=plan or None,
+                            **kw)
     if flash:
         rec = _apply_flash_model(c, shape, rec, **kw)
     rec["variant"] = variant
@@ -118,6 +137,9 @@ def main(argv=None):
     ap.add_argument("--cell", action="append", required=True,
                     help="arch:shape, e.g. qwen2-0.5b:train_4k")
     ap.add_argument("--variant", action="append", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=[*dryrun.PRODUCTION, dryrun.MESH],
+                    help="the mesh every variant counts on")
     ap.add_argument("--out", default=str(ART))
     args = ap.parse_args(argv)
     variants = args.variant or ["baseline"]
@@ -125,7 +147,8 @@ def main(argv=None):
         arch, shape_name = cell.split(":")
         for v in variants:
             try:
-                rec = run_variant(arch, shape_name, v, pathlib.Path(args.out))
+                rec = run_variant(arch, shape_name, v, pathlib.Path(args.out),
+                                  args.mesh)
                 rf = rec["roofline"]
                 print(f"[hillclimb] {arch} {shape_name} {v:14s} "
                       f"comp={rf['compute_s']:.3f} mem={rf['memory_s']:.3f} "

@@ -29,8 +29,19 @@ over the ranks of a world, with the reference's axis names.
     raises; :func:`spawn` terminates every rank as soon as one
     raises or dies, and re-raises its traceback.
 
-The reference's ``make_production_mesh`` (256 and 512 chips) is ROADMAP
-Queue 1 item 8.
+  * **Collectives go through the mesh.** :meth:`Mesh.all_reduce`,
+    :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter` and
+    :meth:`Mesh.all_gather_object` name axes, not groups; every sharded
+    layout calls them (through ``parallel.layout``'s Megatron operators
+    and storage gather), so the dry run's ``CountingMesh`` in the place
+    of a :class:`Mesh` counts a program's collectives on ``meta``
+    tensors. gloo has no ``reduce_scatter`` for CUDA tensors: on gloo it
+    is an all-reduce and a narrow, chosen by the backend; NCCL runs
+    ``reduce_scatter_tensor``.
+  * **Mesh shapes.** :class:`MeshShape` is a mesh's shape, axis names and
+    one rank's coordinates without process groups: the dry run describes
+    the reference's 256- and 512-card production meshes with it
+    (``launch.dryrun.make_production_mesh``).
 """
 from __future__ import annotations
 
@@ -254,33 +265,76 @@ def dp_mean(grads, scalars: list, group) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-class Mesh:
-    """A placement's axes over the ranks of the current world.
+class MeshShape:
+    """A mesh's shape, axis names and one rank's coordinates, with no
+    process group: ``shape`` maps axis name to size in axis order (as a
+    jax mesh's ``shape``), ``coords`` the rank's index on each axis
+    (rank ``r`` sits at ``unravel_index(r, shape)``)."""
 
-    ``shape`` maps axis name to size in axis order (as a jax mesh's
-    ``shape``), ``axis_names`` is their order, ``coords`` this rank's
-    index on each axis. The world must hold exactly ``prod(shape)``
-    ranks; with no process group initialized the mesh must be of one
-    rank. Building a mesh is collective: every rank builds the same
-    mesh at the same point."""
-
-    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 rank: int = 0):
         shape, axes = tuple(int(n) for n in shape), tuple(axes)
         if len(shape) != len(axes):
             raise ValueError(f"mesh shape {shape} vs axes {axes}")
         self.shape = dict(zip(axes, shape))
         self.axis_names = axes
         self.size = math.prod(shape)
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if world != self.size:
-            raise ValueError(
-                f"mesh {dict(self.shape)} needs {self.size} ranks, the world "
-                f"has {world}")
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.rank = rank
         self.coords = dict(zip(axes, (int(i) for i in
-                                      np.unravel_index(self.rank, shape))))
+                                      np.unravel_index(rank, shape))))
+
+    @staticmethod
+    def _axes(axes) -> tuple:
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def axes_size(self, axes) -> int:
+        return math.prod(self.shape.get(a, 1) for a in self._axes(axes))
+
+    def index(self, axes) -> int:
+        """This rank's position in its group over ``axes``."""
+        axes = self._axes(axes)
+        return int(np.ravel_multi_index(
+            [self.coords[a] for a in axes],
+            [self.shape[a] for a in axes]))
+
+    def group_ranks(self, axes) -> list:
+        """Global ranks of this rank's block along ``axes``, in order."""
+        axes = self._axes(axes)
+        grid = np.arange(self.size).reshape(tuple(self.shape.values()))
+        idx = tuple(slice(None) if a in axes else self.coords[a]
+                    for a in self.axis_names)
+        sub = grid[idx]
+        order = [a for a in self.axis_names if a in axes]
+        perm = [order.index(a) for a in axes]
+        return [int(r) for r in np.transpose(sub, perm).reshape(-1)]
+
+    def __repr__(self) -> str:
+        return (f"{type(self).__name__}({dict(self.shape)}, "
+                f"rank={self.rank})")
+
+
+class Mesh(MeshShape):
+    """A placement's axes over the ranks of the current world.
+
+    The world must hold exactly ``prod(shape)`` ranks; with no process
+    group initialized the mesh must be of one rank. Building a mesh is
+    collective: every rank builds the same mesh at the same point. It
+    holds one process group per axis, one over the data-parallel axes
+    together and the world's, and runs collectives over named axes."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        size = math.prod(int(n) for n in shape)
+        if world != size:
+            raise ValueError(
+                f"mesh {dict(zip(axes, shape))} needs {size} ranks, the "
+                f"world has {world}")
+        super().__init__(shape, axes, rank)
+        self.backend = dist.get_backend() if dist.is_initialized() else None
         self._groups: dict = {}
-        for sub in [(a,) for a in axes] + [dp_axes(self)]:
+        for sub in ([(a,) for a in self.axis_names] + [dp_axes(self)]
+                    + [self.axis_names]):
             if sub not in self._groups:
                 self._groups[sub] = self._make_group(sub)
 
@@ -294,6 +348,8 @@ class Mesh:
             -1, math.prod(self.shape[a] for a in sub))
         if blocks.shape[1] == 1:
             return None, [self.rank]
+        if blocks.shape[1] == self.size:
+            return dist.group.WORLD, [int(r) for r in blocks[0]]
         mine = None
         for row in blocks:
             ranks = [int(r) for r in row]
@@ -303,7 +359,7 @@ class Mesh:
         return mine
 
     def _entry(self, axes) -> tuple:
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = self._axes(axes)
         if axes not in self._groups:
             raise KeyError(f"mesh has no group over {axes}; it has "
                            f"{sorted(self._groups)}")
@@ -318,19 +374,60 @@ class Mesh:
         """Global ranks of this rank's group over ``axes``, in order."""
         return self._entry(axes)[1]
 
-    def axes_size(self, axes) -> int:
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        return math.prod(self.shape.get(a, 1) for a in axes)
+    # -- collectives over named axes (identity over one rank) ------------
 
-    def index(self, axes) -> int:
-        """This rank's position in its group over ``axes``."""
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        return int(np.ravel_multi_index(
-            [self.coords[a] for a in axes],
-            [self.shape[a] for a in axes]))
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """Sum (or ``op="max"``) of ``t`` over the ranks of ``axes``: a
+        new tensor."""
+        if self.axes_size(axes) == 1:
+            return t
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group(axes))
+        return out
 
-    def __repr__(self) -> str:
-        return f"Mesh({dict(self.shape)}, rank={self.rank})"
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0
+                   ) -> torch.Tensor:
+        """Every rank's ``t`` over ``axes``, concatenated along ``dim`` in
+        group order."""
+        n = self.axes_size(axes)
+        if n == 1:
+            return t
+        t = t.contiguous()
+        if self.backend == "nccl":
+            out = t.new_empty((n * t.shape[0], *t.shape[1:])) if dim == 0 \
+                else None
+            if out is not None:
+                dist.all_gather_into_tensor(out, t, group=self.group(axes))
+                return out
+        bufs = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(bufs, t, group=self.group(axes))
+        return torch.cat(bufs, dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """This rank's ``1/n`` chunk along ``dim`` of the sum of ``t`` over
+        ``axes``. NCCL: ``reduce_scatter_tensor``; gloo, which has none
+        for CUDA tensors: an all-reduce and a narrow."""
+        n = self.axes_size(axes)
+        if n == 1:
+            return t
+        rows = t.shape[dim] // n
+        if self.backend == "nccl":
+            src = t.movedim(dim, 0).contiguous()
+            out = src.new_empty((rows, *src.shape[1:]))
+            dist.reduce_scatter_tensor(out, src, group=self.group(axes))
+            return out.movedim(0, dim)
+        return self.all_reduce(t, axes).narrow(
+            dim, self.index(axes) * rows, rows).clone()
+
+    def all_gather_object(self, obj, axes) -> list:
+        if self.axes_size(axes) == 1:
+            return [obj]
+        out = [None] * self.axes_size(axes)
+        dist.all_gather_object(out, obj, group=self.group(axes))
+        return out
 
 
 def make_mesh(shape, axes) -> Mesh:

@@ -9,16 +9,19 @@ give the same batches, for every model family, with a vlm's patch and
 an encdec's frame inputs; and ``main`` with its flags). ``--device``
 defaults to the CUDA card and raises without one; ``--preset full``
 trains the full-width config (on the card: bf16 compute, fp32 master
-weights). A data-parallel ``--placement`` (``dp2``, ``dp4``, ...)
-trains in that many ranks (``launch.mesh``): joined from the
-environment when a launcher started them (``WORLD_SIZE`` set, as
-``launch/slurm.py``'s scripts do), else spawned here (gloo processes on
-the CPU; NCCL ranks, one a card, on cards). Each rank trains on its rows of the global batch with
-the gradients all-reduced and AdamW's state cut to ZeRO-1 slices
-(``train.step``'s dp plan), rank 0 prints and writes the checkpoints
-(``CheckpointManager(dp=...)``). A placement with ``tp > 1`` exits:
-tensor parallelism across ranks is ROADMAP Queue 1 item 8; a fault
-schedule runs on one rank only.
+weights). A multi-device ``--placement`` (``dp2``, ``tp2``,
+``dp2tp2``, ...) trains in that many ranks (``launch.mesh``): joined
+from the environment when a launcher started them (``WORLD_SIZE`` set,
+as ``launch/slurm.py``'s scripts do), else spawned here (gloo processes
+on the CPU; NCCL ranks, one a card, on cards). Each rank holds its
+shards of the params under the placement's plan (the reference's rule
+table: heads, FFN columns, experts and vocabulary over ``tp``, FSDP for
+the largest archs) and the ZeRO-1 slices of their optimizer state, and
+trains its part of the global step (``train.step``); rank 0 prints and
+writes the checkpoints, whole leaves gathered from every rank
+(``CheckpointManager(dp=...)``). A pipeline placement (``pp``) exits: it
+runs in the ``pipeline_gpt`` workload; a fault schedule runs on one rank
+only.
 """
 from __future__ import annotations
 
@@ -150,10 +153,9 @@ def main(argv=None):
     args = parse_args(argv)
     placement = Placement.of(args.placement)
     sizes = placement.dict()
-    if sizes.get("tp", 1) > 1 or sizes.get("pp", 1) > 1:
-        raise SystemExit(f"error: placement {placement.label}: "
-                         f"{shd.NOT_EXECUTED} (the pipeline runs in the "
-                         f"pipeline_gpt workload)")
+    if sizes.get("pp", 1) > 1:
+        raise SystemExit(f"error: placement {placement.label}: the "
+                         f"pipeline runs in the pipeline_gpt workload")
     n = placement.n_devices
     if n == 1:
         return run(args)
@@ -172,7 +174,7 @@ def main(argv=None):
 
 def run(args, world=None):
     """Train as the flags say: on one device, or as a rank of ``world``
-    under the placement's dp plan."""
+    under the placement's plan."""
     placement = Placement.of(args.placement)
     dev = world.device if world is not None else resolve_device(args.device)
     c = get_config(args.arch)
@@ -190,6 +192,7 @@ def run(args, world=None):
         return init_train_state(c, oc, gen, dev)
 
     params, opt_state = fresh_state()
+    n_params = sum(p.numel() for p in tree.leaves(params))
     init_state, dp, quiet = fresh_state, None, False
     if world is None:
         step = make_train_step(c, oc, sc)
@@ -205,17 +208,16 @@ def run(args, world=None):
 
         def init_state():
             p, o = fresh_state()
-            return p, shd.shard_opt_state(zero, o)
+            return zero.shard(p), shd.shard_opt_state(zero, o)
 
     with contextlib.redirect_stdout(io.StringIO()) if quiet \
             else contextlib.nullcontext():
         return _train(args, c, placement, dev, step, params, opt_state,
-                      init_state, dp)
+                      init_state, dp, n_params)
 
 
 def _train(args, c, placement, dev, step, params, opt_state, init_state,
-           dp):
-    n_params = sum(p.numel() for p in tree.leaves(params))
+           dp, n_params):
     print(f"[train] arch={c.name} params={n_params / 1e6:.1f}M "
           f"batch={args.global_batch} seq={args.seq_len} "
           f"placement={placement.label} device={dev}")

@@ -30,13 +30,13 @@ from contextvars import ContextVar
 from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (
-    NEG_INF, apply_rope, dense_init, param_dtype_of,
+    NEG_INF, apply_rope, dense_init, param_dtype_of, recomputed,
 )
+from repro_torch.parallel import layout as lay_mod
 
 Params = Any
 
@@ -185,8 +185,7 @@ def sdpa_chunked_q(q, k, v, *, causal: bool, window: Optional[int],
     for start in range(0, s, q_chunk):
         qi = q[:, start:start + q_chunk]
         if torch.is_grad_enabled():
-            outs.append(checkpoint(chunk, qi, start, use_reentrant=False,
-                                   preserve_rng_state=False))
+            outs.append(recomputed(chunk, qi, start))
         else:
             outs.append(chunk(qi, start))
     return torch.cat(outs, dim=1)
@@ -216,13 +215,98 @@ def attend(c: ModelConfig, q, k, v, *, causal: bool,
     return sdpa(q, k, v, mask, impl)
 
 
+def _head_split(c: ModelConfig, p: Params):
+    """The current layout when it splits this attention's heads over
+    ``model`` (``wo`` holds the rank's heads), else None."""
+    lay = lay_mod.current()
+    if lay is None or lay.tp == 1 or p["wo"].shape[-3] == c.n_heads:
+        return None
+    return lay
+
+
+def _local_kv(c: ModelConfig, lay, k: torch.Tensor, v: torch.Tensor):
+    """K/V computed whole on every rank (``Kh`` does not divide tp): pass
+    them into the split compute (their gradient summed over the ranks)
+    and keep, one per query head of this rank, the K/V head it reads
+    under GQA."""
+    if k.shape[2] < c.n_kv_heads:
+        return k, v          # already this rank's heads
+    g = c.n_heads // k.shape[2]
+    k, v = lay.col(k), lay.col(v)
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    return lay.local(k, 2), lay.local(v, 2)
+
+
+def _heads(lay, t: torch.Tensor) -> torch.Tensor:
+    """This rank's heads (dim -2) of a gathered (heads, Dh) weight or a
+    replicated bias; the gradient of the rest is zero here and is summed
+    over the ranks (the weight's gather, the bias's ``col``)."""
+    return lay.local(t, -2)
+
+
+def _kv_split(c: ModelConfig, lay) -> bool:
+    return c.n_kv_heads % lay.tp == 0
+
+
+def _tp_qkv(c: ModelConfig, p: Params, x: torch.Tensor, positions, lay,
+            raw: bool = False):
+    """q of this rank's heads; k/v of its heads (``Kh`` divides tp) or
+    computed whole and cut to the heads its queries read (``raw``: also
+    the K/V before that cut, what a cache keeps)."""
+    xc = lay.col(x)
+    q = torch.einsum("bsd,dhk->bshk", xc, _heads(lay, p["wq"]))
+    if "bq" in p:
+        q = q + _heads(lay, lay.col(p["bq"]))
+    if _kv_split(c, lay):
+        k = torch.einsum("bsd,dhk->bshk", xc, _heads(lay, p["wk"]))
+        v = torch.einsum("bsd,dhk->bshk", xc, _heads(lay, p["wv"]))
+        if "bk" in p:
+            k = k + _heads(lay, lay.col(p["bk"]))
+            v = v + _heads(lay, lay.col(p["bv"]))
+    else:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+    if c.use_rope and positions is not None:
+        q = apply_rope(q, positions, c.rope_theta)
+        k = apply_rope(k, positions, c.rope_theta)
+    if raw:
+        return (q, *_local_kv(c, lay, k, v), k, v)
+    k, v = _local_kv(c, lay, k, v)
+    return q, k, v
+
+
+def _cache_cut(c: ModelConfig, lay, t: torch.Tensor) -> torch.Tensor:
+    """A layout's share of new K/V rows (B, S, Kh, Dh) as
+    ``sharding.cache_spec`` keeps them: the K/V heads over ``model``
+    when they divide it, else the head dim when it does."""
+    if lay is None or lay.tp == 1 or t.shape[2] < c.n_kv_heads:
+        return t
+    if c.n_kv_heads % lay.tp == 0:
+        return lay.local(t, 2)
+    if c.d_head % lay.tp == 0:
+        return lay.local(t, 3)
+    return t
+
+
 def self_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
                    causal: bool = True,
                    positions: Optional[torch.Tensor] = None,
                    impl: str = "repeat") -> torch.Tensor:
-    """Training self-attention over the full sequence."""
+    """Training self-attention over the full sequence. Under a layout
+    that splits the heads (``wq`` holds this rank's), the rank attends
+    with its heads and the output projection's partial sums are
+    all-reduced (Megatron's head parallelism)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    lay = _head_split(c, p)
+    if lay is not None:
+        q, k, v = _tp_qkv(c, p, x, positions if c.use_rope else None, lay)
+        return lay.row(out_proj(p, attend(c, q, k, v, causal=causal,
+                                          impl=impl)))
     q, k, v = qkv_proj(c, p, x, positions if c.use_rope else None)
     return out_proj(p, attend(c, q, k, v, causal=causal, impl=impl))
 
@@ -231,15 +315,32 @@ def cross_attention(c: ModelConfig, p: Params, x: torch.Tensor,
                     enc_kv: tuple, impl: str = "repeat") -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V
     (:func:`encoder_kv`): queries get ``bq``, no RoPE, no mask."""
+    lay = _head_split(c, p)
+    k, v = enc_kv
+    if lay is not None:
+        q = torch.einsum("bsd,dhk->bshk", lay.col(x), _heads(lay, p["wq"]))
+        if "bq" in p:
+            q = q + _heads(lay, lay.col(p["bq"]))
+        k, v = _local_kv(c, lay, k, v)
+        return lay.row(out_proj(p, sdpa(q, k, v, None, impl)))
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    k, v = enc_kv
     return out_proj(p, sdpa(q, k, v, None, impl))
 
 
 def encoder_kv(c: ModelConfig, p: Params, enc_out: torch.Tensor):
-    """A cross slot's K/V of the encoder output (B, T_enc, D)."""
+    """A cross slot's K/V of the encoder output (B, T_enc, D): under a
+    layout that splits the K/V heads, this rank's heads."""
+    lay = _head_split(c, p)
+    if lay is not None and _kv_split(c, lay):
+        enc_out = lay.col(enc_out)
+        k = torch.einsum("bsd,dhk->bshk", enc_out, _heads(lay, p["wk"]))
+        v = torch.einsum("bsd,dhk->bshk", enc_out, _heads(lay, p["wv"]))
+        if "bk" in p:
+            k = k + _heads(lay, lay.col(p["bk"]))
+            v = v + _heads(lay, lay.col(p["bv"]))
+        return k, v
     k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
     if "bk" in p:
@@ -263,6 +364,21 @@ def prefill_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
+    lay = lay_mod.current()
+    if lay is not None and paged_prefix is None:
+        # a layout's prefill: the training path's split, caches cut
+        split = _head_split(c, p)
+        if split is not None:
+            q, k, v, k_raw, v_raw = _tp_qkv(
+                c, p, x, positions if c.use_rope else None, lay, raw=True)
+            out = lay.row(out_proj(p, attend(c, q, k, v, causal=True,
+                                             impl=impl)))
+        else:
+            q, k_raw, v_raw = qkv_proj(c, p, x,
+                                       positions if c.use_rope else None)
+            out = out_proj(p, attend(c, q, k_raw, v_raw, causal=True,
+                                     impl=impl))
+        return out, (_cache_cut(c, lay, k_raw), _cache_cut(c, lay, v_raw))
     q, k, v = qkv_proj(c, p, x, positions if c.use_rope else None)
     if paged_prefix is not None:
         k_pool, v_pool, k_scale, v_scale, tables = paged_prefix
@@ -331,6 +447,9 @@ def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
     paged kernel is grouped by construction.
     """
     if block_tables is None:
+        lay = lay_mod.current()
+        if lay is not None and (lay.tp > 1 or lay.cache_seq_axis):
+            return _sharded_decode(c, p, x, cache_k, cache_v, pos, lay)
         return _dense_decode(c, p, x, cache_k, cache_v, pos, impl)
     if pos.ndim != 1:
         raise ValueError("paged decode needs per-slot positions (B,)")
@@ -351,6 +470,82 @@ def decode_attention(c: ModelConfig, p: Params, x: torch.Tensor,
                                       k_scale=cache_k_scale,
                                       v_scale=cache_v_scale)
     return out_proj(p, out[:, None].to(q.dtype))
+
+
+def _sharded_decode(c: ModelConfig, p: Params, x: torch.Tensor,
+                    cache_k: torch.Tensor, cache_v: torch.Tensor, pos,
+                    lay) -> torch.Tensor:
+    """One-token decode at one shared position ``pos`` against this
+    rank's share of dense caches (``sharding.cache_spec``): K/V heads
+    over ``model`` (the rank attends with the query heads they serve),
+    or the head dim over ``model`` (every query head's partial scores on
+    the rank's ``Dh`` slice, all-reduced, and the output's ``Dh`` slices
+    all-gathered), and the sequence over ``lay.cache_seq_axis`` for a
+    long-context batch (a softmax whose max, sum and PV product are
+    all-reduced over that axis; the rank holding ``pos`` writes the new
+    token). The reference's decode hint keeps the heads whole against
+    such a cache; here the rank's heads go through ``wo`` as in
+    training, and the output projection's partial sums are all-reduced.
+    The caches are updated in place."""
+    if torch.is_tensor(pos) and pos.ndim:
+        raise ValueError("a sharded decode takes one shared position")
+    pos = int(pos)
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    rope = positions if c.use_rope else None
+    split = _head_split(c, p)
+    if split is not None:
+        q, _k, _v, k_new, v_new = _tp_qkv(c, p, x, rope, lay, raw=True)
+    else:
+        q, k_new, v_new = qkv_proj(c, p, x, rope)
+    kv_split = cache_k.shape[2] < c.n_kv_heads
+    dh_split = cache_k.shape[3] < c.d_head
+    t_loc = cache_k.shape[1]
+    seq = lay.cache_seq_axis
+    t0 = lay.mesh.index(seq) * t_loc if seq else 0
+    if t0 <= pos < t0 + t_loc:          # this rank holds the position
+        cache_k[:, pos - t0] = _cache_cut(c, lay, k_new)[:, 0].to(
+            cache_k.dtype)
+        cache_v[:, pos - t0] = _cache_cut(c, lay, v_new)[:, 0].to(
+            cache_v.dtype)
+    k, v = cache_k, cache_v
+    if dh_split:
+        if split is not None:        # every head's partial scores
+            q = lay.mesh.all_gather(q, "model", 2)
+        q = lay.local(q, 3)
+    elif split is not None and not kv_split:
+        k, v = _local_kv(c, lay, k, v)
+    hq, kh = q.shape[2], k.shape[2]
+    scale = 1.0 / torch.sqrt(torch.full((), c.d_head, dtype=torch.float32,
+                                        device=q.device)).to(q.dtype)
+    qg = (q * scale).reshape(b, 1, kh, hq // kh, q.shape[3])
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    if dh_split:
+        scores = lay.mesh.all_reduce(scores, "model")
+    kpos = t0 + torch.arange(t_loc, device=x.device)
+    m = kpos <= pos
+    if c.attn_window is not None:
+        m = m & (kpos > pos - c.attn_window)
+    scores = scores + _mask_bias(m)
+    if seq:
+        mx = lay.mesh.all_reduce(scores.amax(-1, keepdim=True), seq,
+                                 op="max")
+        e = torch.exp(scores - mx)
+        w = (e / lay.mesh.all_reduce(e.sum(-1, keepdim=True), seq)).to(
+            q.dtype)
+        out = lay.mesh.all_reduce(torch.einsum("bkgst,btkd->bskgd", w, v),
+                                  seq)
+    else:
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    out = out.reshape(b, 1, hq, v.shape[3])
+    if dh_split:
+        out = lay.mesh.all_gather(out, "model", 3)
+        if split is not None:
+            out = lay.local(out, 2)
+    if split is not None:
+        return lay.row(out_proj(p, out))
+    return out_proj(p, out)
 
 
 def _dense_decode(c: ModelConfig, p: Params, x: torch.Tensor,

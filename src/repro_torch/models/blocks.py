@@ -31,14 +31,17 @@ from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import (
-    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    CheckpointPolicy, create_selective_checkpoint_contexts,
 )
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import apply_mlp, apply_norm, mlp_init, norm_init
+from repro_torch.models.common import (
+    apply_mlp, apply_norm, mlp_init, norm_init, recomputed,
+)
+from repro_torch.parallel import layout as lay_mod
 
 Params = Any
 
@@ -146,7 +149,8 @@ def enc_stack_init(gen, c: ModelConfig) -> Params:
 def _ffn(c: ModelConfig, sp: Params, x: torch.Tensor, ffn: Optional[str]):
     """The slot's FFN residual; returns (x, MoE aux loss or None)."""
     if ffn == "mlp":
-        return x + apply_mlp(c, sp["mlp"], apply_norm(c, sp["norm2"], x)), None
+        return x + apply_mlp(c, sp["mlp"], apply_norm(c, sp["norm2"], x),
+                             c.d_ff), None
     if ffn == "moe":
         y, aux = moe_mod.moe_forward(c, sp["moe"],
                                      apply_norm(c, sp["norm2"], x))
@@ -173,7 +177,11 @@ def _cross(c: ModelConfig, sp: Params, x: torch.Tensor, ekv,
 
 
 def _slot_forward(c: ModelConfig, sp: Params, x: torch.Tensor, causal: bool,
-                  mixer: str, ffn: Optional[str], ekv, impl: str):
+                  mixer: str, ffn: Optional[str], ekv, impl: str,
+                  prefix: tuple = ()):
+    # a layout's storage-sharded leaves, gathered inside the recomputed
+    # region: the backward gathers them again, as FSDP does
+    sp = lay_mod.gather(sp, prefix, unstacked=True)
     h = apply_norm(c, sp["norm1"], x)
     if mixer == "attn":
         h = attn.self_attention(c, sp["attn"], h, causal=causal, impl=impl)
@@ -220,14 +228,13 @@ def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
     for j in range(n):
         for i, (mixer, ffn) in enumerate(kinds):
             args = (c, per_slot[i][j], x, causal, mixer, ffn,
-                    None if enc_kv is None else per_ekv[i][j], impl)
+                    None if enc_kv is None else per_ekv[i][j], impl,
+                    ("layers", f"slot{i}"))
             if remat == "none":
                 x, a = _slot_forward(*args)
             else:
-                # no op in a layer draws random numbers: no RNG state to keep
                 kw = {"context_fn": _dots_context} if remat == "dots" else {}
-                x, a = checkpoint(_slot_forward, *args, use_reentrant=False,
-                                  preserve_rng_state=False, **kw)
+                x, a = recomputed(_slot_forward, *args, **kw)
             aux = aux + a
     return x, aux
 
@@ -264,7 +271,8 @@ def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
     out: dict = {f"slot{i}": {} for i in range(len(kinds))}
     for j in range(_n_periods(layers["slot0"])):
         for i, (mixer, ffn) in enumerate(kinds):
-            sp = layer(layers[f"slot{i}"], j)
+            sp = lay_mod.gather(layer(layers[f"slot{i}"], j),
+                                ("layers", f"slot{i}"), unstacked=True)
             h = apply_norm(c, sp["norm1"], x)
             if mixer == "attn":
                 pp = None
@@ -280,7 +288,7 @@ def stack_prefill(c: ModelConfig, layers: Params, x: torch.Tensor, *,
             else:
                 h, (conv_tail, hstate) = ssm_mod.mamba_forward(
                     c, sp["mamba"], h, return_state=True)
-                new = {"ssm": hstate, "conv": conv_tail}
+                new = {"ssm": _ssm_cut(c, hstate), "conv": conv_tail}
             for name, t in new.items():
                 out[f"slot{i}"].setdefault(name, []).append(t)
             x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j),
@@ -306,7 +314,8 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
     kinds = slot_kinds(c)
     for j in range(_n_periods(layers["slot0"])):
         for i, (mixer, ffn) in enumerate(kinds):
-            sp = layer(layers[f"slot{i}"], j)
+            sp = lay_mod.gather(layer(layers[f"slot{i}"], j),
+                                ("layers", f"slot{i}"), unstacked=True)
             sc = caches[f"slot{i}"]
             h = apply_norm(c, sp["norm1"], x)
             if mixer == "attn":
@@ -319,12 +328,31 @@ def stack_decode(c: ModelConfig, layers: Params, x: torch.Tensor,
                                           cache_v_scale=v_scale)
             else:
                 h, conv_s, ssm_s = ssm_mod.mamba_decode(
-                    c, sp["mamba"], h, sc["conv"][j], sc["ssm"][j])
+                    c, sp["mamba"], h, sc["conv"][j],
+                    _ssm_whole(c, sc["ssm"][j]))
                 sc["conv"][j].copy_(conv_s)
-                sc["ssm"][j].copy_(ssm_s)
+                sc["ssm"][j].copy_(_ssm_cut(c, ssm_s))
             x, _aux = _ffn(c, sp, _cross(c, sp, x + h, _ekv(enc_kv, i, j),
                                          impl), ffn)
     return x, caches
+
+
+def _ssm_cut(c: ModelConfig, state: torch.Tensor) -> torch.Tensor:
+    """A layout's share of a mamba state (B, nh, hp, ns), as
+    ``sharding.cache_spec`` keeps it: the heads over ``model`` when they
+    divide it (the state is computed whole, the mixer replicated)."""
+    lay = lay_mod.current()
+    if lay is None or lay.tp == 1 or c.ssm_nheads % lay.tp:
+        return state
+    return lay.local(state, 1)
+
+
+def _ssm_whole(c: ModelConfig, state: torch.Tensor) -> torch.Tensor:
+    """The whole mamba state from the ranks' shares (storage-sharded)."""
+    lay = lay_mod.current()
+    if lay is None or state.shape[1] == c.ssm_nheads:
+        return state
+    return lay.mesh.all_gather(state, "model", 1)
 
 
 def _ekv(enc_kv: Params, i: int, j: int):

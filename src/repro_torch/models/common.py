@@ -9,19 +9,38 @@ mask of ``finfo(float32).min``.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import layout as lay_mod
 
 Params = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 NEG_INF = torch.finfo(torch.float32).min
+
+
+def recomputed(fn, *args, **kwargs):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant, no
+    RNG state: no op of the port's layers draws random numbers), its
+    recompute run in a copy of the forward's context, so that it sees the
+    same context variables (the layout, the MoE dispatch): a CUDA
+    backward runs on the autograd engine's device thread, which does not
+    inherit them. ``kwargs`` go to ``checkpoint`` (``context_fn``)."""
+    return checkpoint(_run_in, contextvars.copy_context(), fn, *args,
+                      use_reentrant=False, preserve_rng_state=False,
+                      **kwargs)
+
+
+def _run_in(ctx: contextvars.Context, fn, *args):
+    return ctx.copy().run(fn, *args)
 
 
 def dtype_of(c: ModelConfig) -> torch.dtype:
@@ -128,19 +147,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def apply_mlp(c: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(c: ModelConfig, p: Params, x: torch.Tensor,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP. Under a layout (``parallel.layout``) whose ``wo`` holds
+    fewer than ``d_ff`` rows, the rank's F-slice: Megatron's column- then
+    row-parallel pair, ``f`` before and ``g`` after (``bo`` once, after)."""
+    lay = lay_mod.current()
+    split = (lay is not None and lay.tp > 1 and d_ff is not None
+             and p["wo"].shape[-2] < d_ff)
+    if split:
+        x = lay.col(x)
+    bi = p.get("bi")
+    if split and bi is not None:
+        bi = lay.local(lay.col(bi), -1)
     if c.act == "swiglu":
         g = x @ p["wi_gate"]
         u = x @ p["wi_up"]
-        if "bi" in p:
-            g = g + p["bi"]
+        if bi is not None:
+            g = g + bi
         h = F.silu(g) * u
     else:
         h = x @ p["wi"]
-        if "bi" in p:
-            h = h + p["bi"]
+        if bi is not None:
+            h = h + bi
         h = F.gelu(h, approximate="tanh")
     y = h @ p["wo"]
+    if split:
+        y = lay.row(y)
     if "bo" in p:
         y = y + p["bo"]
     return y
@@ -148,14 +181,32 @@ def apply_mlp(c: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(c: ModelConfig, p: Params, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = p["tok"][tokens].to(dtype_of(c))
+    """Token (and learned position) embeddings. A ``tok`` table holding
+    this rank's vocabulary rows (a layout's vocabulary split) embeds the
+    ids in its range, zeros elsewhere, and the ranks' rows are summed."""
+    lay = lay_mod.current()
+    n = p["tok"].shape[0]
+    if lay is not None and lay.tp > 1 and n < c.padded_vocab:
+        ids = tokens.long() - lay.tp_rank * n
+        inside = (ids >= 0) & (ids < n)
+        x = p["tok"][ids.clamp(0, n - 1)] * inside[..., None].to(
+            p["tok"].dtype)
+        x = lay.row(x.to(dtype_of(c)))
+    else:
+        x = p["tok"][tokens].to(dtype_of(c))
     if not c.use_rope and positions is not None:
         x = x + p["pos"][positions].to(dtype_of(c))
     return x
 
 
 def unembed(c: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the vocabulary; a table of this rank's vocabulary rows
+    (a layout's split) gives this rank's logit columns."""
     table = p["tok"] if c.tie_embeddings else p["head"]
+    lay = lay_mod.current()
+    n, start = table.shape[0], 0
+    if lay is not None and lay.tp > 1 and n < c.padded_vocab:
+        x, start = lay.col(x), lay.tp_rank * n
     logits = torch.einsum("...d,vd->...v", x, table)
     if c.logits_softcap:
         logits = torch.tanh(logits / c.logits_softcap) * c.logits_softcap
@@ -163,5 +214,5 @@ def unembed(c: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         mask = torch.zeros(c.padded_vocab, dtype=logits.dtype,
                            device=logits.device)
         mask[c.vocab:] = NEG_INF
-        logits = logits + mask
+        logits = logits + mask[start:start + n]
     return logits

@@ -19,7 +19,6 @@ from typing import Any, Optional
 
 import torch
 from torch.overrides import TorchFunctionMode
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -27,8 +26,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (
     apply_mlp, apply_norm, dtype_of, embed_tokens, embedding_init, norm_init,
-    param_dtype_of, unembed,
+    param_dtype_of, recomputed, unembed,
 )
+from repro_torch.parallel.layout import gather
 
 Params = Any
 
@@ -83,16 +83,17 @@ def _inputs_to_embeds(c: ModelConfig, p: Params, tokens: torch.Tensor,
     a vlm's patch embeddings, cast to the activations' dtype, go first."""
     positions = torch.arange(tokens.shape[1],
                              device=tokens.device)[None, :] + pos_offset
-    x = embed_tokens(c, p["embed"], tokens, positions)
+    x = embed_tokens(c, gather(p["embed"], ("embed",)), tokens, positions)
     if c.family == "vlm" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x
 
 
 def _enc_layer(c: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    lp = gather(lp, ("encoder", "layers"), unstacked=True)
     h = apply_norm(c, lp["norm1"], x)
     x = x + attn.self_attention(c, lp["attn"], h, causal=False)
-    return x + apply_mlp(c, lp["mlp"], apply_norm(c, lp["norm2"], x))
+    return x + apply_mlp(c, lp["mlp"], apply_norm(c, lp["norm2"], x), c.d_ff)
 
 
 def encode(c: ModelConfig, p: Params, frames: torch.Tensor):
@@ -103,21 +104,21 @@ def encode(c: ModelConfig, p: Params, frames: torch.Tensor):
     backward, as the reference's ``jax.checkpoint`` does."""
     enc = p["encoder"]
     dt = dtype_of(c)
-    x = frames.to(dt) + enc["pos"][None].to(dt)
+    x = frames.to(dt) + gather(enc["pos"], ("encoder", "pos"))[None].to(dt)
     n = c.n_enc_layers
     for lp in blocks._unstack(enc["layers"], n):
         if torch.is_grad_enabled():
-            x = checkpoint(_enc_layer, c, lp, x, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = recomputed(_enc_layer, c, lp, x)
         else:
             x = _enc_layer(c, lp, x)
-    enc_out = apply_norm(c, enc["norm"], x)
+    enc_out = apply_norm(c, gather(enc["norm"], ("encoder", "norm")), x)
     layers = p["layers"]
     n_periods = blocks._n_periods(layers["slot0"])
     enc_kv = {}
     for i in range(len(blocks.slot_kinds(c))):
         ks, vs = [], []
         for lp in blocks._unstack(layers[f"slot{i}"]["cross"], n_periods):
+            lp = gather(lp, ("layers", f"slot{i}", "cross"), unstacked=True)
             k, v = attn.encoder_kv(c, lp, enc_out)
             ks.append(k)
             vs.append(v)
@@ -147,10 +148,10 @@ def forward(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
     x = _inputs_to_embeds(c, p, tokens, patch_embeds)
     x, aux = blocks.stack_forward(c, p["layers"], x, causal=True, impl=impl,
                                   remat=remat, enc_kv=enc_kv)
-    x = apply_norm(c, p["final_norm"], x)
+    x = apply_norm(c, gather(p["final_norm"], ("final_norm",)), x)
     if c.family == "vlm" and patch_embeds is not None:
         x = x[:, patch_embeds.shape[1]:]
-    return unembed(c, p["embed"], x), aux
+    return unembed(c, gather(p["embed"], ("embed",)), x), aux
 
 
 def prefill(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
@@ -189,8 +190,8 @@ def prefill(c: ModelConfig, p: Params, tokens: torch.Tensor, *,
         x_last = x[rows, last_pos.long()][:, None]
     else:
         x_last = x[:, -1:]
-    x_last = apply_norm(c, p["final_norm"], x_last)
-    return unembed(c, p["embed"], x_last), caches, enc_kv
+    x_last = apply_norm(c, gather(p["final_norm"], ("final_norm",)), x_last)
+    return unembed(c, gather(p["embed"], ("embed",)), x_last), caches, enc_kv
 
 
 def decode_step(c: ModelConfig, p: Params, token: torch.Tensor,
@@ -209,10 +210,10 @@ def decode_step(c: ModelConfig, p: Params, token: torch.Tensor,
         positions = pos[:, None]
     else:
         positions = torch.full_like(token, int(pos))
-    x = embed_tokens(c, p["embed"], token, positions)
+    x = embed_tokens(c, gather(p["embed"], ("embed",)), token, positions)
     x, caches = blocks.stack_decode(c, p["layers"], x, caches, pos,
                                     impl=impl, enc_kv=enc_kv,
                                     block_tables=block_tables,
                                     n_kv_blocks=n_kv_blocks)
-    x = apply_norm(c, p["final_norm"], x)
-    return unembed(c, p["embed"], x), caches
+    x = apply_norm(c, gather(p["final_norm"], ("final_norm",)), x)
+    return unembed(c, gather(p["embed"], ("embed",)), x), caches

@@ -14,9 +14,26 @@ The router runs in fp32: an fp32 parameter against the fp32 tokens.
 ``torch.topk`` and ``jax.lax.top_k`` may order exact ties differently;
 random weights make ties measure-zero.
 
-The reference's ``_MOE_BUF_SPEC`` / ``_buf_hint`` is a sharding
-constraint on the dispatch buffer; on one device it is a no-op, so it is
-left out (``moe_impl`` takes no ``buf_spec``).
+Under a layout (``parallel.layout``) the layer computes what the
+reference's one global program computes:
+
+  * **Global ranking.** The capacity ``C`` comes from the microbatch's
+    global token count, and each (token, choice) pair's position within
+    its expert is offset by the pairs that the lower batch ranks route
+    there (one ``all_gather`` of ``E`` counts a layer: the global order
+    is rank-major, since a rank's rows are a contiguous block), so the
+    same pairs are dropped. A rank's dispatch buffer holds its own pairs
+    only, ``min(C, T * k)`` rows an expert.
+  * **Global load balance.** The aux loss's ``me`` and ``ce`` are built
+    from sums all-reduced over the batch ranks (identity backward).
+  * **Experts split over ``model``.** With expert parallelism the rank
+    holds ``E / tp`` experts: every tp rank routes the same tokens (the
+    router is replicated), fills only its experts' rows and the combine
+    is all-reduced (Megatron's ``g``); without it each expert's F is
+    split, as the MLP's.
+
+The reference's ``_MOE_BUF_SPEC`` / ``_buf_hint`` (the dispatch
+buffer's D over tp, ``moe_dshard``) is ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -30,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import apply_mlp, dense_init, mlp_init
+from repro_torch.parallel import layout as lay_mod
 
 Params = Any
 
@@ -69,8 +87,16 @@ def router_topk(c: ModelConfig, p: Params, x2d: torch.Tensor):
     weights, experts = torch.topk(probs, c.top_k, dim=-1)       # (T, k)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balancing auxiliary loss
-    me = probs.mean(dim=0)                                      # (E,)
-    ce = F.one_hot(experts[:, 0], c.n_experts).float().mean(dim=0)
+    lay = lay_mod.current()
+    if lay is not None and lay.batch_size > 1:
+        # means over the microbatch's global tokens
+        n = x2d.shape[0] * lay.batch_size
+        me = lay.batch_sum(probs.sum(dim=0)) / n
+        ce = lay.batch_sum(F.one_hot(experts[:, 0], c.n_experts).float()
+                           .sum(dim=0)) / n
+    else:
+        me = probs.mean(dim=0)                                  # (E,)
+        ce = F.one_hot(experts[:, 0], c.n_experts).float().mean(dim=0)
     aux = c.n_experts * torch.sum(me * ce)
     return weights, experts, aux
 
@@ -80,21 +106,49 @@ def expert_capacity(c: ModelConfig, n_tokens: int) -> int:
     return max(cap, 4)
 
 
+def _split(c: ModelConfig, experts: Params):
+    """``(layout, "ep" | "f" | None)``: how the current layout splits the
+    experts over ``model`` (by the leaves' shapes)."""
+    lay = lay_mod.current()
+    if lay is None or lay.tp == 1:
+        return lay, None
+    if experts["wo"].shape[-3] < c.n_experts:
+        return lay, "ep"
+    if experts["wo"].shape[-2] < (c.expert_d_ff or c.d_ff):
+        return lay, "f"
+    return lay, None
+
+
+def _expert_biases(lay, split, experts: Params):
+    """``(bi, bo)`` as this rank's split compute uses them: an F-split
+    cuts the replicated ``bi`` to the rank's columns and adds ``bo`` on
+    tp rank 0 only (the combine sums the ranks)."""
+    bi, bo = experts.get("bi"), experts.get("bo")
+    if split == "f":
+        if bi is not None:
+            bi = lay.local(lay.col(bi), -1)
+        if bo is not None:
+            bo = lay.col(bo) * float(lay.tp_rank == 0)
+    return bi, bo
+
+
 def _apply_experts(c: ModelConfig, experts: Params,
                    buf: torch.Tensor) -> torch.Tensor:
     """buf: (E, C, D) -> (E, C, D) through each expert's MLP (batched)."""
+    lay, split = _split(c, experts)
+    bi, bo = _expert_biases(lay, split, experts)
     if c.act == "swiglu":
         g = torch.einsum("ecd,edf->ecf", buf, experts["wi_gate"])
         u = torch.einsum("ecd,edf->ecf", buf, experts["wi_up"])
         h = F.silu(g) * u
     else:
         h = torch.einsum("ecd,edf->ecf", buf, experts["wi"])
-        if "bi" in experts:
-            h = h + experts["bi"][:, None]
+        if bi is not None:
+            h = h + bi[:, None]
         h = F.gelu(h, approximate="tanh")
     out = torch.einsum("ecf,efd->ecd", h, experts["wo"])
-    if "bo" in experts:
-        out = out + experts["bo"][:, None]
+    if bo is not None:
+        out = out + bo[:, None]
     return out
 
 
@@ -108,29 +162,49 @@ def moe_forward(c: ModelConfig, p: Params, x: torch.Tensor):
     T, k, E = b * s, c.top_k, c.n_experts
     x2d = x.reshape(T, d)
     weights, experts_idx, aux = router_topk(c, p, x2d)
-    C = expert_capacity(c, T)
+    lay, split = _split(c, p["experts"])
+    nb = 1 if lay is None else lay.batch_size
 
     # position of each (token, choice) within its expert, by cumsum ranking
     sel_flat = F.one_hot(experts_idx, E).reshape(T * k, E)
     pos = torch.cumsum(sel_flat, dim=0) * sel_flat - 1          # (T*k, E)
     pos_in_expert = pos.amax(dim=-1)                            # (T*k,)
-    keep = (pos_in_expert >= 0) & (pos_in_expert < C)
-    dest = experts_idx.reshape(-1) * C + pos_in_expert.clamp(0, C - 1)
-    dest = torch.where(keep, dest, torch.full_like(dest, E * C))  # overflow
+    eidx = experts_idx.reshape(-1)
+    if nb > 1:
+        # the global ranking: after the lower batch ranks' pairs
+        counts = lay.batch_gather(sel_flat.sum(dim=0))          # (nb, E)
+        below = counts[:lay.batch_index].sum(dim=0)
+        C = expert_capacity(c, T * nb)
+        keep = (pos_in_expert >= 0) & (pos_in_expert + below[eidx] < C)
+        cap = min(C, T * k)
+    else:
+        C = cap = expert_capacity(c, T)
+        keep = (pos_in_expert >= 0) & (pos_in_expert < C)
+    e_loc, here = eidx, keep
+    n_loc = p["experts"]["wo"].shape[-3]
+    if split == "ep":                       # this rank's experts only
+        e_loc = eidx - lay.tp_rank * n_loc
+        here = keep & (e_loc >= 0) & (e_loc < n_loc)
+    dest = e_loc * cap + pos_in_expert.clamp(0, cap - 1)
+    dest = torch.where(here, dest, torch.full_like(dest, n_loc * cap))
 
-    xk = x2d.repeat_interleave(k, dim=0)                        # (T*k, D)
-    buf = x.new_zeros((E * C + 1, d)).index_add(0, dest, xk)
-    buf = buf[:-1].reshape(E, C, d)
+    xin = x2d if split is None else lay.col(x2d)
+    xk = xin.repeat_interleave(k, dim=0)                        # (T*k, D)
+    buf = x.new_zeros((n_loc * cap + 1, d)).index_add(0, dest, xk)
+    buf = buf[:-1].reshape(n_loc, cap, d)
 
-    out_buf = _apply_experts(c, p["experts"], buf).reshape(E * C, d)
+    out_buf = _apply_experts(c, p["experts"], buf).reshape(n_loc * cap, d)
     out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
 
     gathered = out_buf[dest]                                    # (T*k, D)
-    wk = (weights.reshape(-1, 1) * keep[:, None]).to(x.dtype)
+    w = weights if split is None else lay.col(weights)
+    wk = (w.reshape(-1, 1) * keep[:, None]).to(x.dtype)
     y = (gathered * wk).reshape(T, k, d).sum(dim=1)
+    if split is not None:
+        y = lay.row(y)
 
     if c.moe_shared:
-        y = y + apply_mlp(c, p["shared"], x2d)
+        y = y + apply_mlp(c, p["shared"], x2d, c.expert_d_ff or c.d_ff)
     return y.reshape(b, s, d), aux
 
 
@@ -143,21 +217,30 @@ def moe_forward_einsum(c: ModelConfig, p: Params, x: torch.Tensor):
     wfull = torch.zeros((b * s, c.n_experts), dtype=torch.float32,
                         device=x.device).scatter(1, experts_idx, weights)
     ex = p["experts"]
+    lay, split = _split(c, ex)
+    xin = x2d
+    if split is not None:
+        xin, wfull = lay.col(x2d), lay.col(wfull)
+        if split == "ep":
+            wfull = lay.local(wfull, 1)
+    bi, bo = _expert_biases(lay, split, ex)
     if c.act == "swiglu":
-        g = torch.einsum("td,edf->tef", x2d, ex["wi_gate"])
-        u = torch.einsum("td,edf->tef", x2d, ex["wi_up"])
+        g = torch.einsum("td,edf->tef", xin, ex["wi_gate"])
+        u = torch.einsum("td,edf->tef", xin, ex["wi_up"])
         h = F.silu(g) * u
     else:
-        h = torch.einsum("td,edf->tef", x2d, ex["wi"])
-        if "bi" in ex:
-            h = h + ex["bi"][None]
+        h = torch.einsum("td,edf->tef", xin, ex["wi"])
+        if bi is not None:
+            h = h + bi[None]
         h = F.gelu(h, approximate="tanh")
     wh = wfull.to(h.dtype)
     y = torch.einsum("tef,efd->td", h * wh[..., None], ex["wo"])
-    if "bo" in ex:
-        y = y + torch.einsum("te,ed->td", wh, ex["bo"])
+    if bo is not None:
+        y = y + torch.einsum("te,ed->td", wh, bo)
+    if split is not None:
+        y = lay.row(y)
     if c.moe_shared:
-        y = y + apply_mlp(c, p["shared"], x2d)
+        y = y + apply_mlp(c, p["shared"], x2d, c.expert_d_ff or c.d_ff)
     return y.reshape(b, s, d), aux
 
 

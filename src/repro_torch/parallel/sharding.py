@@ -9,19 +9,26 @@ one entry per dimension, an axis name, a tuple of axis names or
 ``None``: the content of the reference's ``PartitionSpec`` (``P()`` is
 the empty tuple, as there).
 
-What ranks execute in this port is the data-parallel part, meshes whose
-``model`` axis is 1 (:func:`check_executable`): params are replicated,
-the batch is split over the dp axes (:func:`local_batch`,
-``batch_sharding``'s rule), and AdamW's ``m`` / ``v`` / ``master`` are
-ZeRO-1 slices (:class:`Zero1`): each rank keeps the slice that
-``zero1_spec`` names, updates its slice of each parameter from the
-synced full gradient, and ``all_gather``s the slices (gloo has no
-``reduce_scatter`` for CUDA tensors). AdamW is elementwise, so the
-result equals the replicated update to the bit. Adafactor's factored
-states and the scalars replicate, as ``train_state_shardings`` says.
-Tensor parallelism, FSDP and expert parallelism as executed layouts,
-``cache_sharding``, ``make_attn_hints`` and ``logits_sharding`` are
-ROADMAP Queue 1 item 8.
+Ranks execute every layout of the table (:class:`Zero1` holds one rank's
+part of one param tree): each rank stores its shard of every leaf, as
+the leaf's spec cuts it over the mesh coordinates (:func:`leaf_cuts`),
+and the model code (``parallel.layout``) computes on it. A dim over
+``model`` of the heads of ``wo``, the FFN columns, the experts or the
+vocabulary is **compute-sharded**: the rank computes its part and
+Megatron's partial-sum collective follows. Every FSDP ``data`` dim, the
+``Dh`` cut of ``wq`` / ``wk`` / ``wv`` (the reference's head-TP rule
+indexes their unstacked ``(D, H, Dh)`` shape, so it cuts ``Dh``; the
+rank gathers it and computes its heads) and of FSDP archs' ``wo``, and
+``pos`` tables, are **storage-sharded**: all-gathered just before use,
+the gradient going back by reduce-scatter. A leaf the spec replicates
+over ``model`` is computed whole on every tp rank. AdamW's ``m`` /
+``v`` / ``master`` and the gradient accumulator (ZeRO-2) are further cut
+over every axis the param leaves free (``zero1_spec``, the ``model``
+axis included); Adafactor's factored states follow the shards. The
+batch is split over the dp axes (:func:`local_batch`).
+``cache_spec``, ``attn_hints`` and ``logits_spec`` are ported as data.
+Megatron sequence parallelism and the MoE buffer's D split (the plan's
+``seq_parallel`` and ``moe_dshard``) raise (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -43,11 +50,6 @@ Spec = tuple
 # FSDP threshold (the reference's): params whose bf16 bytes / TP shard
 # would crowd a 16 GiB chip once grads + ZeRO-1 states are added.
 FSDP_PARAM_THRESHOLD = 32e9
-
-#: the error of a layout this port does not execute
-NOT_EXECUTED = ("tensor parallelism, FSDP and expert parallelism across "
-                "ranks are ROADMAP Queue 1 item 8")
-
 
 @dataclass(frozen=True)
 class Plan:
@@ -323,50 +325,280 @@ def local_batch(plan: Plan, batch: dict, batch_dim: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Execution on ranks
+# Cache, attention and logits specs (data: the dry run's inputs, the loss)
 # ---------------------------------------------------------------------------
 
 
+def cache_spec(c: ModelConfig, plan: Plan, path: tuple, shape: tuple) -> Spec:
+    """The reference's ``cache_sharding``: a layer-stacked cache leaf's
+    spec. attn k/v (L, B, T, Kh, Dh); mamba conv (L, B, K-1, CH), ssm
+    (L, B, nh, hp, ns). Batch over dp when divisible (else "data"); a
+    long-context decode (batch below the data axis) shards the sequence
+    instead; K/V heads over tp when divisible, else the head dim."""
+    leaf = str(path[-1])
+    parts: list = [None] * len(shape)
+    bdim = 1
+    if shape[bdim] % dp_size(plan) == 0:
+        parts[bdim] = plan.dp if len(plan.dp) > 1 else plan.dp[0]
+    elif shape[bdim] % axis_size(plan.mesh, "data") == 0:
+        parts[bdim] = "data"
+    if leaf in ("k", "v"):
+        if parts[bdim] is None and plan.seq_axis and \
+                shape[2] % axis_size(plan.mesh, plan.seq_axis) == 0:
+            parts[2] = plan.seq_axis
+        if shape[3] % plan.tp_size == 0:
+            parts[3] = plan.tp
+        elif shape[4] % plan.tp_size == 0:
+            parts[4] = plan.tp
+    elif leaf == "ssm":
+        if shape[2] % plan.tp_size == 0:
+            parts[2] = plan.tp
+    return tuple(parts)
+
+
+@dataclass(frozen=True)
+class AttnHints:
+    """The reference's ``AttnShardingHints`` as specs."""
+
+    q_spec: Spec
+    kv_spec: Spec
+    out_spec: Spec
+    cache_spec: Optional[Spec]
+    resid_spec: Spec
+
+
+def attn_hints(c: ModelConfig, plan: Plan, batch: int, cache_seq: int = 0,
+               decode: bool = False, seq_len: int = 0) -> AttnHints:
+    """The reference's ``make_attn_hints``: q/k/v/out and cache specs of
+    one cell (decode keeps the heads whole against a Kh- or Dh-sharded
+    cache)."""
+    mesh, tp = plan.mesh, plan.tp
+    if batch % dp_size(plan) == 0:
+        bs = plan.dp if len(plan.dp) > 1 else plan.dp[0]
+    elif batch % axis_size(mesh, "data") == 0:
+        bs = "data"
+    else:
+        bs = None
+    h_ax = tp if (plan.tp_heads and not decode) else None
+    kv_ax = tp if (plan.tp_heads and not decode
+                   and c.n_kv_heads % plan.tp_size == 0) else None
+    q = (bs, None, h_ax, None)
+    cspec = None
+    if cache_seq:
+        parts = [bs, None, None, None]
+        if bs is None and plan.seq_axis and cache_seq % axis_size(
+                mesh, plan.seq_axis) == 0:
+            parts[1] = plan.seq_axis
+        if c.n_kv_heads and c.n_kv_heads % plan.tp_size == 0:
+            parts[2] = tp
+        elif c.d_head and c.d_head % plan.tp_size == 0:
+            parts[3] = tp
+        cspec = tuple(parts)
+    sp_ax = (plan.tp if (plan.seq_parallel and seq_len
+                         and seq_len % plan.tp_size == 0) else None)
+    return AttnHints(q_spec=q, kv_spec=(bs, None, kv_ax, None), out_spec=q,
+                     cache_spec=cspec, resid_spec=(bs, sp_ax, None))
+
+
+def logits_spec(plan: Plan, shape: tuple) -> Spec:
+    """The reference's ``logits_sharding``: rows over dp, the vocabulary
+    over tp when divisible (the vocabulary-parallel loss's input)."""
+    parts: list = [None] * len(shape)
+    if shape[0] % dp_size(plan) == 0:
+        parts[0] = plan.dp if len(plan.dp) > 1 else plan.dp[0]
+    elif shape[0] % axis_size(plan.mesh, "data") == 0:
+        parts[0] = "data"
+    if shape[-1] % plan.tp_size == 0:
+        parts[-1] = plan.tp
+    return tuple(parts)
+
+
+def grad_specs(plan: Plan, param_specs_tree, params: Params):
+    """ZeRO-2: the gradient accumulator takes the optimizer state's
+    ZeRO-1 specs (the reference's ``grad_shardings``), so each rank
+    reduce-scatters a microbatch's gradient into its slice."""
+    return opt_state_specs(plan, param_specs_tree, params)
+
+
+# ---------------------------------------------------------------------------
+# Execution on ranks
+# ---------------------------------------------------------------------------
+
+#: the layouts ranks do not execute yet, by plan flag
+UNEXECUTED = {
+    "seq_parallel": "Megatron sequence parallelism (the residual stream's "
+                    "all-reduce as a reduce-scatter and an all-gather) is "
+                    "ROADMAP Queue 1 item 8",
+    "moe_dshard": "the MoE dispatch buffer's D over tp is ROADMAP Queue 1 "
+                  "item 8",
+}
+
+
 def check_executable(plan: Plan) -> None:
-    """Ranks execute data-parallel meshes only: a ``model`` axis above 1
-    or an FSDP plan raises."""
-    if plan.tp_size > 1 or plan.fsdp:
-        raise NotImplementedError(
-            f"plan over mesh {dict(plan.mesh.shape)} (tp={plan.tp_size}, "
-            f"fsdp={plan.fsdp}): {NOT_EXECUTED}")
+    """Ranks execute every plan but sequence parallelism and the MoE
+    dispatch buffer's D split: those raise."""
+    for flag, why in UNEXECUTED.items():
+        if getattr(plan, flag):
+            raise NotImplementedError(f"plan {flag}=True: {why}")
+
+
+def _cut_kind(c: ModelConfig, plan: Plan, names: list, dim: int,
+              axis: str) -> tuple:
+    """``(storage, summed)`` of a sharded dim of the leaf at ``names``.
+
+    Storage-sharded dims are all-gathered before use: every FSDP
+    ``data`` dim, ``pos`` tables, and every ``model`` dim of the
+    attention's ``wq`` / ``wk`` / ``wv`` and of ``wo`` but its heads.
+    The reference's head-TP rule cuts ``wq`` / ``wk`` / ``wv`` on the
+    head dim ``Dh`` (its ``(2, tp)`` indexes the unstacked ``(D, H, Dh)``
+    leaf) and ``wo`` on the heads: the rank gathers ``Dh`` and computes
+    its heads. ``summed``: the ranks of the axis use different parts of
+    the gathered leaf (other rows of the batch, or other heads), so the
+    gradient goes back by reduce-scatter; otherwise (a replicated
+    compute over ``model``) each takes its chunk. The rest over
+    ``model`` is compute-sharded: heads of ``wo``, FFN columns, experts,
+    vocabulary rows."""
+    if axis != plan.tp:
+        return True, True
+    leaf = names[-1]
+    parent = names[-2] if len(names) > 1 else ""
+    off = 1 if "layers" in names else 0
+    if leaf == "pos":
+        return True, False
+    if parent in ("attn", "cross"):
+        if leaf == "wo" and dim - off == 0:
+            return False, False
+        heads = plan.tp_heads and (
+            leaf == "wq" or (leaf in ("wk", "wv")
+                             and c.n_kv_heads % plan.tp_size == 0))
+        return True, heads
+    return False, False
+
+
+def leaf_cuts(c: Optional[ModelConfig], plan: Plan, path: tuple,
+              shape: tuple) -> list:
+    """The dims that ``path``'s leaf (whole ``shape``) is cut on, over
+    axes of more than one rank: ``(dim, axis, storage, summed)`` each
+    (:func:`_cut_kind`)."""
+    if c is None:
+        return []
+    spec = _param_rule(c, plan, path, shape)
+    names = [str(k) for k in path]
+    return [(d, part, *_cut_kind(c, plan, names, d, part))
+            for d, part in enumerate(spec)
+            if part is not None and axis_size(plan.mesh, part) > 1]
+
+
+def _narrow(t: torch.Tensor, cuts, mesh) -> torch.Tensor:
+    for d, axes in cuts:
+        n = mesh.axes_size(axes)
+        rows = t.shape[d] // n
+        t = t.narrow(d, mesh.index(axes) * rows, rows)
+    return t
+
+
+def _gather(t: torch.Tensor, cuts, mesh) -> torch.Tensor:
+    for d, axes in reversed(cuts):
+        t = mesh.all_gather(t, axes, d)
+    return t
+
+
+def _factored(cuts, ndim: int) -> tuple:
+    """A leaf's cuts mapped onto its Adafactor ``vr`` (the last dim
+    reduced) and ``vc`` (the second-to-last reduced) states."""
+    if ndim < 2:
+        return list(cuts), []
+    vr = [(d, a) for d, a in cuts if d < ndim - 1]
+    vc = [(d if d < ndim - 2 else d - 1, a) for d, a in cuts
+          if d != ndim - 2]
+    return vr, vc
 
 
 class Zero1:
-    """The ZeRO-1 slices of one param tree on one rank.
+    """The layout of one param tree on one rank: each leaf's param cuts
+    (:func:`leaf_cuts`: the rank stores that shard of the whole leaf) and
+    its ZeRO-1 cuts (``zero1_spec``'s axes that the param spec leaves
+    free, cutting the rank's shard further for AdamW's ``m`` / ``v`` /
+    ``master`` and, ZeRO-2, the gradient accumulator).
 
-    For each leaf (in the reference's order) the dims that ``zero1_spec``
-    cuts over axes of more than one rank. :meth:`local` views a full
-    tensor's slice, :meth:`slice_tree` copies a tree's slices,
-    :meth:`gather` writes the full tensor from every rank's slice."""
+    Built from the whole (or ``meta``) params, in the reference's leaf
+    order. :meth:`shard` / :meth:`unshard` move a param tree between
+    whole leaves and this rank's shards; :meth:`local` views a shard's
+    ZeRO slice and :meth:`gather` rebuilds the shard from every rank's
+    slice; :meth:`layout` is the model code's :class:`Layout`."""
 
     def __init__(self, plan: Plan, params: Params,
                  c: Optional[ModelConfig] = None):
         check_executable(plan)
+        self.plan = plan
         self.mesh = plan.mesh
+        self.paths = [path for path, _ in tree.paths(params)]
         psp = _spec_leaves(param_specs(c, plan, params), params)
-        self.cuts = []
-        for sp, leaf in zip(psp, tree.leaves(params), strict=True):
-            z = zero1_spec(plan, sp, tuple(leaf.shape))
+        self.param_cuts, self.cuts, self.ndims = [], [], []
+        for path, sp, leaf in zip(self.paths, psp, tree.leaves(params),
+                                  strict=True):
+            shape = tuple(leaf.shape)
+            pc = leaf_cuts(c, plan, path, shape)
+            self.param_cuts.append(pc)
+            self.ndims.append(len(shape))
+            z = zero1_spec(plan, sp, shape)
             self.cuts.append([(d, _axes_of(part)) for d, part in enumerate(z)
-                              if part is not None and
+                              if part is not None and d not in
+                              {cut[0] for cut in pc} and
                               self.mesh.axes_size(_axes_of(part)) > 1])
 
     @property
     def sliced(self) -> bool:
         return any(self.cuts)
 
+    @property
+    def sharded(self) -> bool:
+        return any(self.param_cuts)
+
+    def _pcuts(self, i: int) -> list:
+        return [(d, (a,)) for d, a, *_k in self.param_cuts[i]]
+
+    def layout(self, batch_axes: tuple = (),
+               cache_seq_axis: Optional[str] = None):
+        """The :class:`parallel.layout.Layout` of this tree's params, with
+        the axes cutting the batch and the one cutting dense caches'
+        sequence (a long-context decode)."""
+        from repro_torch.parallel.layout import Layout
+        tp = self.mesh.axes_size("model") if self.plan.use_tp else 1
+        storage = {}
+        for path, pc in zip(self.paths, self.param_cuts):
+            cuts = [(d, a, summed) for d, a, st, summed in pc if st]
+            if cuts:
+                storage[tuple(str(k) for k in path)] = cuts
+        return Layout(self.mesh, tp, storage, tuple(batch_axes),
+                      cache_seq_axis)
+
+    # -- params --------------------------------------------------------------
+
+    def shard(self, params: Params) -> Params:
+        """This rank's shard of every whole leaf (copies; ``params``
+        itself when the plan cuts no param)."""
+        if not self.sharded:
+            return params
+        return tree.unflatten(params, [
+            _narrow(t, self._pcuts(i), self.mesh).clone() if
+            self.param_cuts[i] else t
+            for i, t in enumerate(tree.leaves(params))])
+
+    def unshard(self, params: Params) -> Params:
+        """The whole leaves from every rank's shards (collective;
+        ``params`` itself when the plan cuts no param)."""
+        if not self.sharded:
+            return params
+        return tree.unflatten(params, [
+            _gather(t, self._pcuts(i), self.mesh) if self.param_cuts[i]
+            else t for i, t in enumerate(tree.leaves(params))])
+
+    # -- ZeRO slices of the shards ------------------------------------------
+
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
-        """Leaf ``i``'s slice of the full tensor ``t`` (a view)."""
-        for d, axes in self.cuts[i]:
-            n = self.mesh.axes_size(axes)
-            rows = t.shape[d] // n
-            t = t.narrow(d, self.mesh.index(axes) * rows, rows)
-        return t
+        """Leaf ``i``'s ZeRO slice of its shard ``t`` (a view)."""
+        return _narrow(t, self.cuts[i], self.mesh)
 
     def slice_tree(self, full: Params) -> Params:
         return tree.unflatten(full, [
@@ -374,53 +606,112 @@ class Zero1:
             for i, t in enumerate(tree.leaves(full))])
 
     def gather(self, i: int, part: torch.Tensor) -> torch.Tensor:
-        """The full tensor of leaf ``i`` from every rank's ``part``."""
-        for d, axes in reversed(self.cuts[i]):
-            group = self.mesh.group(axes)
-            n = self.mesh.axes_size(axes)
-            bufs = [torch.empty_like(part) for _ in range(n)]
-            dist.all_gather(bufs, part.contiguous(), group=group)
-            part = torch.cat(bufs, dim=d)
-        return part
+        """Leaf ``i``'s shard from every rank's ZeRO slice ``part``."""
+        return _gather(part, self.cuts[i], self.mesh)
 
     def gather_tree(self, local: Params) -> Params:
         return tree.unflatten(local, [
             self.gather(i, t) if self.cuts[i] else t
             for i, t in enumerate(tree.leaves(local))])
 
+    def replicas(self, i: int, zero: bool = True) -> int:
+        """Ranks holding the same elements of leaf ``i``'s (ZeRO-sliced,
+        with ``zero``) gradient."""
+        axes = {a for _d, a, *_k in self.param_cuts[i]}
+        if zero:
+            axes |= {a for _d, ax in self.cuts[i] for a in ax}
+        return self.mesh.size // self.mesh.axes_size(tuple(axes))
+
+    # -- gradients ----------------------------------------------------------
+
+    def reduce_grad(self, i: int, g: torch.Tensor, batch_axes: tuple,
+                    zero: bool = True) -> torch.Tensor:
+        """Leaf ``i``'s gradient summed over the batch ranks: over the
+        axes its storage gather has not summed already, reduce-scattered
+        into its ZeRO slice over the batch axes that cut it (ZeRO-2) and
+        narrowed over the others (the ``model`` axis, whose ranks hold
+        the same gradient); all-reduced over the rest. ``zero=False``
+        keeps the rank's whole shard (Adafactor)."""
+        done = {a for _d, a, st, summed in self.param_cuts[i]
+                if st and summed and a != "model"}
+        todo = [a for a in self.mesh.axis_names
+                if a in batch_axes and a not in done
+                and self.mesh.axes_size(a) > 1]
+        for d, axes in (self.cuts[i] if zero else ()):
+            (a,) = axes
+            if a in todo:
+                g = self.mesh.reduce_scatter(g, a, d)
+                todo.remove(a)
+            else:
+                n = self.mesh.axes_size(a)
+                rows = g.shape[d] // n
+                g = g.narrow(d, self.mesh.index(a) * rows, rows)
+        if todo:
+            g = self.mesh.all_reduce(g, tuple(todo))
+        return g
+
+    def factored_cuts(self, i: int) -> tuple:
+        """Leaf ``i``'s param cuts on its Adafactor ``vr`` and ``vc``."""
+        return _factored(self._pcuts(i), self.ndims[i])
+
 
 def shard_opt_state(zero: Zero1, opt_state: Params) -> Params:
-    """This rank's copy of ``opt_state``: AdamW's ``m`` / ``v`` /
-    ``master`` cut to its ZeRO-1 slices, the other (replicated) states
-    whole."""
-    return {k: (zero.slice_tree(v) if k in ("m", "v", "master")
-                else tree.tree_map(torch.Tensor.clone, v))
-            for k, v in opt_state.items()}
+    """This rank's copy of a whole ``opt_state``: AdamW's ``m`` / ``v`` /
+    ``master`` cut to the rank's shard and then its ZeRO-1 slice,
+    Adafactor's ``vr`` / ``vc`` to the rank's shard of the factored
+    statistics, the step whole."""
+    out = {}
+    for k, v in opt_state.items():
+        if k in ("m", "v", "master"):
+            out[k] = tree.unflatten(v, [
+                zero.local(i, _narrow(t, zero._pcuts(i), zero.mesh)).clone()
+                for i, t in enumerate(tree.leaves(v))])
+        elif k in ("vr", "vc"):
+            j = 0 if k == "vr" else 1
+            out[k] = tree.unflatten(v, [
+                _narrow(t, zero.factored_cuts(i)[j], zero.mesh).clone()
+                for i, t in enumerate(tree.leaves(v))])
+        else:
+            out[k] = tree.tree_map(torch.Tensor.clone, v)
+    return out
 
 
 def gather_opt_state(zero: Zero1, opt_state: Params) -> Params:
-    """The whole-leaf optimizer state from every rank's slices (the
+    """The whole-leaf optimizer state from every rank's part (the
     reference's checkpoint layout); collective."""
-    return {k: (zero.gather_tree(v) if k in ("m", "v", "master") else v)
-            for k, v in opt_state.items()}
+    out = {}
+    for k, v in opt_state.items():
+        if k in ("m", "v", "master"):
+            out[k] = tree.unflatten(v, [
+                _gather(zero.gather(i, t), zero._pcuts(i), zero.mesh)
+                for i, t in enumerate(tree.leaves(v))])
+        elif k in ("vr", "vc"):
+            j = 0 if k == "vr" else 1
+            out[k] = tree.unflatten(v, [
+                _gather(t, zero.factored_cuts(i)[j], zero.mesh)
+                for i, t in enumerate(tree.leaves(v))])
+        else:
+            out[k] = v
+    return out
 
 
 def shard_train_state(plan: Plan, params: Params, opt_state: Params,
                       c: Optional[ModelConfig] = None):
-    """This rank's part of a whole ``(params, opt_state)``: params as
-    they are (replicated), AdamW's states cut to the ZeRO-1 slices of
-    ``train_state_specs``. Returns ``(params, opt_state, zero)``; the
+    """This rank's part of a whole ``(params, opt_state)``: the params cut
+    to its shards, the optimizer state to its shards' ZeRO-1 slices
+    (:func:`shard_opt_state`). Returns ``(params, opt_state, zero)``; the
     train steps take ``zero`` to update the slices."""
     zero = Zero1(plan, params, c)
-    return params, shard_opt_state(zero, opt_state), zero
+    return zero.shard(params), shard_opt_state(zero, opt_state), zero
 
 
 @dataclass(frozen=True)
 class DpCheckpoint:
-    """How a dp world checkpoints a ``(params, opt_state)`` train state:
-    every rank gathers the whole leaves (:meth:`whole`, collective), rank
-    0 alone writes them, and a restore cuts the whole leaves into each
-    rank's slices again (:meth:`local`), for whatever dp size restores."""
+    """How a sharded world checkpoints a ``(params, opt_state)`` train
+    state: every rank gathers the whole leaves (:meth:`whole`,
+    collective), rank 0 alone writes them (the reference's whole-leaf
+    layout), and a restore cuts the whole leaves into each rank's part
+    again (:meth:`local`), for whatever plan restores."""
 
     zero: Zero1
 
@@ -430,11 +721,12 @@ class DpCheckpoint:
 
     def whole(self, state):
         params, opt_state = state
-        return params, gather_opt_state(self.zero, opt_state)
+        return self.zero.unshard(params), gather_opt_state(self.zero,
+                                                           opt_state)
 
     def local(self, state):
         params, opt_state = state
-        return params, shard_opt_state(self.zero, opt_state)
+        return self.zero.shard(params), shard_opt_state(self.zero, opt_state)
 
     def barrier(self) -> None:
         if dist.is_initialized():

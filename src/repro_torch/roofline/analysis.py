@@ -9,7 +9,12 @@ Port of ``src/repro/roofline/analysis.py``:
 The reference's constants are one TPU v5e's; these are one NVIDIA H100
 SXM's (NVIDIA's data sheet, dense rates, at the 700 W power limit), the
 figures PERF.md uses. Each is a keyword argument of :func:`analyze`, so
-the reference's model can be evaluated with its own constants.
+the reference's model can be evaluated with its own constants. On a mesh
+of cards the collective term takes each group's link
+(``wire_bytes_by_link``, from ``launch.mesh.CountingMesh``): NVLink 4 at
+450 GB/s each way for a group inside one 8-card node, one 400 Gb/s NDR
+port a card (50 GB/s each way, NVIDIA's DGX H100 layout) for a group
+that crosses nodes (``LINK_BWS``).
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ HBM_BW = 3.35e12                 # B/s, HBM3
 # NVLink 4: 18 links of 50 GB/s both ways together, 450 GB/s each way per
 # card. One card moves no collective bytes, so its term is 0 s.
 LINK_BW = 450e9                  # B/s
+#: bytes/s each way a card, by the link a group takes
+LINK_BWS = {"nvlink": 450e9, "network": 50e9}
 
 
 @dataclass
@@ -58,10 +65,17 @@ def analyze(c: ModelConfig, shape: ShapeConfig, *, mesh_name: str,
             n_devices: int, flops_per_device: float,
             hbm_bytes_per_device: float, wire_bytes_per_device: float,
             peak_flops: float = PEAK_FLOPS_BF16, hbm_bw: float = HBM_BW,
-            link_bw: float = LINK_BW) -> Roofline:
+            link_bw: float = LINK_BW,
+            wire_bytes_by_link: dict | None = None) -> Roofline:
+    """The three terms; with ``wire_bytes_by_link`` the collective term
+    is each link's bytes over its bandwidth (:data:`LINK_BWS`)."""
     compute_s = flops_per_device / peak_flops
     memory_s = hbm_bytes_per_device / hbm_bw
-    coll_s = wire_bytes_per_device / link_bw
+    if wire_bytes_by_link:
+        coll_s = sum(b / LINK_BWS[link]
+                     for link, b in wire_bytes_by_link.items())
+    else:
+        coll_s = wire_bytes_per_device / link_bw
     terms = {"compute": compute_s, "memory": memory_s, "collective": coll_s}
     bottleneck = max(terms, key=terms.get)
     mf = model_flops(c, shape)

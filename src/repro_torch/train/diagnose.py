@@ -17,11 +17,17 @@ so a variant's time minus the no-sync time is what gradient
 synchronization costs. Its gradients are each rank's own, so its params
 drift apart across ranks: it attributes time, it does not train.
 
+The reference's ``gspmd-pinned-zero2`` row is the port's plan step
+(``train.step.make_train_step(plan=...)``: each rank's param shards,
+ZeRO-2 gradient slices, the same placement as the bucketed variants,
+any ``--placement`` such as ``dp2tp2``; the bucketed variants need a
+placement without ``tp``).
+
 What the reference also reports has no analog without XLA and is not
 ported: its sharding-drift audit (``audit_shardings``: output leaves
-whose layout differs from the placed inputs) and jit-cache size (a
-PyTorch step is not traced or cached), and its two GSPMD variants
-(``gspmd-unpinned``, ``gspmd-pinned-zero2``: the port has no GSPMD).
+whose layout differs from the placed inputs), its jit-cache size (a
+PyTorch step is not traced or cached) and its ``gspmd-unpinned`` row,
+which times the recompile that unpinned output shardings cause.
 """
 from __future__ import annotations
 
@@ -39,10 +45,13 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.parallel import grad_sync as gs
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.step import StepConfig, init_train_state
+from repro_torch.train.step import (StepConfig, init_train_state,
+                                    make_train_step)
 
 VARIANTS = ("bucketed-fp32", "bucketed-fp32-noolap", "bucketed-int8",
-            "no-sync")
+            "gspmd-pinned-zero2", "no-sync")
+#: the variants with a gradient synchronisation to attribute
+SYNCED = VARIANTS[:4]
 
 
 def time_step(step, args_fn, sync, calls: int = 6) -> list:
@@ -59,7 +68,9 @@ def time_step(step, args_fn, sync, calls: int = 6) -> list:
 
 
 def build_variants(world, placement: str, gb: int, seq: int, k: int):
-    """``{label: (step, args_fn)}`` on this rank."""
+    """``(planned, bucketed)`` on this rank: the plan step's row and the
+    bucketed and no-sync rows (none under a ``tp`` placement), each
+    ``{label: (step, args_fn)}``."""
     c = get_config("gpt-800m").reduced(d_model=128, n_layers=4, d_ff=512,
                                        vocab=8192, n_heads=4, n_kv_heads=4,
                                        d_head=32)
@@ -83,6 +94,9 @@ def build_variants(world, placement: str, gb: int, seq: int, k: int):
         return args_fn
 
     variants = {}
+    if plan.tp_size > 1:        # the bucketed steps are pure dp
+        return _plan_variant(c, oc, sc, plan, zero, params, opt_state,
+                             batch), variants
     for label, sync in (
             ("bucketed-fp32", gs.GradSyncConfig(mode="fp32")),
             ("bucketed-fp32-noolap", gs.GradSyncConfig(mode="fp32",
@@ -102,15 +116,27 @@ def build_variants(world, placement: str, gb: int, seq: int, k: int):
         return p, o, gs.init_sync_state(p, none_sync), local
 
     variants["no-sync"] = (none_step, none_args)
-    return variants
+    return _plan_variant(c, oc, sc, plan, zero, params, opt_state,
+                         batch), variants
+
+
+def _plan_variant(c, oc, sc, plan, zero, params, opt_state, batch) -> dict:
+    """The ``gspmd-pinned-zero2`` row: the plan step on fresh shards."""
+    step = make_train_step(c, oc, sc, plan=plan, zero=zero)
+
+    def args_fn():
+        return (zero.shard(params), shd.shard_opt_state(zero, opt_state),
+                batch)
+
+    return {"gspmd-pinned-zero2": (step, args_fn)}
 
 
 def _rank(world, placement, gb, seq, k, calls):
     rows = []
     sync = (lambda: torch.cuda.synchronize(world.device)) \
         if world.device.type == "cuda" else (lambda: None)
-    for label, (step, args_fn) in build_variants(world, placement, gb, seq,
-                                                 k).items():
+    planned, bucketed = build_variants(world, placement, gb, seq, k)
+    for label, (step, args_fn) in {**bucketed, **planned}.items():
         times = time_step(step, args_fn, sync, calls)
         steady = sum(times[2:]) / max(len(times) - 2, 1)
         rows.append((label, times[0], times[1], steady, gb * seq / steady))
@@ -141,7 +167,7 @@ def main(argv=None):
               f"call1={t1 * 1e3:8.1f}ms steady={steady * 1e3:8.1f}ms "
               f"tok/s={tps:9.1f}")
     by = {r[0]: r for r in rows}
-    for label in VARIANTS[:3]:
+    for label in (v for v in SYNCED if v in by and "no-sync" in by):
         print(f"[diagnose] {label}: sync costs "
               f"{(by[label][3] - by['no-sync'][3]) * 1e3:.1f}ms a step "
               f"over no-sync")

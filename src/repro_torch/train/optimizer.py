@@ -19,9 +19,16 @@ arithmetic is elementwise, so the result is the same to the bit, and
 its fp32 temporaries stay a piece's size however large the stacked
 leaf (a layer-stacked expert weight of granite-moe-3b-a800m is 8 GB in
 fp32, and each of its half-dozen temporaries would be as large). Under a
-data-parallel plan AdamW's state holds this rank's ZeRO-1 slices (the
-reference's ``opt_state_shardings``), which ``adamw_update`` updates
-from the full synced gradient before gathering each parameter.
+plan AdamW's state holds this rank's ZeRO-1 slices of its param shards
+(the reference's ``opt_state_shardings``, ``parallel.sharding.Zero1``),
+which ``adamw_update`` updates from the synced gradient (whole, as the
+bucketed dp step gives it, or already the rank's slice, ZeRO-2, with
+``sharded=True``) before gathering each parameter shard. With
+``sharded=True`` the clip's global norm sums every rank's squares once
+per element (a replicated element is counted once, not once a rank) and
+Adafactor's row and column statistics of a leaf cut on a factored dim
+are summed over the ranks that cut it, so the update is the reference's
+on the whole leaves.
 """
 from __future__ import annotations
 
@@ -78,9 +85,18 @@ def _pieces(*leaves: torch.Tensor):
     return zip(*(x.split(rows) for x in leaves))
 
 
-def global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.leaves(grads)))
+def global_norm(grads, zero=None, sliced: bool = True) -> torch.Tensor:
+    """The gradients' global L2 norm. With ``zero`` (a
+    ``parallel.sharding.Zero1``) the leaves are this rank's parts (ZeRO
+    slices with ``sliced``, else shards): each leaf's squares are divided
+    by the ranks holding the same elements and summed over the world."""
+    gs = tree.leaves(grads)
+    if zero is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in gs))
+    sq = sum(torch.sum(torch.square(g.float())) / zero.replicas(i, sliced)
+             for i, g in enumerate(gs))
+    return torch.sqrt(zero.mesh.all_reduce(sq, zero.mesh.axis_names))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -117,14 +133,15 @@ def adamw_init(oc: OptConfig, params: Params) -> Params:
 
 @torch.no_grad()
 def adamw_update(oc: OptConfig, grads: Params, state: Params,
-                 params: Params, zero=None):
+                 params: Params, zero=None, sharded: bool = False):
     """One AdamW step in place. With ``zero`` (a
     ``parallel.sharding.Zero1``) ``m`` / ``v`` / ``master`` hold this
     rank's ZeRO-1 slices: the rank updates its slice of each parameter
-    from the full (synced) gradient, and the slices are gathered into
-    the full parameter. The clip's global norm is the full gradient's."""
+    from the synced gradient (whole, or its slice with ``sharded``), and
+    the slices are gathered into the rank's parameter shard. The clip's
+    global norm is the whole gradient's."""
     gs = tree.leaves(grads)
-    gnorm = global_norm(gs)
+    gnorm = global_norm(gs, zero if sharded else None)
     scale = _clip_scale(gnorm, oc.grad_clip)
     step = state["step"] + 1
     lr = lr_at(oc, step)
@@ -136,7 +153,9 @@ def adamw_update(oc: OptConfig, grads: Params, state: Params,
             tree.leaves(state["master"]), tree.leaves(params), strict=True)):
         sliced = zero is not None and zero.cuts[i]
         if sliced:
-            full, g = p, zero.local(i, g)
+            full = p
+            if not sharded:
+                g = zero.local(i, g)
             p = torch.empty(master.shape, dtype=full.dtype,
                             device=full.device)
         for gp, mp, vp, masterp, pp in _pieces(g, m, v, master, p):
@@ -174,18 +193,35 @@ def adafactor_init(oc: OptConfig, params: Params) -> Params:
             "vc": tree.tree_map(cols, params)}
 
 
+def _mean(x: torch.Tensor, dim: int, zero, i: int, leaf_dim: int,
+          keepdim: bool = False):
+    """``x.mean(dim)`` over the whole extent of leaf ``i``'s dim
+    ``leaf_dim`` (-1 its columns, -2 its rows), which ``x``'s ``dim``
+    runs along: with ``zero``, a sum over the ranks that cut it."""
+    axes = () if zero is None else tuple(
+        a for d, a, *_k in zero.param_cuts[i]
+        if d == zero.ndims[i] + leaf_dim)
+    if not axes:
+        return x.mean(dim, keepdim=keepdim)
+    n = x.shape[dim] * zero.mesh.axes_size(axes)
+    return zero.mesh.all_reduce(x.sum(dim, keepdim=keepdim), axes) / n
+
+
 @torch.no_grad()
 def adafactor_update(oc: OptConfig, grads: Params, state: Params,
-                     params: Params):
+                     params: Params, zero=None):
+    """One Adafactor step in place; with ``zero`` the leaves are this
+    rank's shards and their row and column statistics are summed over
+    the ranks that cut them."""
     gs = tree.leaves(grads)
-    gnorm = global_norm(gs)
+    gnorm = global_norm(gs, zero, sliced=False)
     scale = _clip_scale(gnorm, oc.grad_clip)
     step = state["step"] + 1
     lr = lr_at(oc, step)
     decay = 1.0 - (step.float() + 1.0) ** -0.8
-    for g, vr, vc, p in zip(gs, tree.leaves(state["vr"]),
-                            tree.leaves(state["vc"]), tree.leaves(params),
-                            strict=True):
+    for i, (g, vr, vc, p) in enumerate(zip(
+            gs, tree.leaves(state["vr"]), tree.leaves(state["vc"]),
+            tree.leaves(params), strict=True)):
         g = g.float() * scale
         g2 = torch.square(g) + 1e-30
         if p.ndim < 2:
@@ -193,9 +229,11 @@ def adafactor_update(oc: OptConfig, grads: Params, state: Params,
             update = g * torch.rsqrt(vr + 1e-30)
             p.copy_(p.float() - lr * update)
             continue
-        vr.copy_(decay * vr + (1 - decay) * g2.mean(-1))
-        vc.copy_(decay * vc + (1 - decay) * g2.mean(-2))
-        r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+        vr.copy_(decay * vr + (1 - decay) * _mean(g2, -1, zero, i, -1))
+        vc.copy_(decay * vc + (1 - decay) * _mean(g2, -2, zero, i, -2))
+        # vr runs along the leaf's rows
+        r = vr / torch.clamp(_mean(vr, -1, zero, i, -2, keepdim=True),
+                             min=1e-30)
         update = g * torch.rsqrt(r[..., None] * vc[..., None, :] + 1e-30)
         pf = p.float()
         p.copy_(pf - lr * (update + oc.weight_decay * pf))
@@ -208,11 +246,15 @@ def opt_init(oc: OptConfig, params):
         else adafactor_init(oc, params)
 
 
-def opt_update(oc: OptConfig, grads, state, params, zero=None):
+def opt_update(oc: OptConfig, grads, state, params, zero=None,
+               sharded: bool = False):
     """One optimizer step, in place; ``(params, state, {"gnorm", "lr"})``.
-    ``zero`` (AdamW only) names the ZeRO-1 slices the state holds;
-    Adafactor's factored state replicates, as in the reference."""
+    ``zero`` names the layout the state holds (AdamW's ZeRO-1 slices);
+    ``sharded``: the gradients are this rank's parts (AdamW: its ZeRO
+    slices; Adafactor: its shards), reduced across the ranks as
+    :func:`global_norm` and the factored statistics need."""
     with record_function("optimizer"):
         if oc.name == "adamw":
-            return adamw_update(oc, grads, state, params, zero)
-        return adafactor_update(oc, grads, state, params)
+            return adamw_update(oc, grads, state, params, zero, sharded)
+        return adafactor_update(oc, grads, state, params,
+                                zero if sharded else None)

@@ -9,13 +9,28 @@ detached aliases that require grad, so the caller's tensors keep their
 flags. The reference's ``jax.lax.scan`` over microbatches is a Python
 loop here, so its ``unroll`` option has no port. In the place of
 ``make_train_step``'s sharding arguments (GSPMD grad and batch
-constraints) the port's steps take a data-parallel ``plan``
-(``parallel.sharding``): each rank computes on its rows of the global
-batch, the gradients are all-reduced to their mean, the loss is the
-mean over the ranks, and AdamW updates the ZeRO-1 slices (``zero``) of
-its state; GSPMD computes the same global means. ResNet's BatchNorm
-then takes its statistics over the ranks too (``models.resnet``).
-Tensor-parallel plans are ROADMAP Queue 1 item 8.
+constraints) the port's LM step takes a ``plan`` (``parallel.sharding``)
+of any layout and the rank's ``zero`` (``sharding.Zero1``) and executes
+it explicitly on the mesh's process groups, as GSPMD would partition
+the reference's one global program:
+
+  * microbatch ``i`` is global rows ``[i mb, (i+1) mb)`` and the rank
+    takes its dp share of them (the reference's ``_split_mb`` and batch
+    constraint); each microbatch's loss is its token mean over the
+    global microbatch, the tp ranks of a dp rank seeing the same rows;
+  * the params are the rank's shards: the model code runs under the
+    plan's layout (``parallel.layout``: head, FFN, expert and
+    vocabulary splits with Megatron's ``f`` / ``g``, storage-sharded
+    leaves gathered per layer, MoE ranking and load balance over the
+    global microbatch);
+  * ZeRO-2: each microbatch's gradient is reduce-scattered into the
+    rank's slice of the fp32 accumulator (``Zero1.reduce_grad``), and
+    AdamW updates the slices of its state and gathers the rank's param
+    shards; Adafactor updates whole shards with its statistics summed
+    over the ranks that cut them.
+
+ResNet's dp step takes its BatchNorm statistics over the ranks too
+(``models.resnet``).
 
 The step updates ``params`` and ``opt_state`` in place (see
 ``train.optimizer``) and returns them.
@@ -34,9 +49,10 @@ from repro_torch.core import tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import dp_mean
 from repro_torch.models import lm, resnet
+from repro_torch.parallel import layout as layout_mod
 from repro_torch.parallel import sharding as shd
-from repro_torch.train.loss import (classification_loss, next_token_loss,
-                                    token_denoms)
+from repro_torch.train.loss import (IGNORE, classification_loss,
+                                    next_token_loss)
 from repro_torch.train.optimizer import OptConfig, opt_init, opt_update
 
 Params = Any
@@ -143,41 +159,114 @@ def _local_rows(plan, batch: dict) -> dict:
     return batch if plan is None else shd.local_batch(plan, batch)
 
 
+def batch_axes(plan, rows: int) -> tuple:
+    """The mesh axes (of more than one rank) that cut ``rows`` global
+    rows under ``batch_spec``."""
+    part = shd.batch_spec(plan, (rows,))[0]
+    return tuple(a for a in shd._axes_of(part)
+                 if plan.mesh.axes_size(a) > 1)
+
+
 def make_train_step(c: ModelConfig, oc: OptConfig,
                     sc: StepConfig = StepConfig(), *, plan=None, zero=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, metrics ``loss``, ``ce``, ``aux``, ``gnorm``, ``lr`` (0-d
-    tensors on the params' device). Under a dp ``plan`` the step takes
-    the global batch and trains on this rank's rows of it, its loss the
-    token mean over every rank's rows (:func:`train.loss.token_denoms`),
-    with each leaf's gradient all-reduced to its fp32 mean; ``zero`` is the
-    ZeRO-1 layout of ``opt_state``."""
+    tensors on the params' device).
+
+    Under a ``plan`` the step takes the global batch and trains this
+    rank's part of the reference's global step (see the module
+    docstring); ``zero`` is the ``Zero1`` layout of its ``params`` (its
+    shards) and ``opt_state`` (their ZeRO-1 slices), and a dp plan
+    without it (whole params, whole state) builds one."""
     vg = value_and_grad(make_loss_fn(c, sc))
     gdt = getattr(torch, sc.grad_dtype)
-    group = _dp_group(plan)
+    if plan is None:
+        def train_step(params: Params, opt_state: Params, batch: dict):
+            if sc.microbatches <= 1:
+                (loss, (ce, aux)), grads = vg(params, batch)
+                grads = tree.tree_map(lambda g: g.to(gdt), grads)
+            else:
+                k = sc.microbatches
+                grads, _, loss, ce, aux = scan_microbatch_grads(
+                    vg, params, batch, k, gdt)
+                grads = tree.tree_map(lambda g: (g / k).float(), grads)
+                loss, ce, aux = loss / k, ce / k, aux / k
+            new_params, new_state, info = opt_update(oc, grads, opt_state,
+                                                     params)
+            metrics = {"loss": loss, "ce": ce, "aux": aux, **info}
+            return new_params, new_state, metrics
+        return train_step
+
+    shd.check_executable(plan)
+    k = max(sc.microbatches, 1)
+    memo: dict = {}         # the Zero1 built for whole params; layouts
+
+    def microbatches(batch: dict):
+        """``(rows, axes, global token count)`` of each microbatch: its
+        global rows ``[i mb, (i+1) mb)`` counted whole (every rank holds
+        them) and cut to this rank's share."""
+        rows = batch["tokens"].shape[0] // k
+        axes = batch_axes(plan, rows)
+        out = []
+        for i in range(k):
+            mb = {key: x[i * rows:(i + 1) * rows] for key, x in batch.items()}
+            n = (mb["labels"] != IGNORE).sum(dtype=torch.float32)
+            out.append((shd.local_batch(plan, mb), axes, n))
+        return out
+
+    def zero_of(params):
+        if zero is not None:
+            return zero
+        if "zero" not in memo:
+            memo["zero"] = shd.Zero1(plan, params, c)
+        return memo["zero"]
+
+    sliced = zero is not None and oc.name == "adamw"
+
+    def grads_fn(params: Params, batch: dict):
+        """``(grads, ce, aux)``: the step's reduced gradients (this
+        rank's ZeRO slices when ``zero`` is given and the optimizer is
+        AdamW, else its shards, whole over the batch ranks) and the
+        global CE and aux, averaged over the microbatches."""
+        z = zero_of(params)
+        dev = tree.leaves(params)[0].device
+        acc = None
+        ce = torch.zeros((), dtype=torch.float32, device=dev)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for mb, axes, n in microbatches(batch):
+            if axes not in memo:
+                memo[axes] = z.layout(axes)
+            mb = dict(mb, token_denom=n.clamp_min(1.0))
+            with layout_mod.use(memo[axes]):
+                (_l, (ce_i, aux_i)), g = vg(params, mb)
+            with record_function("grad_sync"):
+                g = [z.reduce_grad(i, x.to(gdt), axes, zero=sliced)
+                     for i, x in enumerate(tree.leaves(g))]
+            if acc is None:
+                acc = g
+            else:
+                for a, x in zip(acc, g, strict=True):
+                    a.add_(x)
+            # each rank's CE covers its rows; aux is the global one
+            ce = ce + (plan.mesh.all_reduce(ce_i, axes) if axes else ce_i)
+            aux = aux + aux_i
+        grads = tree.unflatten(params, [(a / k).float() if k > 1
+                                        else a.float() for a in acc])
+        return grads, ce / k, aux / k
 
     def train_step(params: Params, opt_state: Params, batch: dict):
-        batch = _local_rows(plan, batch)
-        if group is not None:
-            # each microbatch's loss is its token mean over every rank
-            batch = dict(batch, token_denom=token_denoms(
-                batch["labels"], max(sc.microbatches, 1), group))
-        if sc.microbatches <= 1:
-            (loss, (ce, aux)), grads = vg(params, batch)
-            grads = tree.tree_map(lambda g: g.to(gdt), grads)
-        else:
-            k = sc.microbatches
-            grads, _, loss, ce, aux = scan_microbatch_grads(
-                vg, params, batch, k, gdt)
-            grads = tree.tree_map(lambda g: (g / k).float(), grads)
-            loss, ce, aux = loss / k, ce / k, aux / k
-        if group is not None:
-            grads, (loss, ce, aux) = dp_mean(grads, [loss, ce, aux], group)
-        new_params, new_state, info = opt_update(oc, grads, opt_state,
-                                                 params, zero)
+        grads, ce, aux = grads_fn(params, batch)
+        loss = ce + c.router_aux_coef * aux
+        if oc.name == "adamw":     # slices (zero given) or whole grads
+            new_params, new_state, info = opt_update(
+                oc, grads, opt_state, params, zero, sharded=sliced)
+        else:                      # shards, statistics across the ranks
+            new_params, new_state, info = opt_update(
+                oc, grads, opt_state, params, zero_of(params), sharded=True)
         metrics = {"loss": loss, "ce": ce, "aux": aux, **info}
         return new_params, new_state, metrics
 
+    train_step.grads = grads_fn
     return train_step
 
 

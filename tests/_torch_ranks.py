@@ -260,3 +260,246 @@ def train_runs(world, params_np, runs: list) -> list:
     """:func:`train_rounds` for each ``(ckpt_dir, total_steps,
     ckpt_every)`` in turn, in one world."""
     return [train_rounds(world, params_np, *r) for r in runs]
+
+
+# ---------------------------------------------------------------------------
+# Tensor-, expert- and fully-sharded layouts
+# ---------------------------------------------------------------------------
+
+
+def sharded_config(arch: str, kw: dict):
+    """A reduced fp32 config of ``arch`` with ``kw`` on top."""
+    return get_config(arch).reduced(**{**F32, **kw})
+
+
+def sharded_steps(world, arch: str, kw: dict, placement, params_np,
+                  batches: list, opt: dict, k: int = 1,
+                  force_fsdp=None, grads_of_first: bool = True) -> dict:
+    """Steps of the plan step (``make_train_step(plan=...)``) from whole
+    weights on one global batch each: the metrics of each step, the whole
+    params after the last (gathered), the first step's whole gradients,
+    and this rank's param and optimizer-state elements."""
+    c = sharded_config(arch, kw)
+    oc = OptConfig(**{**LM_OPT, **opt})
+    b, s = batches[0]["tokens"].shape
+    plan = shd.make_plan(c, mesh_for(Placement.of(placement)),
+                         ShapeConfig("t", s, b, "train"),
+                         force_fsdp=force_fsdp)
+    p = bridge.params_from_numpy(params_np, device="cpu")
+    p, o, zero = shd.shard_train_state(plan, p, opt_init(oc, p), c)
+    step = make_train_step(c, oc, StepConfig(microbatches=k), plan=plan,
+                           zero=zero)
+    out = {"elems": sum(x.numel() for x in tree.leaves(p)),
+           "opt_elems": sum(x.numel() for x in tree.leaves(o)),
+           "metrics": []}
+    for i, bt in enumerate(batches):
+        batch = {key: torch.from_numpy(v) for key, v in bt.items()}
+        if i == 0 and grads_of_first:
+            g, _ce, _aux = step.grads(p, batch)
+            if oc.name == "adamw":
+                g = zero.gather_tree(g)
+            out["grads"] = _np_leaves(zero.unshard(g))
+        p, o, m = step(p, o, batch)
+        out["metrics"].append({key: float(v) for key, v in m.items()})
+    out["params"] = _np_leaves(zero.unshard(p))
+    return out
+
+
+def one_process_steps(arch: str, kw: dict, params_np, batches: list,
+                      opt: dict, k: int = 1) -> dict:
+    """The same steps on one process (no plan)."""
+    c = sharded_config(arch, kw)
+    oc = OptConfig(**{**LM_OPT, **opt})
+    p = bridge.params_from_numpy(params_np, device="cpu")
+    o = opt_init(oc, p)
+    step = make_train_step(c, oc, StepConfig(microbatches=k))
+    out = {"metrics": [], "elems": sum(x.numel() for x in tree.leaves(p)),
+           "opt_elems": sum(x.numel() for x in tree.leaves(o))}
+    for bt in batches:
+        batch = {key: torch.from_numpy(v) for key, v in bt.items()}
+        p, o, m = step(p, o, batch)
+        out["metrics"].append({key: float(v) for key, v in m.items()})
+    out["params"] = _np_leaves(p)
+    return out
+
+
+def _np_tree(t):
+    """A param tree as numpy (the reference's layout, for ``bridge``)."""
+    return tree.tree_map(lambda x: x.detach().numpy().copy(), t)
+
+
+def sharded_cases(world, cases: list) -> dict:
+    """:func:`sharded_steps` for each ``(name, arch, kw, placement,
+    params_np, batches, opt, k, force_fsdp)`` in turn, in one world."""
+    return {name: sharded_steps(world, arch, kw, placement, params_np,
+                                batches, opt, k, fsdp)
+            for name, arch, kw, placement, params_np, batches, opt, k, fsdp
+            in cases}
+
+
+def vocab_parallel_loss(world) -> dict:
+    """The vocabulary-parallel ``next_token_loss`` (tp2: this rank's
+    vocabulary columns of seeded logits, labels with masked entries, with
+    and without the z-loss) beside the whole-vocabulary loss of the same
+    logits, and the gradient of this rank's columns beside the whole
+    loss's gradient there."""
+    from repro_torch.parallel import layout as layout_mod
+    from repro_torch.train.loss import next_token_loss
+    c = get_config("gpt-117m").reduced(**F32)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    lay = layout_mod.Layout(mesh, 2, {})
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.randn((2, 8, c.padded_vocab), generator=gen) * 3
+    labels = torch.randint(0, c.vocab, (2, 8), generator=gen)
+    labels[0, :3] = -1
+    n = c.padded_vocab // 2
+    out = {}
+    for key, z in (("ce", 0.0), ("ce_z", 1e-3)):
+        whole = logits.clone().requires_grad_(True)
+        w = next_token_loss(c, whole, labels, z_coef=z)
+        part = logits[..., world.rank * n:(world.rank + 1) * n].clone()
+        part.requires_grad_(True)
+        with layout_mod.use(lay):
+            got = next_token_loss(c, part, labels, z_coef=z)
+        out[key], out[key + "_whole"] = float(got.detach()), float(w.detach())
+        if z:
+            (gw,) = torch.autograd.grad(w, whole)
+            (gp,) = torch.autograd.grad(got, part)
+            out["grad"] = gp.numpy()
+            out["grad_whole"] = gw[..., world.rank * n:
+                                   (world.rank + 1) * n].numpy()
+    return out
+
+
+def sharded_checkpoint(world, ckpt_dir: str, placement: str,
+                       write: bool) -> dict:
+    """Two dp2tp2 steps of reduced gpt-117m written to ``ckpt_dir`` by the
+    train loop (``write``), or the latest checkpoint restored into
+    ``placement``'s layout; the whole params either way, and the loss of
+    one more step from the restored state."""
+    from repro_torch.launch.train import make_data_fn
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.ckpt.checkpoint import restore
+    from repro_torch.models import lm
+    c = lm_config()
+    oc = OptConfig(**LM_OPT)
+    p = lm.init(c, torch.Generator().manual_seed(0), "cpu")
+    o = opt_init(oc, p)
+    if placement == "dp1":
+        step = make_train_step(c, oc, StepConfig())
+        dp = None
+    else:
+        plan = shd.make_plan(c, mesh_for(Placement.of(placement)),
+                             ShapeConfig("t", 32, 8, "train"))
+        p, o, zero = shd.shard_train_state(plan, p, o, c)
+        step = make_train_step(c, oc, StepConfig(), plan=plan, zero=zero)
+        dp = shd.DpCheckpoint(zero)
+    data = make_data_fn(c, 8, 32, 0, "cpu")
+    out = {}
+    if write:
+        cfg = LoopConfig(total_steps=2, ckpt_every=1, ckpt_dir=ckpt_dir,
+                         log_every=0, seq_len=32, global_batch=8)
+        res = train_loop(step, p, o, data, cfg, dp=dp)
+        out["step"] = len(res.losses)
+        (p, o), _ = restore((p, o), ckpt_dir, dp=dp)
+    else:
+        (p, o), man = restore((p, o), ckpt_dir, dp=dp)
+        out["step"] = man["step"]
+    out["whole"] = _np_leaves(p if dp is None else dp.zero.unshard(p))
+    p, o, m = step(p, o, data(2))
+    out["next_loss"] = float(m["loss"])
+    return out
+
+
+def _cache_dict(caches) -> dict:
+    """``{"slot/leaf": array}`` of a cache tree."""
+    return {f"{slot}/{key}": v.detach().numpy().copy()
+            for slot, leaves in caches.items() for key, v in leaves.items()}
+
+
+def sharded_serve(world, cases: list) -> dict:
+    """For each ``(name, arch, kw, placement, ref)``: the reference's
+    weights, prompt ``toks``, next token ``nxt`` and the slotted cache of
+    ``t`` positions its prefill filled (``ref``), that cache cut to this
+    rank's share (``cache_spec``), one decode step under the plan's layout
+    (heads, head dim, SSM heads over ``model``; a batch below the data
+    axis cuts the sequence instead), its logits gathered over the
+    vocabulary beside the one-process decode's; and the plan's prefill of
+    the prompt, its caches beside the cut of the one-process caches."""
+    from repro_torch.launch.specs import _cut, local_rows
+    from repro_torch.models import lm
+    from repro_torch.parallel import layout as layout_mod
+    from repro_torch.train.step import batch_axes
+    out = {}
+    for name, arch, kw, placement, ref in cases:
+        c = sharded_config(arch, kw)
+        params = bridge.params_from_numpy(ref["params"], "cpu")
+        toks = torch.from_numpy(ref["toks"]).long()
+        nxt = torch.from_numpy(ref["nxt"]).long()
+        (b, n_pre), t = toks.shape, ref["t"]
+        whole = bridge.params_from_numpy(ref["caches"], "cpu")
+        with torch.no_grad():
+            _l, pre, _e = lm.prefill(c, params, toks)
+            want, _ = lm.decode_step(
+                c, params, nxt, tree.tree_map(torch.Tensor.clone, whole),
+                n_pre)
+        plan = shd.make_plan(c, mesh_for(Placement.of(placement)),
+                             ShapeConfig("d", t, b, "decode"))
+        zero = shd.Zero1(plan, params, c)
+        axes = batch_axes(plan, b)
+        seq = plan.seq_axis if not axes else None
+        lay = zero.layout(axes, seq)
+        rows = local_rows(plan, b)
+        r0 = plan.mesh.index(axes) * rows if axes else 0
+        mine = {slot: {key: _cut(v, shd.cache_spec(c, plan, (slot, key),
+                                                   tuple(v.shape)),
+                                 plan.mesh)
+                       for key, v in leaves.items()}
+                for slot, leaves in whole.items()}
+        p = zero.shard(params)
+        with torch.no_grad(), layout_mod.use(lay):
+            got, _ = lm.decode_step(c, p, nxt[r0:r0 + rows], mine, n_pre)
+            _pl, pcache, _pe = lm.prefill(c, p, toks[r0:r0 + rows])
+        if got.shape[-1] < c.padded_vocab:
+            got = plan.mesh.all_gather(got, "model", 2)
+        # a prefill cuts no sequence (only a long-context decode does)
+        pplan = shd.make_plan(c, plan.mesh, ShapeConfig("p", t, b, "prefill"))
+        cut_pre = {slot: {key: _cut(v, shd.cache_spec(
+            c, pplan, (slot, key), tuple(v.shape)), plan.mesh)
+            for key, v in leaves.items()} for slot, leaves in pre.items()}
+        out[name] = {
+            "rank": world.rank, "rows": (r0, r0 + rows),
+            "logits": got.numpy(), "want": want[r0:r0 + rows].numpy(),
+            "prefill_caches": _cache_dict(pcache),
+            "want_caches": _cache_dict(cut_pre)}
+    return out
+
+
+def real_rank_flops(world, arch: str, kw: dict, placement: str, gb: int,
+                    seq: int, k: int) -> dict:
+    """The matmul FLOPs (``FlopCounterMode``) of one plan step on this
+    rank's CPU ranks, the dry run's step: ``k`` microbatches, full remat,
+    the plan's attention formulation, AdamW; and the mesh's
+    ``reduce_scatter`` beside an all-reduce and a narrow done by hand."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import lm
+    c = sharded_config(arch, kw)
+    mesh = mesh_for(Placement.of(placement))
+    plan = shd.make_plan(c, mesh, ShapeConfig("t", seq, gb, "train"))
+    params = lm.init(c, torch.Generator().manual_seed(0), "cpu")
+    oc = OptConfig()
+    p, o, zero = shd.shard_train_state(plan, params, opt_init(oc, params), c)
+    step = make_train_step(c, oc, StepConfig(microbatches=k, remat="full",
+                                             impl=plan.attn_impl),
+                           plan=plan, zero=zero)
+    toks = torch.randint(0, c.vocab, (gb, seq),
+                         generator=torch.Generator().manual_seed(1))
+    with FlopCounterMode(display=False) as fc:
+        step(p, o, {"tokens": toks, "labels": torch.roll(toks, -1, 1)})
+    x = torch.arange(8.0) * (world.rank + 1)
+    rs = mesh.reduce_scatter(x.reshape(2, 4), "model", 0)
+    by_hand = mesh.all_reduce(x.reshape(2, 4), "model")[mesh.index(
+        "model"):mesh.index("model") + 1]
+    return {"flops": float(fc.get_total_flops()),
+            "reduce_scatter_ok": bool(torch.equal(rs, by_hand)),
+            "backend": mesh.backend}

@@ -382,19 +382,19 @@ def test_dry_run_records_and_the_roofline_workload(reduced_cells, capsys):
     assert [{k: v for k, v in r.items() if k != "fits"} for r in got] == \
         [{k: v for k, v in r.items() if k != "fits"} for r in want]
     assert all(r.get("fits") is True for r in got if "note" not in r)
-    # the workload renders them; the reference's meshes are deferred
+    # the workload renders them, and rank 0's records of the 256-card
+    # mesh beside them (a mesh without records renders none)
+    assert dryrun.main(["--mesh", "single", "--arch", archs[0],
+                        "--out", str(tmp / "dry")]) == 0
     rc = cli.main(["run", "--suite", "roofline", "--device", "cpu",
                    "--power", "none", "--out", str(tmp / "bench")])
     assert rc == 0
     res = json.loads((tmp / "bench" / "roofline" / "results.json")
                      .read_text())["records"]
     by = {r["point"]["mesh"]: r for r in res}
-    assert by["1xh100"]["status"] == "ok"
-    assert by["1xh100"]["metrics"]["n_rows"] == 7
-    for mesh in ("single", "multi"):
-        assert by[mesh]["status"] == "deferred"
-        n = by[mesh]["n_devices"]
-        assert f"needs {n} devices, process can place" in by[mesh]["error"]
+    assert {r["status"] for r in res} == {"ok"}
+    assert [by[m]["metrics"]["n_rows"] for m in ("1xh100", "single",
+                                                 "multi")] == [7, 3, 0]
 
 
 def test_load_rows_read_reference_records_as_the_reference(tmp_path,
@@ -416,11 +416,20 @@ def test_load_rows_read_reference_records_as_the_reference(tmp_path,
     assert roofline.load_rows("multi") == []
 
 
-def test_dry_run_refuses_the_reference_meshes(tmp_path):
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            dryrun.main(["--mesh", mesh, "--arch", "qwen2-0.5b",
-                         "--out", str(tmp_path)])
+def test_dry_run_counts_the_reference_meshes(tmp_path):
+    """``--mesh both`` writes a record for each production mesh: rank 0
+    of 256 and 512 cards, with collectives, their links and a non-zero
+    collective term."""
+    assert dryrun.main(["--mesh", "both", "--arch", "qwen2-0.5b",
+                        "--shape", "decode_32k", "--out",
+                        str(tmp_path)]) == 0
+    for mesh, n in (("single", 256), ("multi", 512)):
+        r = json.loads((tmp_path / f"{mesh}__qwen2-0.5b__decode_32k.json")
+                       .read_text())
+        assert r["n_devices"] == n and r["fits_hbm_80g"]
+        assert r["collectives"]["total_wire_bytes"] > 0
+        assert r["roofline"]["collective_s"] > 0
+        assert set(r["links"].values()) == {"network"}
 
 
 def test_the_optimizer_follows_the_references_rule_at_80_gb():
@@ -433,23 +442,29 @@ def test_the_optimizer_follows_the_references_rule_at_80_gb():
 
 
 def test_hillclimb_variants(tmp_path):
-    for v in ("dp_only", "seq_parallel", "moe_dshard", "mbs2+dp_only"):
+    for v in ("seq_parallel", "moe_dshard", "mbs2+moe_dshard"):
         with pytest.raises(NotImplementedError, match="item 8"):
             hillclimb.run_variant("qwen2-0.5b", "train_4k", v, tmp_path)
     with pytest.raises(ValueError, match="unknown variant"):
         hillclimb.run_variant("qwen2-0.5b", "train_4k", "mbs3", tmp_path)
+    # one H100 by name: the default is the reference's mesh, single
     base = hillclimb.run_variant("qwen2-0.5b", "train_4k", "baseline",
-                                 tmp_path)
-    mbs2 = hillclimb.run_variant("qwen2-0.5b", "train_4k", "mbs2", tmp_path)
+                                 tmp_path, "1xh100")
+    mbs2 = hillclimb.run_variant("qwen2-0.5b", "train_4k", "mbs2", tmp_path,
+                                 "1xh100")
     assert (base["microbatches"], mbs2["microbatches"]) == (64, 128)
+    assert base["mesh"] == mbs2["mesh"] == "1xh100"
     assert base["variant"] == "baseline" and mbs2["variant"] == "mbs2"
     # same FLOPs, more optimizer-free passes over the weights
     assert mbs2["cost_analysis"]["flops"] == base["cost_analysis"]["flops"]
     assert mbs2["cost_analysis"]["bytes_accessed"] > \
         base["cost_analysis"]["bytes_accessed"]
     assert (tmp_path / "qwen2-0.5b__train_4k__mbs2.json").exists()
+    with pytest.raises(ValueError, match="one card's kernel"):
+        hillclimb.run_variant("qwen2-0.5b", "prefill_32k", "flash_attn",
+                              tmp_path)
     fl = hillclimb.run_variant("qwen2-0.5b", "prefill_32k", "flash_attn",
-                               tmp_path)
+                               tmp_path, "1xh100")
     fm = fl["flash_model"]
     assert fm["attn_core_flops_measured"] > 0
     assert fm["attn_core_bytes_measured"] > fm["flash_streaming_bytes"] > 0

@@ -59,6 +59,21 @@ def test_port_imports_without_jax_or_reference():
     assert int(proc.stdout.split()[-1]) >= 20
 
 
+def test_the_model_code_imports_nothing_of_the_launcher():
+    """The language models, their loss and the sharded layout they run
+    under reach no launcher and no roofline module: the layout owns
+    Megatron's operators, the dry run its counting mesh."""
+    code = ("import sys\n"
+            "import repro_torch.models.lm, repro_torch.train.loss\n"
+            "print(sorted(m for m in sys.modules if m.startswith(\n"
+            "    ('repro_torch.launch', 'repro_torch.roofline'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["[]"]
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_banned_import_in_source(path):

@@ -167,8 +167,10 @@ def test_one_rank_mesh_has_no_group():
     tp = sh.make_plan(get_config("gpt-117m").reduced(),
                       _FakeMesh({"data": 1, "model": 2}),
                       SHAPES["train_4k"])
+    sh.check_executable(tp)           # ranks execute tensor parallelism
+    import dataclasses
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        sh.check_executable(tp)
+        sh.check_executable(dataclasses.replace(tp, seq_parallel=True))
 
 
 def test_mesh_of_ranks_coordinates_and_rows():

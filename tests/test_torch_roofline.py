@@ -114,9 +114,8 @@ def test_roofline_workload_without_records(tmp_path, monkeypatch):
     recs = json.loads((tmp_path / "roofline" / "results.json").read_text())
     by = {r["point"]["mesh"]: r for r in recs["records"]}
     assert set(by) == {"1xh100", "single", "multi"}
-    assert by["1xh100"]["status"] == "ok"
-    assert by["1xh100"]["metrics"]["n_rows"] == 0
+    assert {by[m]["status"] for m in by} == {"ok"}
+    assert {by[m]["metrics"]["n_rows"] for m in by} == {0}
     assert by["1xh100"]["noise"]["rel_std"] == 0.0
-    assert {by[m]["status"] for m in ("single", "multi")} == {"deferred"}
-    assert by["single"]["placement"] == {"dp": 256}
-    assert by["multi"]["placement"] == {"dp": 512}
+    # the production meshes render on the one process, as 1xh100 does
+    assert {by[m]["placement"]["dp"] for m in by} == {1}
