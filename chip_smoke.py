@@ -308,8 +308,19 @@ instance, then runs fifteen phases, any failure of which exits non-zero:
      count of rank 0's program (``launch.dryrun.sharded_counts``)
      exactly, as 12b holds one card's; (d) granite-moe-3b-a800m at full
      width cut to ``MOE_TP_LAYERS`` layers, tp2 (its 40 experts over
-     ``model``): a falling loss and the peak per rank. Every number it
-     prints carries ``PAR_NOTE`` and the card's name and power limit.
+     ``model``): a falling loss and the peak per rank; (e) the plan
+     variants on the reduced fp32 configs of (b), tp2 with
+     ``seq_parallel`` (Megatron sequence parallelism) and ep2 with
+     ``moe_dshard`` (the MoE buffer's D over ``model``, two all-to-alls
+     a layer through gloo) against (b)'s dp1 (TF32 off, rtol 1e-4);
+     (f) both at full width with the depth cut: gpt-800m at
+     ``SP_LAYERS`` of its 24 layers, tp2 with ``seq_parallel``,
+     ``SP_STEPS`` steps at ``PAR_SEQ``, its first step's card FLOPs
+     equal to ``sharded_counts``' ``meta`` count exactly, and
+     granite-moe-3b-a800m at ``MOE_TP_LAYERS`` layers, tp2 with
+     ``moe_dshard``: losses, ms a step, the peak per rank and each
+     rank's shards equal to its cut of the gathered whole. Every number
+     it prints carries ``PAR_NOTE`` and the card's name and power limit.
 
 ``--train`` runs phases 7 and 8 alone (no kernel is built: the training
 paths launch none) and prints no result line. ``--families`` builds the
@@ -3493,6 +3504,22 @@ MOE_TP_LAYERS, MOE_TP_BATCH, MOE_TP_SEQ = 4, 8, 128
 #: reduce-scatters their gradients again; at 13a's four, 4.17 GB a step
 #: took 10.6-48.7 s (one microbatch: 1.6 GB)
 SHARD_MICROBATCHES = 1
+#: 14f: gpt-800m at full width cut to this many of its 24 layers, tp2
+#: with sequence parallelism, this many steps
+SP_LAYERS, SP_STEPS = 4, 2
+#: 14e: (key, arch, plan fields) of the reduced fp32 plan variants, each
+#: against 14b's dp1 run of the same arch
+SHARD_VARIANTS = (("sp", "gpt-800m", {"seq_parallel": True}),
+                  ("dshard", "granite-moe-3b-a800m", {"moe_dshard": True}))
+
+
+def _shard_full() -> tuple:
+    """14f's runs: (key, arch, layers, of its full depth, steps, global
+    batch) at full width, tp2, with the plan fields of the same key in
+    ``SHARD_VARIANTS``."""
+    return (("sp", "gpt-800m", SP_LAYERS, 24, SP_STEPS, PAR_BATCH),
+            ("dshard", "granite-moe-3b-a800m", MOE_TP_LAYERS, 32,
+             PAR_STEPS, MOE_TP_BATCH))
 
 
 def _sh(msg: str, card: str) -> None:
@@ -3507,13 +3534,16 @@ def _shard_reckon(p, o) -> float:
 
 
 def _plan_lm(world, c, placement, steps: int, gb: int, seq: int, k: int,
-             cpu_init: bool = False, flops: bool = False):
+             cpu_init: bool = False, flops: bool = False,
+             flags: dict = None):
     """``steps`` plan steps (``make_train_step(plan=...)``) from seeded
     weights on one synthetic batch: (losses, ms a step, whether this
     rank's param shards equal its cut of the whole params gathered from
     all ranks' (True without a plan), GB of this rank's shards and
     optimizer slices, the first step's FLOPs under ``FlopCounterMode``
-    with ``flops``)."""
+    with ``flops``). ``flags``: plan fields set on top of
+    ``make_plan``'s (``seq_parallel``, ``moe_dshard``)."""
+    import dataclasses as dc
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.bench.spec import Placement
     from repro_torch.configs.base import ShapeConfig
@@ -3535,8 +3565,9 @@ def _plan_lm(world, c, placement, steps: int, gb: int, seq: int, k: int,
         step = make_train_step(c, oc, sc)
         zero = None
     else:
-        plan = shd.make_plan(c, mesh_for(Placement.of(placement)),
-                             ShapeConfig("par", seq, gb, "train"))
+        plan = dc.replace(shd.make_plan(c, mesh_for(Placement.of(placement)),
+                                        ShapeConfig("par", seq, gb, "train")),
+                          **(flags or {}))
         p, o, zero = shd.shard_train_state(plan, p, o, c)
         step = make_train_step(c, oc, sc, plan=plan, zero=zero)
     gb_ = _shard_reckon(p, o)
@@ -3566,7 +3597,8 @@ def _plan_lm(world, c, placement, steps: int, gb: int, seq: int, k: int,
 def sharded_rank_pair(world) -> dict:
     """Phase 14's two-rank work on the card: 14a (full gpt-800m tp2,
     with 14c's FLOP count of its first step), 14b's reduced tp2 and ep2,
-    14d (granite-moe-3b at full width, ``MOE_TP_LAYERS`` layers, tp2)."""
+    14d (granite-moe-3b at full width, ``MOE_TP_LAYERS`` layers, tp2),
+    14e's reduced plan variants and 14f's full-width ones."""
     import dataclasses as dc
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3596,6 +3628,26 @@ def sharded_rank_pair(world) -> dict:
     out["14d"] = {"losses": losses, "ms": ms, "shards_ok": shards_ok,
                   "shards_gb": gb_,
                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del mc
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, arch, flags in SHARD_VARIANTS:
+        rc = get_config(arch).reduced(dtype="float32", param_dtype="float32")
+        out[f"14e-{key}"] = _plan_lm(world, rc, "tp2", 3, 16, 64, 4,
+                                     cpu_init=True, flags=flags)[0]
+    flags = {key: f for key, _arch, f in SHARD_VARIANTS}
+    for key, arch, layers, _full, steps, gb in _shard_full():
+        torch.cuda.reset_peak_memory_stats(dev)
+        fc = dc.replace(get_config(arch), n_layers=layers)
+        losses, ms, shards_ok, gb_, n_flops = _plan_lm(
+            world, fc, "tp2", steps, gb, PAR_SEQ, 1, flops=key == "sp",
+            flags=flags[key])
+        out[f"14f-{key}"] = {
+            "losses": losses, "ms": ms, "shards_ok": shards_ok,
+            "shards_gb": gb_, "flops": n_flops,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3653,10 +3705,12 @@ def phase_sharded(dev) -> None:
     assert all(r["14a"]["shards_ok"] for r in pair), "14a gather misplaced"
     assert all(np.isfinite(r["14a"]["losses"]).all() for r in pair)
     one = types.SimpleNamespace(rank=0, world_size=1, device=dev)
+    dp1s = {}
     for key, arch in (("14b-tp2", "gpt-800m"),
                       ("14b-ep2", "granite-moe-3b-a800m")):
         rc = get_config(arch).reduced(dtype="float32", param_dtype="float32")
-        dp1 = _plan_lm(one, rc, None, 3, 16, 64, 4, cpu_init=True)[0]
+        dp1 = dp1s[arch] = _plan_lm(one, rc, None, 3, 16, 64, 4,
+                                    cpu_init=True)[0]
         _sh(f"14b reduced fp32 {arch} {key[4:]}: losses {pair[0][key]}, "
              f"dp1 {dp1}", card)
         for r in pair:
@@ -3686,6 +3740,35 @@ def phase_sharded(dev) -> None:
              f"optimizer slices {d['shards_gb']:.2f} GB", card)
         assert d["losses"][-1] < d["losses"][0], d["losses"]
     assert all(r["14d"]["shards_ok"] for r in pair)
+    for key, arch, flags in SHARD_VARIANTS:
+        _sh(f"14e reduced fp32 {arch} tp2 {flags}: losses "
+             f"{pair[0]['14e-' + key]}, dp1 {dp1s[arch]}", card)
+        for r in pair:
+            np.testing.assert_allclose(r["14e-" + key], dp1s[arch],
+                                       rtol=1e-4)
+    flags = {key: f for key, _arch, f in SHARD_VARIANTS}
+    for key, arch, layers, full, _steps, _gb in _shard_full():
+        for r in pair:
+            f = r["14f-" + key]
+            _sh(f"14f {arch} full width, {layers} of {full} layers, tp2 "
+                 f"{flags[key]} rank {r['rank']}: seq {PAR_SEQ}, losses "
+                 f"{f['losses']}, ms a step {[round(x, 1) for x in f['ms']]}"
+                 f", max_memory_allocated {f['peak_gb']:.2f} GB, shards and "
+                 f"optimizer slices {f['shards_gb']:.2f} GB, shards equal to "
+                 f"their cut of the gathered whole: {f['shards_ok']}", card)
+            assert f["shards_ok"] and np.isfinite(f["losses"]).all(), f
+    got, k, stats, _plan, _oc = dryrun.sharded_counts(
+        dc.replace(c, n_layers=SP_LAYERS),
+        ShapeConfig("par", PAR_SEQ, PAR_BATCH, "train"),
+        MeshShape((1, 2), ("data", "model")), microbatch_size=PAR_BATCH,
+        plan_overrides={"seq_parallel": True})
+    flops = pair[0]["14f-sp"]["flops"]
+    _sh(f"14f gpt-800m {SP_LAYERS} layers tp2 seq_parallel rank 0's step: "
+         f"FLOPs {flops:.6e} on the card vs {got.flops:.6e} meta (counting "
+         f"mesh, {k} microbatch); wire bytes counted "
+         f"{stats.total_wire_bytes:.6e} a rank a step "
+         f"({dict(stats.counts)})", card)
+    assert flops == got.flops, (flops, got.flops)
     log(f"[wall] phase 14 {time.perf_counter() - t_start:.1f} s (ranks "
         f"{t_ranks:.1f} s)")
 

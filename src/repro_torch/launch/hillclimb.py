@@ -17,11 +17,17 @@ single`` (the default, the reference's: rank 0 of the 256-card mesh),
                 streaming traffic of the port's flash kernel
                 (``csrc/flash_attention.cu``): the core is counted with
                 ``models.attention.skip_attention_core`` and without
+  seq_parallel  Megatron sequence parallelism: the training stack's
+                residual stream cut on the sequence over ``model``, each
+                activation all-reduce a reduce-scatter and an all-gather
+  moe_dshard    the MoE dispatch buffer's D over ``model`` (expert-
+                parallel archs): two all-to-alls a MoE layer where the
+                combine was all-reduced; a dense arch counts what
+                ``baseline`` counts
 
-``seq_parallel`` and ``moe_dshard`` change the plan to layouts the ranks
-do not execute yet (ROADMAP Queue 1 item 8): they raise. ``flash_attn``
-models one card's kernel and counts on ``--mesh 1xh100`` only. Variants
-combine with ``+`` (``mbs2+bf16_grads``).
+Both plan variants are the step the ranks execute, counted on the mesh.
+``flash_attn`` models one card's kernel and counts on ``--mesh 1xh100``
+only. Variants combine with ``+`` (``mbs2+moe_dshard``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.hillclimb \\

@@ -30,14 +30,17 @@ over the ranks of a world, with the reference's axis names.
     raises or dies, and re-raises its traceback.
 
   * **Collectives go through the mesh.** :meth:`Mesh.all_reduce`,
-    :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter` and
-    :meth:`Mesh.all_gather_object` name axes, not groups; every sharded
-    layout calls them (through ``parallel.layout``'s Megatron operators
-    and storage gather), so the dry run's ``CountingMesh`` in the place
-    of a :class:`Mesh` counts a program's collectives on ``meta``
-    tensors. gloo has no ``reduce_scatter`` for CUDA tensors: on gloo it
-    is an all-reduce and a narrow, chosen by the backend; NCCL runs
-    ``reduce_scatter_tensor``.
+    :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter`,
+    :meth:`Mesh.all_to_all` and :meth:`Mesh.all_gather_object` name
+    axes, not groups; every sharded layout calls them (through
+    ``parallel.layout``'s Megatron operators, sequence-parallel pair,
+    storage gather and the MoE buffer's all-to-all), so the dry run's
+    ``CountingMesh`` in the place of a :class:`Mesh` counts a program's
+    collectives on ``meta`` tensors. gloo has no ``reduce_scatter`` for
+    CUDA tensors: on gloo it is an all-reduce and a narrow, chosen by
+    the backend; NCCL runs ``reduce_scatter_tensor``. Both run
+    ``all_to_all_single`` (gloo has one for CUDA tensors too, staged
+    through the host).
   * **Mesh shapes.** :class:`MeshShape` is a mesh's shape, axis names and
     one rank's coordinates without process groups: the dry run describes
     the reference's 256- and 512-card production meshes with it
@@ -421,6 +424,25 @@ class Mesh(MeshShape):
             return out.movedim(0, dim)
         return self.all_reduce(t, axes).narrow(
             dim, self.index(axes) * rows, rows).clone()
+
+    def all_to_all(self, t: torch.Tensor, axes, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``t`` cut into ``n`` equal chunks along ``split_dim``, chunk
+        ``j`` sent to the group's rank ``j``; the chunks this rank
+        receives, concatenated along ``concat_dim`` in group order (the
+        reference's ``jax.lax.all_to_all``). ``all_to_all_single`` on
+        NCCL and on gloo, which runs it for CUDA tensors through the host
+        (phase 14 of ``chip_smoke.py`` runs it there)."""
+        n = self.axes_size(axes)
+        if n == 1:
+            return t
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)}"
+                             f" does not split into {n} chunks")
+        src = torch.stack(t.chunk(n, split_dim)).contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.group(axes))
+        return torch.cat(out.unbind(0), dim=concat_dim)
 
     def all_gather_object(self, obj, axes) -> list:
         if self.axes_size(axes) == 1:

@@ -250,12 +250,12 @@ def _kv_split(c: ModelConfig, lay) -> bool:
     return c.n_kv_heads % lay.tp == 0
 
 
-def _tp_qkv(c: ModelConfig, p: Params, x: torch.Tensor, positions, lay,
-            raw: bool = False):
+def _tp_qkv(c: ModelConfig, p: Params, xc: torch.Tensor, x: torch.Tensor,
+            positions, lay, raw: bool = False):
     """q of this rank's heads; k/v of its heads (``Kh`` divides tp) or
     computed whole and cut to the heads its queries read (``raw``: also
-    the K/V before that cut, what a cache keeps)."""
-    xc = lay.col(x)
+    the K/V before that cut, what a cache keeps). ``xc, x`` are the
+    input's views for split and whole compute (``Layout.enter``)."""
     q = torch.einsum("bsd,dhk->bshk", xc, _heads(lay, p["wq"]))
     if "bq" in p:
         q = q + _heads(lay, lay.col(p["bq"]))
@@ -299,16 +299,26 @@ def self_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
     """Training self-attention over the full sequence. Under a layout
     that splits the heads (``wq`` holds this rank's), the rank attends
     with its heads and the output projection's partial sums are
-    all-reduced (Megatron's head parallelism)."""
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    all-reduced (Megatron's head parallelism); under sequence
+    parallelism ``x`` holds the rank's rows of the sequence, all-gathered
+    on the way in and reduce-scattered on the way out
+    (``Layout.enter`` / ``exit``; ``whole_in`` / ``whole_out`` around
+    attention every tp rank computes whole)."""
     lay = _head_split(c, p)
     if lay is not None:
-        q, k, v = _tp_qkv(c, p, x, positions if c.use_rope else None, lay)
-        return lay.row(out_proj(p, attend(c, q, k, v, causal=causal,
-                                          impl=impl)))
+        xc, x = lay.enter(x)
+    else:
+        x = lay_mod.whole_in(x)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    if lay is not None:
+        q, k, v = _tp_qkv(c, p, xc, x, positions if c.use_rope else None,
+                          lay)
+        return lay.exit(out_proj(p, attend(c, q, k, v, causal=causal,
+                                           impl=impl)))
     q, k, v = qkv_proj(c, p, x, positions if c.use_rope else None)
-    return out_proj(p, attend(c, q, k, v, causal=causal, impl=impl))
+    return lay_mod.whole_out(out_proj(p, attend(c, q, k, v, causal=causal,
+                                                impl=impl)))
 
 
 def cross_attention(c: ModelConfig, p: Params, x: torch.Tensor,
@@ -318,15 +328,16 @@ def cross_attention(c: ModelConfig, p: Params, x: torch.Tensor,
     lay = _head_split(c, p)
     k, v = enc_kv
     if lay is not None:
-        q = torch.einsum("bsd,dhk->bshk", lay.col(x), _heads(lay, p["wq"]))
+        q = torch.einsum("bsd,dhk->bshk", lay.enter(x)[0],
+                         _heads(lay, p["wq"]))
         if "bq" in p:
             q = q + _heads(lay, lay.col(p["bq"]))
         k, v = _local_kv(c, lay, k, v)
-        return lay.row(out_proj(p, sdpa(q, k, v, None, impl)))
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        return lay.exit(out_proj(p, sdpa(q, k, v, None, impl)))
+    q = torch.einsum("bsd,dhk->bshk", lay_mod.whole_in(x), p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    return out_proj(p, sdpa(q, k, v, None, impl))
+    return lay_mod.whole_out(out_proj(p, sdpa(q, k, v, None, impl)))
 
 
 def encoder_kv(c: ModelConfig, p: Params, enc_out: torch.Tensor):
@@ -370,7 +381,8 @@ def prefill_attention(c: ModelConfig, p: Params, x: torch.Tensor, *,
         split = _head_split(c, p)
         if split is not None:
             q, k, v, k_raw, v_raw = _tp_qkv(
-                c, p, x, positions if c.use_rope else None, lay, raw=True)
+                c, p, *split.enter(x), positions if c.use_rope else None,
+                lay, raw=True)
             out = lay.row(out_proj(p, attend(c, q, k, v, causal=True,
                                              impl=impl)))
         else:
@@ -495,7 +507,8 @@ def _sharded_decode(c: ModelConfig, p: Params, x: torch.Tensor,
     rope = positions if c.use_rope else None
     split = _head_split(c, p)
     if split is not None:
-        q, _k, _v, k_new, v_new = _tp_qkv(c, p, x, rope, lay, raw=True)
+        q, _k, _v, k_new, v_new = _tp_qkv(c, p, *lay.enter(x), rope, lay,
+                                          raw=True)
     else:
         q, k_new, v_new = qkv_proj(c, p, x, rope)
     kv_split = cache_k.shape[2] < c.n_kv_heads

@@ -24,6 +24,13 @@ slots hold paged pools ``(n_periods, n_blocks, bs, Kh, Dh)`` (int8 pools
 with ``(n_periods, n_blocks, Kh)`` scale leaves beside them) or dense
 slotted rows ``(n_periods, B, T, Kh, Dh)``; mamba slots hold per-row
 ``{"ssm", "conv"}`` state in either layout. Decode updates them in place.
+
+Under a plan that asks for Megatron sequence parallelism the training
+forward alone cuts the residual stream's sequence over ``model`` after
+the embedding and gathers it again before the final norm
+(``parallel.layout.sequence_parallel``, the reference's ``resid_spec``
+on every residual add of a slot); the encoder, the prefill and the
+decode keep plain tensor parallelism, as the reference's do.
 """
 from __future__ import annotations
 
@@ -182,11 +189,17 @@ def _slot_forward(c: ModelConfig, sp: Params, x: torch.Tensor, causal: bool,
     # a layout's storage-sharded leaves, gathered inside the recomputed
     # region: the backward gathers them again, as FSDP does
     sp = lay_mod.gather(sp, prefix, unstacked=True)
+    lay = lay_mod.current()
+    if lay is not None and lay.seq_axis is not None:
+        # the norms run on the rank's rows of the sequence
+        sp = {k: ({n: lay.on_rows(t) for n, t in v.items()}
+                  if k.startswith("norm") else v) for k, v in sp.items()}
     h = apply_norm(c, sp["norm1"], x)
     if mixer == "attn":
         h = attn.self_attention(c, sp["attn"], h, causal=causal, impl=impl)
     else:
-        h = ssm_mod.mamba_forward(c, sp["mamba"], h)
+        h = lay_mod.whole_out(ssm_mod.mamba_forward(c, sp["mamba"],
+                                                    lay_mod.whole_in(h)))
     x, aux = _ffn(c, sp, _cross(c, sp, x + h, ekv, impl), ffn)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) \
         if aux is None else aux
@@ -225,17 +238,23 @@ def stack_forward(c: ModelConfig, layers: Params, x: torch.Tensor, *,
     per_ekv = [None if enc_kv is None else _unstack(enc_kv[f"slot{i}"], n)
                for i in range(len(kinds))]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j in range(n):
-        for i, (mixer, ffn) in enumerate(kinds):
-            args = (c, per_slot[i][j], x, causal, mixer, ffn,
-                    None if enc_kv is None else per_ekv[i][j], impl,
-                    ("layers", f"slot{i}"))
-            if remat == "none":
-                x, a = _slot_forward(*args)
-            else:
-                kw = {"context_fn": _dots_context} if remat == "dots" else {}
-                x, a = recomputed(_slot_forward, *args, **kw)
-            aux = aux + a
+    with lay_mod.sequence_parallel(x.shape[1]) as seq:
+        if seq is not None:         # the rank's rows of the sequence
+            x = seq.cut(x, 1)
+        for j in range(n):
+            for i, (mixer, ffn) in enumerate(kinds):
+                args = (c, per_slot[i][j], x, causal, mixer, ffn,
+                        None if enc_kv is None else per_ekv[i][j], impl,
+                        ("layers", f"slot{i}"))
+                if remat == "none":
+                    x, a = _slot_forward(*args)
+                else:
+                    kw = ({"context_fn": _dots_context} if remat == "dots"
+                          else {})
+                    x, a = recomputed(_slot_forward, *args, **kw)
+                aux = aux + a
+        if seq is not None:         # every row, for the final norm
+            x = seq.gather_whole(x, 1)
     return x, aux
 
 

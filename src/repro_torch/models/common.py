@@ -151,12 +151,17 @@ def apply_mlp(c: ModelConfig, p: Params, x: torch.Tensor,
               d_ff: Optional[int] = None) -> torch.Tensor:
     """The MLP. Under a layout (``parallel.layout``) whose ``wo`` holds
     fewer than ``d_ff`` rows, the rank's F-slice: Megatron's column- then
-    row-parallel pair, ``f`` before and ``g`` after (``bo`` once, after)."""
+    row-parallel pair, ``f`` before and ``g`` after (``bo`` once, after;
+    under sequence parallelism ``x`` (B, S, D) holds the rank's rows:
+    ``Layout.enter`` / ``exit``, and an MLP every tp rank computes whole
+    gathers them)."""
     lay = lay_mod.current()
     split = (lay is not None and lay.tp > 1 and d_ff is not None
              and p["wo"].shape[-2] < d_ff)
     if split:
-        x = lay.col(x)
+        x = lay.enter(x)[0]
+    else:
+        x = lay_mod.whole_in(x)
     bi = p.get("bi")
     if split and bi is not None:
         bi = lay.local(lay.col(bi), -1)
@@ -173,10 +178,13 @@ def apply_mlp(c: ModelConfig, p: Params, x: torch.Tensor,
         h = F.gelu(h, approximate="tanh")
     y = h @ p["wo"]
     if split:
-        y = lay.row(y)
+        y = lay.exit(y)
+        if "bo" in p:
+            y = y + lay.on_rows(p["bo"])
+        return y
     if "bo" in p:
         y = y + p["bo"]
-    return y
+    return lay_mod.whole_out(y)
 
 
 def embed_tokens(c: ModelConfig, p: Params, tokens: torch.Tensor,

@@ -31,9 +31,20 @@ reference's one global program computes:
     router is replicated), fills only its experts' rows and the combine
     is all-reduced (Megatron's ``g``); without it each expert's F is
     split, as the MLP's.
-
-The reference's ``_MOE_BUF_SPEC`` / ``_buf_hint`` (the dispatch
-buffer's D over tp, ``moe_dshard``) is ROADMAP Queue 1 item 8.
+  * **The dispatch buffer's D over ``model``** (a layout's
+    ``moe_dshard``, with expert parallelism; the reference's
+    ``buf_spec=P(None, tp)``): each tp rank fills the ``(E * C + 1, D /
+    tp)`` buffer of every expert from its D-columns of the tokens, an
+    all-to-all brings its experts' rows whole to it ``(E / tp, C, D)``,
+    a second one sends their outputs back, and the rank combines its
+    columns ``(T, D / tp)``, all-gathered to ``(T, D)`` in the place of
+    the combine's all-reduce.
+  * **Sequence parallelism.** The input holds the rank's rows of the
+    sequence: the split compute's input and output pass
+    ``Layout.enter`` / ``exit``; the router reads the gathered rows
+    through ``enter``'s whole view; a layer every tp rank computes whole
+    (no split, or the D-cut dispatch, which all-gathers its output)
+    gathers the rows and cuts its output.
 """
 from __future__ import annotations
 
@@ -152,17 +163,64 @@ def _apply_experts(c: ModelConfig, experts: Params,
     return out
 
 
+def _input(lay, split, dshard: bool, x: torch.Tensor):
+    """``(xc, x, whole)``: the layer's input for the split compute and
+    for the router (``Layout.enter``), and whether every tp rank
+    computes the layer whole (no split, or the D-cut dispatch):
+    ``whole_in`` then gathers a sequence-parallel input."""
+    if split is None or dshard:
+        x = lay_mod.whole_in(x)
+        return x, x, True
+    return (*lay.enter(x), False)
+
+
+def _output(lay, whole: bool, y: torch.Tensor) -> torch.Tensor:
+    """The layer's (B, S, D) output: the split compute's partial sums
+    made whole (``Layout.exit``), or the rank's rows of a whole one."""
+    if whole:
+        return lay_mod.whole_out(y)
+    return lay.exit(y)
+
+
+def _dshard_combine(c: ModelConfig, lay, experts: Params, x2d, dest, cap,
+                    wk) -> torch.Tensor:
+    """The dispatch with the buffer's D cut over ``model``: this rank's
+    columns of every (token, choice) pair placed at ``dest`` of an
+    ``(E * cap + 1, D / tp)`` buffer, the rows moved to their experts'
+    ranks and back by two all-to-alls, combined by ``wk`` and
+    all-gathered to ``(T, D)`` (every tp rank then holds the same
+    output, so the gather's backward takes the rank's columns)."""
+    E, k = c.n_experts, c.top_k
+    T, d = x2d.shape
+    if d % lay.tp:
+        raise ValueError(f"moe_dshard: d_model {d} does not split over "
+                         f"{lay.tp} ranks")
+    dc = d // lay.tp
+    xd = lay.cut(x2d, 1)       # its columns; the gradient all-gathered
+    buf = xd.new_zeros((E * cap + 1, dc)).index_add(
+        0, dest, xd.repeat_interleave(k, dim=0))
+    buf = lay.all_to_all(buf[:-1].reshape(E, cap, dc), 0, 2)
+    out = _apply_experts(c, experts, buf)               # (E / tp, cap, D)
+    out = lay.all_to_all(out, 2, 0).reshape(E * cap, dc)
+    out = torch.cat([out, out.new_zeros((1, dc))])
+    y = (out[dest] * wk).reshape(T, k, dc).sum(dim=1)
+    return lay.gather_whole(y, 1)
+
+
 def moe_forward(c: ModelConfig, p: Params, x: torch.Tensor):
     """x: (B, S, D) -> (y (B, S, D), aux_loss). Pairs past an expert's
     capacity (``expert_capacity`` of all B * S rows, pad and idle rows
     included) contribute nothing."""
     if _MOE_IMPL.get() == "dense":
         return moe_forward_einsum(c, p, x)
+    lay, split = _split(c, p["experts"])
+    dshard = split == "ep" and lay.moe_dshard
+    xs = x                                      # the rows this rank holds
+    xc, x, whole = _input(lay, split, dshard, x)
     b, s, d = x.shape
     T, k, E = b * s, c.top_k, c.n_experts
     x2d = x.reshape(T, d)
     weights, experts_idx, aux = router_topk(c, p, x2d)
-    lay, split = _split(c, p["experts"])
     nb = 1 if lay is None else lay.batch_size
 
     # position of each (token, choice) within its expert, by cumsum ranking
@@ -180,47 +238,47 @@ def moe_forward(c: ModelConfig, p: Params, x: torch.Tensor):
     else:
         C = cap = expert_capacity(c, T)
         keep = (pos_in_expert >= 0) & (pos_in_expert < C)
+    w = weights if split is None else lay.col(weights)
+    wk = (w.reshape(-1, 1) * keep[:, None]).to(x.dtype)
     e_loc, here = eidx, keep
-    n_loc = p["experts"]["wo"].shape[-3]
-    if split == "ep":                       # this rank's experts only
+    n_loc = E if dshard else p["experts"]["wo"].shape[-3]
+    if split == "ep" and not dshard:        # this rank's experts only
         e_loc = eidx - lay.tp_rank * n_loc
         here = keep & (e_loc >= 0) & (e_loc < n_loc)
     dest = e_loc * cap + pos_in_expert.clamp(0, cap - 1)
     dest = torch.where(here, dest, torch.full_like(dest, n_loc * cap))
 
-    xin = x2d if split is None else lay.col(x2d)
-    xk = xin.repeat_interleave(k, dim=0)                        # (T*k, D)
-    buf = x.new_zeros((n_loc * cap + 1, d)).index_add(0, dest, xk)
-    buf = buf[:-1].reshape(n_loc, cap, d)
-
-    out_buf = _apply_experts(c, p["experts"], buf).reshape(n_loc * cap, d)
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
-
-    gathered = out_buf[dest]                                    # (T*k, D)
-    w = weights if split is None else lay.col(weights)
-    wk = (w.reshape(-1, 1) * keep[:, None]).to(x.dtype)
-    y = (gathered * wk).reshape(T, k, d).sum(dim=1)
-    if split is not None:
-        y = lay.row(y)
-
+    if dshard:
+        y = _dshard_combine(c, lay, p["experts"], x2d, dest, cap, wk)
+    else:
+        xk = xc.reshape(T, d).repeat_interleave(k, dim=0)       # (T*k, D)
+        buf = x.new_zeros((n_loc * cap + 1, d)).index_add(0, dest, xk)
+        buf = buf[:-1].reshape(n_loc, cap, d)
+        out_buf = _apply_experts(c, p["experts"], buf).reshape(n_loc * cap,
+                                                               d)
+        out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
+        y = (out_buf[dest] * wk).reshape(T, k, d).sum(dim=1)    # (T, D)
+    y = _output(lay, whole, y.reshape(b, s, d))
     if c.moe_shared:
-        y = y + apply_mlp(c, p["shared"], x2d, c.expert_d_ff or c.d_ff)
-    return y.reshape(b, s, d), aux
+        y = y + apply_mlp(c, p["shared"], xs, c.expert_d_ff or c.d_ff)
+    return y, aux
 
 
 def moe_forward_einsum(c: ModelConfig, p: Params, x: torch.Tensor):
     """Masked batched-einsum MoE: all experts on all tokens, no drops."""
+    ex = p["experts"]
+    lay, split = _split(c, ex)
+    xs = x
+    xc, x, whole = _input(lay, split, False, x)
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     weights, experts_idx, aux = router_topk(c, p, x2d)
     # dense (T, E) weight matrix with zeros for unrouted experts
     wfull = torch.zeros((b * s, c.n_experts), dtype=torch.float32,
                         device=x.device).scatter(1, experts_idx, weights)
-    ex = p["experts"]
-    lay, split = _split(c, ex)
-    xin = x2d
+    xin = xc.reshape(b * s, d)
     if split is not None:
-        xin, wfull = lay.col(x2d), lay.col(wfull)
+        wfull = lay.col(wfull)
         if split == "ep":
             wfull = lay.local(wfull, 1)
     bi, bo = _expert_biases(lay, split, ex)
@@ -237,11 +295,10 @@ def moe_forward_einsum(c: ModelConfig, p: Params, x: torch.Tensor):
     y = torch.einsum("tef,efd->td", h * wh[..., None], ex["wo"])
     if bo is not None:
         y = y + torch.einsum("te,ed->td", wh, bo)
-    if split is not None:
-        y = lay.row(y)
+    y = _output(lay, whole, y.reshape(b, s, d))
     if c.moe_shared:
-        y = y + apply_mlp(c, p["shared"], x2d, c.expert_d_ff or c.d_ff)
-    return y.reshape(b, s, d), aux
+        y = y + apply_mlp(c, p["shared"], xs, c.expert_d_ff or c.d_ff)
+    return y, aux
 
 
 def moe_forward_dense(c: ModelConfig, p: Params, x: torch.Tensor):

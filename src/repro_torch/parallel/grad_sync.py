@@ -239,7 +239,6 @@ def make_dp_train_step(c: ModelConfig, oc: OptConfig,
     gdt = getattr(torch, sc.grad_dtype)
     group = None
     if plan is not None:
-        shd.check_executable(plan)
         group = plan.mesh.group(plan.dp)
 
     def train_step(params, opt_state, sync_state, batch):

@@ -28,15 +28,53 @@ microbatch's rows: the MoE layers rank tokens and take the
 load-balancing means over them, as the reference's one global program
 does.
 
-Megatron's ``f`` and ``g`` (:func:`copy_to_tp`, :func:`reduce_from_tp`)
-and :func:`gather_storage` are autograd functions over the collectives of
-whatever mesh the layout holds (``launch.mesh.Mesh`` on ranks, the dry
-run's ``CountingMesh`` on ``meta``), so the model code depends on this
-module and nothing of the launcher.
+**Megatron sequence parallelism** (the plan's ``seq_parallel``, the
+reference's ``resid_spec``): ``blocks.stack_forward`` installs a copy of
+the layout with ``seq_axis="model"`` when the plan asks for it and tp
+divides the sequence (:func:`sequence_parallel`); the decoder slots then
+keep the residual stream cut on the sequence, each tp rank holding
+``S / tp`` rows, and the norms run on those rows. The model code's
+brackets change meaning with it:
+
+  * :meth:`Layout.enter` (Megatron's ``f``, all-reduce backward) becomes
+    an all-gather of the sequence whose backward reduce-scatters the
+    split compute's partial gradients; a replicated consumer of the
+    gathered rows in the same sublayer (the router, K/V computed whole)
+    takes a view whose whole gradient counts once, on tp rank 0
+    (:func:`once`), so that the reduce-scatter sums it once;
+  * :meth:`Layout.exit` (``g``, an all-reduce) becomes a reduce-scatter
+    of the sequence whose backward all-gathers;
+  * compute every tp rank does whole (the mamba mixer, a sublayer the
+    plan leaves unsplit) gathers its input with :meth:`Layout.whole_in`
+    and takes the rank's rows of its output with :meth:`Layout.whole_out`,
+    whose backward all-gathers: every rank then back-propagates the
+    whole gradient through it, as without sequence parallelism, so its
+    weights' gradients are whole on every tp rank (a zero gradient outside
+    the rank's rows would leave each rank's gradient of those weights
+    covering its own rows only);
+  * a replicated leaf applied to the rank's rows (the norms, a bias added
+    after the reduce-scatter) passes :meth:`Layout.on_rows`, Megatron's
+    all-reduce of those leaves' gradients.
+
+Every replicated leaf's gradient is thus whole on every tp rank, what
+``sharding.Zero1.reduce_grad`` takes it to be.
+
+**The MoE dispatch buffer's D over ``model``** (``moe_dshard``, with
+expert parallelism; the reference's ``buf_spec``): ``models.moe`` cuts
+the tokens' D with :meth:`Layout.cut` and moves the buffer's rows to
+their experts' ranks and back with :meth:`Layout.all_to_all`.
+
+Megatron's ``f`` and ``g`` (:func:`copy_to_tp`, :func:`reduce_from_tp`),
+:func:`gather_storage`, :func:`scatter` and :func:`all_to_all` are
+autograd functions over the collectives of whatever mesh the layout
+holds (``launch.mesh.Mesh`` on ranks, the dry run's ``CountingMesh`` on
+``meta``), so the model code depends on this module and nothing of the
+launcher.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from contextvars import ContextVar
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -101,6 +139,54 @@ class _GatherStorage(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _Scatter(torch.autograd.Function):
+    """The transpose of :class:`_GatherStorage`: forward reduce-scatter
+    of ``dim`` (``summed``) or the rank's chunk of it, backward
+    all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, summed):
+        ctx.args = (mesh, axis, dim)
+        if summed:
+            return mesh.reduce_scatter(x, axis, dim)
+        rows = x.shape[dim] // mesh.axes_size(axis)
+        return x.narrow(dim, mesh.index(axis) * rows, rows).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return mesh.all_gather(g, axis, dim), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Forward all-to-all (``split`` dim cut, ``concat`` dim joined),
+    backward the all-to-all that undoes it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split, concat):
+        ctx.args = (mesh, axis, split, concat)
+        return mesh.all_to_all(x, axis, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split, concat = ctx.args
+        return mesh.all_to_all(g, axis, concat, split), None, None, None, None
+
+
+class _Once(torch.autograd.Function):
+    """Forward identity; backward the gradient on the ranks that
+    ``keep`` it, zeros on the others."""
+
+    @staticmethod
+    def forward(ctx, x, keep):
+        ctx.keep = keep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
+
+
 def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     """Megatron's ``f``: identity forward, all-reduce over ``model``
     backward (not ``torch.distributed.nn.functional.all_reduce``, whose
@@ -134,14 +220,40 @@ def gather_storage(x: torch.Tensor, mesh, axis: str, dim: int,
     return _GatherStorage.apply(x, mesh, axis, dim, summed)
 
 
+def scatter(x: torch.Tensor, mesh, axis: str, dim: int,
+            summed: bool) -> torch.Tensor:
+    """Reduce-scatter (``summed``) or cut ``x``'s ``dim`` over ``axis``,
+    the rank's chunk; the gradient goes back by all-gather."""
+    if mesh.axes_size(axis) == 1:
+        return x
+    return _Scatter.apply(x, mesh, axis, dim, summed)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split: int,
+               concat: int) -> torch.Tensor:
+    """``mesh.all_to_all`` over ``axis`` with its transpose as the
+    backward."""
+    if mesh.axes_size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split, concat)
+
+
+def once(x: torch.Tensor, keep: bool) -> torch.Tensor:
+    """``x``, its gradient kept where ``keep`` and zero elsewhere: a
+    gradient that is whole on every rank, entering a sum over them,
+    counted once."""
+    return _Once.apply(x, keep)
+
+
 @dataclass(frozen=True)
 class Layout:
     """One rank's layout: its mesh (a ``launch.mesh.Mesh`` or the dry
     run's ``CountingMesh``), the tensor-parallel degree in use (1 when the plan
     does not use the ``model`` axis for tensor parallelism), the storage
     cuts of every leaf by path (``(dim, axis, summed)`` on the stored,
-    layer-stacked leaf), the axes cutting the batch rows and, in a
-    long-context decode, the axis cutting the caches' sequence."""
+    layer-stacked leaf), the axes cutting the batch rows, in a
+    long-context decode the axis cutting the caches' sequence, and the
+    plan's sequence parallelism and MoE buffer cut."""
 
     mesh: Any
     tp: int
@@ -149,6 +261,13 @@ class Layout:
     batch_axes: tuple = ()
     #: the axis cutting dense caches' sequence (a long-context decode)
     cache_seq_axis: Optional[str] = None
+    #: the plan asks for Megatron sequence parallelism (the training
+    #: stack turns it on, :func:`sequence_parallel`)
+    seq_parallel: bool = False
+    #: the axis cutting the residual stream's sequence where it is on
+    seq_axis: Optional[str] = None
+    #: the MoE dispatch buffer's D over ``model`` (expert parallelism)
+    moe_dshard: bool = False
 
     @property
     def tp_rank(self) -> int:
@@ -179,6 +298,62 @@ class Layout:
             return t
         n = t.shape[dim] // self.tp
         return t.narrow(dim, self.tp_rank * n, n)
+
+    # -- the split compute's brackets, with or without the sequence cut ----
+
+    def enter(self, x: torch.Tensor) -> tuple:
+        """``(xc, xw)``: the residual-derived input ``x`` (B, S, D) of
+        compute split over ``model``, for the split compute (``xc``) and
+        for compute done whole in the same sublayer (``xw``). Without
+        the sequence cut ``(col(x), x)``; with it ``x`` holds the rank's
+        rows: both are the all-gathered rows, whose backward
+        reduce-scatters, ``xw`` counting its whole gradient once."""
+        if self.seq_axis is None:
+            return self.col(x), x
+        g = gather_storage(x, self.mesh, self.seq_axis, 1, summed=True)
+        return g, once(g, self.tp_rank == 0)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """The split compute's partial sums (B, S, D) made whole: an
+        all-reduce, or with the sequence cut a reduce-scatter to the
+        rank's rows whose backward all-gathers."""
+        if self.seq_axis is None:
+            return self.row(y)
+        return scatter(y, self.mesh, self.seq_axis, 1, summed=True)
+
+    def whole_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Every row of ``x`` (B, S, D) for compute every tp rank does
+        whole: with the sequence cut an all-gather whose backward takes
+        the rank's rows of the (whole) gradient."""
+        return x if self.seq_axis is None else self.gather_whole(x, 1)
+
+    def whole_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a whole output (B, S, D): with the sequence
+        cut a cut whose backward all-gathers."""
+        return y if self.seq_axis is None else self.cut(y, 1)
+
+    def on_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A replicated leaf applied to the rank's rows: with the sequence
+        cut its gradient is summed over ``model`` (:meth:`col`)."""
+        return t if self.seq_axis is None else self.col(t)
+
+    def cut(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This tp rank's chunk of ``t``'s whole ``dim``, the gradient
+        all-gathered (every tp rank computes on its chunk)."""
+        return scatter(t, self.mesh, "model", dim, summed=False) \
+            if self.tp > 1 else t
+
+    def gather_whole(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every tp rank's chunk of ``dim``, concatenated; the ranks go on
+        alike, so the gradient's backward takes the rank's chunk."""
+        return gather_storage(t, self.mesh, "model", dim, summed=False) \
+            if self.tp > 1 else t
+
+    def all_to_all(self, t: torch.Tensor, split: int,
+                   concat: int) -> torch.Tensor:
+        """All-to-all over ``model``: ``split`` cut, ``concat`` joined."""
+        return all_to_all(t, self.mesh, "model", split, concat) \
+            if self.tp > 1 else t
 
     # -- the batch's ranks -------------------------------------------------
 
@@ -224,6 +399,34 @@ def use(layout: Optional[Layout]):
         yield layout
     finally:
         _LAYOUT.reset(tok)
+
+
+@contextlib.contextmanager
+def sequence_parallel(seq_len: int):
+    """Megatron sequence parallelism inside the block: when the current
+    layout's plan asks for it and tp divides ``seq_len`` (the
+    reference's ``sp_ax``), install a copy of it whose ``seq_axis`` is
+    ``model`` and yield that copy; else change nothing and yield None
+    (plain tensor parallelism, as the reference runs it)."""
+    lay = current()
+    if lay is None or not lay.seq_parallel or lay.tp == 1 or \
+            seq_len % lay.tp:
+        yield None
+        return
+    with use(dataclasses.replace(lay, seq_axis="model")) as sp:
+        yield sp
+
+
+def whole_in(x: torch.Tensor) -> torch.Tensor:
+    """:meth:`Layout.whole_in` under the current layout."""
+    lay = current()
+    return x if lay is None else lay.whole_in(x)
+
+
+def whole_out(y: torch.Tensor) -> torch.Tensor:
+    """:meth:`Layout.whole_out` under the current layout."""
+    lay = current()
+    return y if lay is None else lay.whole_out(y)
 
 
 def gather(tree: Any, prefix: tuple, unstacked: bool = False):

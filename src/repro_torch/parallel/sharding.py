@@ -27,8 +27,11 @@ over every axis the param leaves free (``zero1_spec``, the ``model``
 axis included); Adafactor's factored states follow the shards. The
 batch is split over the dp axes (:func:`local_batch`).
 ``cache_spec``, ``attn_hints`` and ``logits_spec`` are ported as data.
-Megatron sequence parallelism and the MoE buffer's D split (the plan's
-``seq_parallel`` and ``moe_dshard``) raise (ROADMAP Queue 1 item 8).
+The plan's ``seq_parallel`` (Megatron sequence parallelism, the
+reference's ``resid_spec``) and ``moe_dshard`` (the MoE dispatch
+buffer's D over ``model``, its ``buf_spec``) change no param or
+optimizer layout: :meth:`Zero1.layout` hands them to the model code
+(``parallel.layout``), which executes them.
 """
 from __future__ import annotations
 
@@ -424,24 +427,6 @@ def grad_specs(plan: Plan, param_specs_tree, params: Params):
 # Execution on ranks
 # ---------------------------------------------------------------------------
 
-#: the layouts ranks do not execute yet, by plan flag
-UNEXECUTED = {
-    "seq_parallel": "Megatron sequence parallelism (the residual stream's "
-                    "all-reduce as a reduce-scatter and an all-gather) is "
-                    "ROADMAP Queue 1 item 8",
-    "moe_dshard": "the MoE dispatch buffer's D over tp is ROADMAP Queue 1 "
-                  "item 8",
-}
-
-
-def check_executable(plan: Plan) -> None:
-    """Ranks execute every plan but sequence parallelism and the MoE
-    dispatch buffer's D split: those raise."""
-    for flag, why in UNEXECUTED.items():
-        if getattr(plan, flag):
-            raise NotImplementedError(f"plan {flag}=True: {why}")
-
-
 def _cut_kind(c: ModelConfig, plan: Plan, names: list, dim: int,
               axis: str) -> tuple:
     """``(storage, summed)`` of a sharded dim of the leaf at ``names``.
@@ -529,7 +514,6 @@ class Zero1:
 
     def __init__(self, plan: Plan, params: Params,
                  c: Optional[ModelConfig] = None):
-        check_executable(plan)
         self.plan = plan
         self.mesh = plan.mesh
         self.paths = [path for path, _ in tree.paths(params)]
@@ -561,8 +545,10 @@ class Zero1:
     def layout(self, batch_axes: tuple = (),
                cache_seq_axis: Optional[str] = None):
         """The :class:`parallel.layout.Layout` of this tree's params, with
-        the axes cutting the batch and the one cutting dense caches'
-        sequence (a long-context decode)."""
+        the axes cutting the batch, the one cutting dense caches'
+        sequence (a long-context decode) and the plan's
+        ``seq_parallel`` and ``moe_dshard`` (the latter with expert
+        parallelism only, as the reference lowers it)."""
         from repro_torch.parallel.layout import Layout
         tp = self.mesh.axes_size("model") if self.plan.use_tp else 1
         storage = {}
@@ -571,7 +557,8 @@ class Zero1:
             if cuts:
                 storage[tuple(str(k) for k in path)] = cuts
         return Layout(self.mesh, tp, storage, tuple(batch_axes),
-                      cache_seq_axis)
+                      cache_seq_axis, seq_parallel=self.plan.seq_parallel,
+                      moe_dshard=self.plan.moe_dshard and self.plan.ep)
 
     # -- params --------------------------------------------------------------
 

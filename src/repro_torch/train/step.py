@@ -151,7 +151,6 @@ def _dp_group(plan):
     """The dp process group of an executable plan (None without one)."""
     if plan is None:
         return None
-    shd.check_executable(plan)
     return plan.mesh.group(plan.dp)
 
 
@@ -197,7 +196,6 @@ def make_train_step(c: ModelConfig, oc: OptConfig,
             return new_params, new_state, metrics
         return train_step
 
-    shd.check_executable(plan)
     k = max(sc.microbatches, 1)
     memo: dict = {}         # the Zero1 built for whole params; layouts
 

@@ -274,17 +274,22 @@ def sharded_config(arch: str, kw: dict):
 
 def sharded_steps(world, arch: str, kw: dict, placement, params_np,
                   batches: list, opt: dict, k: int = 1,
-                  force_fsdp=None, grads_of_first: bool = True) -> dict:
+                  force_fsdp=None, grads_of_first: bool = True,
+                  flags: dict = None) -> dict:
     """Steps of the plan step (``make_train_step(plan=...)``) from whole
     weights on one global batch each: the metrics of each step, the whole
     params after the last (gathered), the first step's whole gradients,
-    and this rank's param and optimizer-state elements."""
+    and this rank's param and optimizer-state elements. ``flags``: plan
+    fields set on top of ``make_plan``'s (``seq_parallel``,
+    ``moe_dshard``)."""
+    import dataclasses
     c = sharded_config(arch, kw)
     oc = OptConfig(**{**LM_OPT, **opt})
     b, s = batches[0]["tokens"].shape
     plan = shd.make_plan(c, mesh_for(Placement.of(placement)),
                          ShapeConfig("t", s, b, "train"),
                          force_fsdp=force_fsdp)
+    plan = dataclasses.replace(plan, **(flags or {}))
     p = bridge.params_from_numpy(params_np, device="cpu")
     p, o, zero = shd.shard_train_state(plan, p, opt_init(oc, p), c)
     step = make_train_step(c, oc, StepConfig(microbatches=k), plan=plan,
@@ -330,11 +335,12 @@ def _np_tree(t):
 
 def sharded_cases(world, cases: list) -> dict:
     """:func:`sharded_steps` for each ``(name, arch, kw, placement,
-    params_np, batches, opt, k, force_fsdp)`` in turn, in one world."""
+    params_np, batches, opt, k, force_fsdp, flags)`` in turn, in one
+    world."""
     return {name: sharded_steps(world, arch, kw, placement, params_np,
-                                batches, opt, k, fsdp)
-            for name, arch, kw, placement, params_np, batches, opt, k, fsdp
-            in cases}
+                                batches, opt, k, fsdp, flags=flags)
+            for name, arch, kw, placement, params_np, batches, opt, k, fsdp,
+            flags in cases}
 
 
 def vocab_parallel_loss(world) -> dict:
@@ -503,3 +509,77 @@ def real_rank_flops(world, arch: str, kw: dict, placement: str, gb: int,
     return {"flops": float(fc.get_total_flops()),
             "reduce_scatter_ok": bool(torch.equal(rs, by_hand)),
             "backend": mesh.backend}
+
+
+def layout_collectives(world) -> dict:
+    """On a (data 2, model 2) mesh of four ranks: ``Mesh.all_to_all`` over
+    ``model`` (two ranks) and over both axes (four) on seeded blocks, and
+    the gradients of the layout's sequence-parallel brackets and MoE
+    all-to-all on a small sublayer, beside the whole tensors' ``autograd``
+    on this rank (the test holds them against each other and a numpy
+    permutation)."""
+    from repro_torch.parallel import layout as layout_mod
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {"rank": world.rank, "model": mesh.index("model"),
+           "both": mesh.index(("data", "model"))}
+    # blocks (8, 6) of this rank's numbers, split on dim 0 / joined on 1
+    blk = torch.arange(48, dtype=torch.float32).reshape(8, 6) \
+        + 100 * world.rank
+    out["a2a_model"] = mesh.all_to_all(blk, "model", 0, 1).numpy()
+    out["a2a_both"] = mesh.all_to_all(blk, ("data", "model"), 0, 1).numpy()
+    # a sublayer under sequence parallelism, and its whole twin
+    gen = torch.Generator().manual_seed(7 + mesh.index("data"))
+    B, S, D, F = 2, 8, 4, 6
+    X, G = torch.randn(B, S, D, generator=gen), torch.randn(B, S, D,
+                                                            generator=gen)
+    A, Bw = torch.randn(D, F, generator=gen), torch.randn(F, D,
+                                                          generator=gen)
+    M, M2 = torch.randn(D, F, generator=gen), torch.randn(D, D,
+                                                          generator=gen)
+    scale = torch.randn(D, generator=gen)
+
+    def model(x, a, b, m, m2, sc, lay):
+        """cut -> scale on the rows -> split sublayer (a whole consumer
+        of its input inside) -> whole sublayer -> gather -> loss."""
+        if lay is not None:
+            x = lay.cut(x, 1)
+            sc = lay.on_rows(sc)
+        h = x * sc
+        if lay is not None:
+            xc, xw = lay.enter(h)
+            mw = lay.local(lay.col(xw @ m), -1)
+        else:
+            xc, mw = h, h @ m
+        o = ((xc @ a) * mw) @ b
+        x = x + (lay.exit(o) if lay is not None else o)
+        w = x if lay is None else lay.whole_in(x)
+        w = w @ m2
+        x = x + (w if lay is None else lay.whole_out(w))
+        if lay is not None:
+            x = lay.gather_whole(x, 1)
+        return (x * G).sum()
+
+    leaves = [t.clone().requires_grad_(True) for t in (X, A, Bw, M, M2,
+                                                       scale)]
+    whole = torch.autograd.grad(model(*leaves, None), leaves)
+    r, n = mesh.index("model"), F // 2
+    mine = [X.clone(), A[:, r * n:(r + 1) * n].clone(),
+            Bw[r * n:(r + 1) * n].clone(), M.clone(), M2.clone(),
+            scale.clone()]
+    mine = [t.requires_grad_(True) for t in mine]
+    lay = layout_mod.Layout(mesh, 2, {}, seq_axis="model")
+    got = torch.autograd.grad(model(*mine, lay), mine)
+    want = [whole[0], whole[1][:, r * n:(r + 1) * n],
+            whole[2][r * n:(r + 1) * n], *whole[3:]]
+    out["sp_grads"] = [(g.numpy(), w.numpy()) for g, w in zip(got, want)]
+    # the MoE buffer's all-to-all and back: identity, and its gradient
+    t = torch.randn(4, 3, 2, generator=gen).requires_grad_(True)
+    y = lay.all_to_all(t, 0, 2)
+    back = lay.all_to_all(y, 2, 0)
+    (gy,) = torch.autograd.grad((y * torch.arange(
+        float(y.numel())).reshape(y.shape)).sum(), t)
+    out["a2a_roundtrip"] = bool(torch.equal(back, t))
+    out["a2a_shape"] = tuple(y.shape)
+    out["a2a_grad"] = gy.numpy()
+    out["a2a_in"] = t.detach().numpy()
+    return out

@@ -19,8 +19,11 @@ shapes and its programs' matmul FLOPs, on the CPU.
   * the dry run's records have the reference's schema minus the XLA
     keys, the port's ``roofline`` workload renders them, and both
     packages' ``load_rows`` read the same rows;
-  * the hill-climb's plan variants raise (ROADMAP Queue 1 item 8);
-    ``baseline``, ``mbs2`` and ``flash_attn`` give records.
+  * the hill-climb's plan variants count the step the ranks execute on
+    the reference's ``single`` mesh: ``moe_dshard`` of a dense arch
+    counts what ``baseline`` counts, ``seq_parallel`` reduce-scatters
+    and all-gathers over ``model`` where ``baseline`` all-reduces
+    activations; ``baseline``, ``mbs2`` and ``flash_attn`` give records.
 """
 import contextlib
 import dataclasses
@@ -442,9 +445,33 @@ def test_the_optimizer_follows_the_references_rule_at_80_gb():
 
 
 def test_hillclimb_variants(tmp_path):
-    for v in ("seq_parallel", "moe_dshard", "mbs2+moe_dshard"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            hillclimb.run_variant("qwen2-0.5b", "train_4k", v, tmp_path)
+    recs = {v: hillclimb.run_variant("qwen2-0.5b", "train_4k", v, tmp_path)
+            for v in ("baseline", "seq_parallel", "moe_dshard",
+                      "mbs2+moe_dshard")}
+    model = {v: r["collectives"]["groups"]["model"]
+             for v, r in recs.items()}
+    # a dense arch: the MoE buffer's cut changes nothing
+    assert recs["moe_dshard"]["collectives"] == \
+        recs["baseline"]["collectives"]
+    assert recs["moe_dshard"]["cost_analysis"] == \
+        recs["baseline"]["cost_analysis"]
+    assert recs["mbs2+moe_dshard"]["microbatches"] == 8
+    # sequence parallelism: the sequence reduce-scattered and gathered
+    # over model; what stays all-reduced there is the embedding, the
+    # loss, the unembedding's input gradient and the norms' gradients
+    assert "reduce-scatter" not in model["baseline"]["counts"]
+    assert model["seq_parallel"]["counts"]["reduce-scatter"] > 0
+    assert model["seq_parallel"]["counts"]["all-gather"] > \
+        model["baseline"]["counts"]["all-gather"]
+    ar = {v: recs[v]["collectives"]["result_bytes"]["all-reduce"]
+          for v in ("baseline", "seq_parallel")}
+    assert ar["seq_parallel"] < ar["baseline"] / 2
+    assert recs["seq_parallel"]["cost_analysis"]["flops"] == \
+        recs["baseline"]["cost_analysis"]["flops"]
+    assert tuple(recs["seq_parallel"]["attn_hints"]["resid_spec"]) == \
+        ("data", "model", None)
+    for v in recs:
+        assert (tmp_path / f"qwen2-0.5b__train_4k__{v}.json").exists()
     with pytest.raises(ValueError, match="unknown variant"):
         hillclimb.run_variant("qwen2-0.5b", "train_4k", "mbs3", tmp_path)
     # one H100 by name: the default is the reference's mesh, single

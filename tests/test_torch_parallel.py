@@ -161,16 +161,18 @@ def test_one_rank_mesh_has_no_group():
     assert mesh_mod.axis_size(m, "stage") == 1
     with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
         mesh_mod.mesh_for(Placement.of("dp2"))
-    plan = sh.make_plan(get_config("gpt-117m").reduced(), m,
-                        SHAPES["train_4k"])
-    sh.check_executable(plan)
-    tp = sh.make_plan(get_config("gpt-117m").reduced(),
-                      _FakeMesh({"data": 1, "model": 2}),
+    c = get_config("gpt-117m").reduced()
+    plan = sh.make_plan(c, m, SHAPES["train_4k"])
+    assert sh.Zero1(plan, lm.init_abstract(c), c).layout().tp == 1
+    tp = sh.make_plan(c, mesh_mod.MeshShape((1, 2), ("data", "model")),
                       SHAPES["train_4k"])
-    sh.check_executable(tp)           # ranks execute tensor parallelism
+    # ranks execute tensor parallelism and both of its plan variants; the
+    # MoE buffer's cut needs expert parallelism, which a dense arch lacks
     import dataclasses
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        sh.check_executable(dataclasses.replace(tp, seq_parallel=True))
+    lay = sh.Zero1(dataclasses.replace(tp, seq_parallel=True,
+                                       moe_dshard=True),
+                   lm.init_abstract(c), c).layout()
+    assert (lay.tp, lay.seq_parallel, lay.moe_dshard) == (2, True, False)
 
 
 def test_mesh_of_ranks_coordinates_and_rows():
@@ -185,6 +187,38 @@ def test_mesh_of_ranks_coordinates_and_rows():
                                         [3, 4, 5]]
     assert [g["sums"] for g in got] == [[1.0, 2.0], [1.0, 4.0],
                                         [5.0, 2.0], [5.0, 4.0]]
+
+
+def test_all_to_all_and_the_sequence_parallel_brackets_on_ranks():
+    """Four CPU ranks, a (data 2, model 2) mesh: ``Mesh.all_to_all`` over
+    two ranks and over four equals the numpy permutation of every rank's
+    block; a sublayer through the sequence-parallel brackets (the cut
+    after the embedding, a replicated leaf on the rank's rows, the split
+    compute's entry with a whole consumer of its input and its exit, a
+    sublayer computed whole, the gather before the loss) gives every
+    rank its cut of the whole tensors' gradients; the MoE buffer's
+    all-to-all and its inverse are the identity, its gradient the
+    inverse permutation."""
+    got = mesh_mod.spawn(ranks.layout_collectives, 4, device="cpu")
+    blocks = {g["rank"]: np.arange(48, dtype=np.float32).reshape(8, 6)
+              + 100 * g["rank"] for g in got}
+    by_data = {0: [0, 1], 1: [2, 3]}       # ranks (data, model) row-major
+    for g in got:
+        r, d = g["model"], g["rank"] // 2
+        want = np.concatenate([blocks[p][4 * r:4 * r + 4]
+                               for p in by_data[d]], axis=1)
+        np.testing.assert_array_equal(g["a2a_model"], want)
+        q = g["both"]
+        want = np.concatenate([blocks[p][2 * q:2 * q + 2]
+                               for p in range(4)], axis=1)
+        np.testing.assert_array_equal(g["a2a_both"], want)
+        for i, (a, b) in enumerate(g["sp_grads"]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                       err_msg=str(i))
+        assert g["a2a_roundtrip"] and g["a2a_shape"] == (2, 3, 4)
+        w = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+        np.testing.assert_array_equal(
+            g["a2a_grad"], np.concatenate([w[:, :, 2 * r:2 * r + 2]] * 2))
 
 
 RESNET_REF = """

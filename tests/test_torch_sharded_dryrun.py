@@ -15,6 +15,11 @@
     parsed HLO bytes of ``lower_cell`` on a (2, 2) mesh are printed beside
     the port's count there, ungated: one partitioner's program against
     another's);
+  * the same step under Megatron sequence parallelism: its wire bytes
+    the reckoning written out below, the reference's parsed HLO bytes of
+    ``lower_cell`` with ``plan_overrides={"seq_parallel": True}`` printed
+    beside it, ungated; a MoE step with the dispatch buffer's D over
+    ``model``: its all-to-alls and their bytes;
   * the production meshes: cells ``ok`` on ``single`` (granite-8b
     train_4k, llama4-maverick decode_32k with experts over ``model`` and
     FSDP, jamba long_500k with the sequence over ``data``), ``multi``'s
@@ -219,15 +224,45 @@ def _megatron_wire_bytes(c, gb: int, seq: int, k: int) -> float:
     return k * per_mb + 4 + norms / 2
 
 
+def _seq_parallel_wire_bytes(c, gb: int, seq: int, k: int) -> float:
+    """The tp2 step's ring wire bytes under sequence parallelism. A
+    microbatch: all-reduced, the vocabulary-parallel embedding (before
+    the cut of the sequence), the unembedding's input in the backward
+    (after the gather), the loss's three, and each layer's two norm
+    scales' gradients (they apply to the rank's rows); all-gathered over
+    the sequence, the cut's gradient, the gather before the final norm
+    and, each layer, the attention's and the MLP's inputs in the forward
+    and the recompute and their outputs' gradients in the backward;
+    reduce-scattered, each layer's two outputs in the forward, the
+    attention's again in the recompute (which stops before the MLP's
+    output, as above) and the two inputs' gradients. ``wq`` / ``wk`` /
+    ``wv`` and the optimizer as in :func:`_megatron_wire_bytes`. Over 2
+    ranks a gather of the sequence moves half its result, a
+    reduce-scatter its result (half the rows)."""
+    b = gb // k
+    f = 4
+    bsd, bs = b * seq * c.d_model * f, b * seq * f
+    L = c.n_layers
+    qkv = c.d_model * (c.n_heads + 2 * c.n_kv_heads) * c.d_head * f
+    per_mb = ((2 * bsd + 3 * bs + 2 * L * c.d_model * f)   # all-reduces
+              + (2 + 6 * L) * bsd / 2                      # all-gathers
+              + 5 * L * bsd / 2                            # reduce-scatters
+              + 2 * L * qkv / 2 + L * qkv / 2)
+    norms = 2 * L * c.d_model * f
+    return k * per_mb + 4 + norms / 2
+
+
 REF_HLO = """
 from repro.launch.dryrun import lower_cell
 from repro.launch.mesh import make_mesh
 from repro.configs import get_config
 from repro.configs.base import ShapeConfig
 c = get_config(ARCH).reduced(dtype="float32", param_dtype="float32")
-rec, _ = lower_cell(c, ShapeConfig("t", SEQ, GB, "train"),
-                    make_mesh((2, 2), ("data", "model")), "2x2")
-print("WIRE", rec["collectives"]["total_wire_bytes"])
+for over in (None, {"seq_parallel": True}):
+    rec, _ = lower_cell(c, ShapeConfig("t", SEQ, GB, "train"),
+                        make_mesh((2, 2), ("data", "model")), "2x2",
+                        plan_overrides=over)
+    print("WIRE", rec["collectives"]["total_wire_bytes"])
 """
 
 
@@ -250,13 +285,53 @@ def test_counting_mesh_equals_the_real_rank_step_and_the_reckoning():
     ours = dryrun.sharded_counts(
         c, dataclasses.replace(shape, global_batch=2 * gb),
         mesh_mod.MeshShape((2, 2), ("data", "model")))[2]
+    sp = dryrun.sharded_counts(
+        c, shape, mesh_mod.MeshShape((1, 2), ("data", "model")),
+        plan_overrides={"seq_parallel": True})[2]
+    want_sp = _seq_parallel_wire_bytes(c, gb, seq, k)
+    assert sp.total_wire_bytes == want_sp, (sp.to_dict(), want_sp)
+    ours_sp = dryrun.sharded_counts(
+        c, dataclasses.replace(shape, global_batch=2 * gb),
+        mesh_mod.MeshShape((2, 2), ("data", "model")),
+        plan_overrides={"seq_parallel": True})[2]
     out = run_in_subprocess(f"ARCH, SEQ, GB = {arch!r}, {seq}, {2 * gb}\n"
                             + textwrap.dedent(REF_HLO), n_devices=4)
-    ref = float(out.split("WIRE")[-1])
+    ref, ref_sp = (float(line.split()[1]) for line in out.splitlines()
+                   if line.startswith("WIRE"))
     print(f"\n{arch} reduced tp2: meta FLOPs {got.flops:.6e} == the "
           f"CPU ranks' {real[0]['flops']:.6e}; wire bytes {want:.0f} "
-          f"(reckoned and counted); (2, 2) mesh: port "
-          f"{ours.total_wire_bytes:.0f}, reference's parsed HLO {ref:.0f}")
+          f"(reckoned and counted), with seq_parallel {want_sp:.0f}; "
+          f"(2, 2) mesh: port {ours.total_wire_bytes:.0f}, reference's "
+          f"parsed HLO {ref:.0f}; with seq_parallel port "
+          f"{ours_sp.total_wire_bytes:.0f}, reference {ref_sp:.0f}")
+
+
+def test_moe_dshard_counts_two_all_to_alls_a_moe_layer_pass():
+    """Reduced fp32 granite-moe, tp2 (experts over ``model``), two
+    microbatches of four rows: each MoE layer's dispatch buffer goes to
+    its experts' ranks and back, two all-to-alls in the forward, two in
+    the recompute and two in the backward, each of ``E * cap * D / 2``
+    fp32 elements (one ``(E / 2, cap, D)`` or ``(E, cap, D / 2)`` block),
+    over ``model``; the combine's all-reduce becomes an all-gather of
+    ``D``, and the FLOPs do not change."""
+    from repro_torch.models import moe as moe_mod
+    c = ranks.sharded_config("granite-moe-3b-a800m", {})
+    gb, seq = 8, 32
+    shape = ShapeConfig("t", seq, gb, "train")
+    mesh = mesh_mod.MeshShape((1, 2), ("data", "model"))
+    base, k, plain, _p, _o = dryrun.sharded_counts(c, shape, mesh)
+    got, _k, st, plan, _o = dryrun.sharded_counts(
+        c, shape, mesh, plan_overrides={"moe_dshard": True})
+    assert plan.ep and plan.moe_dshard and k == 2
+    cap = moe_mod.expert_capacity(c, gb // k * seq)
+    block = c.n_experts * cap * c.d_model // 2 * 4
+    n = 6 * c.n_layers * k
+    assert st.counts["all-to-all"] == n
+    assert st.result_bytes["all-to-all"] == n * block
+    assert st.wire_bytes["all-to-all"] == n * block / 2
+    assert set(st.groups["model"]["counts"]) >= {"all-to-all"}
+    assert got.flops == base.flops
+    assert st.counts["all-reduce"] < plain.counts["all-reduce"]
 
 
 @pytest.mark.parametrize("arch,sname", [

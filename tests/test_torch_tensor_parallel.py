@@ -31,6 +31,18 @@ The MoE case of the plan step's global semantics (microbatch ``i`` is
 global rows ``[i mb, (i+1) mb)``, the capacity and the drops over the
 global microbatch, the load-balancing means over every rank's tokens)
 runs dp2 with two microbatches and a capacity factor that drops pairs.
+
+The plan variants (the last field of a case: plan fields set on top of
+``make_plan``'s): Megatron sequence parallelism (``seq_parallel``; split
+attention and MLP, K/V computed whole, the mamba mixer computed whole,
+the MoE router) and the MoE dispatch buffer's D over ``model``
+(``moe_dshard``, with drops and the global ranking over dp2). The
+reference runs them as its dry run lowers them, its step jitted inside
+``repro.launch.dryrun._lower_ctx`` with the same plan (the residual's
+``resid_spec``, the buffer's ``buf_spec``). Sequence parallelism at a
+sequence that tp does not divide (15) is plain tp, as the reference's
+``sp_ax`` is None there: its params equal the plain tp2 run's bit for
+bit.
 """
 import pickle
 import textwrap
@@ -48,34 +60,51 @@ from repro_torch.models.common import apply_norm, embed_tokens
 
 B, S, STEPS = 4, 16, 3
 ADAM = {"eps": 1e-6}
+SP, DSHARD = {"seq_parallel": True}, {"moe_dshard": True}
 
 #: name -> (arch, reduced overrides, (dp, tp), microbatches, optimizer,
-#: force_fsdp)
+#: force_fsdp, plan fields)
 CASES = {
-    "gpt-tp2": ("gpt-117m", {}, (1, 2), 1, ADAM, None),
-    "gpt-dp2tp2": ("gpt-117m", {}, (2, 2), 1, ADAM, None),
-    "gpt-fsdp-dp2": ("gpt-117m", {}, (2, 1), 1, ADAM, True),
-    "gpt-fsdp-dp2tp2": ("gpt-117m", {}, (2, 2), 1, ADAM, True),
+    "gpt-tp2": ("gpt-117m", {}, (1, 2), 1, ADAM, None, {}),
+    "gpt-dp2tp2": ("gpt-117m", {}, (2, 2), 1, ADAM, None, {}),
+    "gpt-fsdp-dp2": ("gpt-117m", {}, (2, 1), 1, ADAM, True, {}),
+    "gpt-fsdp-dp2tp2": ("gpt-117m", {}, (2, 2), 1, ADAM, True, {}),
     "gpt-adafactor-tp2": ("gpt-117m", {}, (1, 2), 1,
-                          {"name": "adafactor"}, None),
-    "granite8b-tp4": ("granite-8b", {}, (1, 4), 1, ADAM, None),
+                          {"name": "adafactor"}, None, {}),
+    "granite8b-tp4": ("granite-8b", {}, (1, 4), 1, ADAM, None, {}),
     "granite8b-h6-tp4": ("granite-8b", {"n_heads": 6}, (1, 4), 1, ADAM,
-                         None),
-    "moe-ep-tp2": ("granite-moe-3b-a800m", {}, (1, 2), 1, ADAM, None),
+                         None, {}),
+    "moe-ep-tp2": ("granite-moe-3b-a800m", {}, (1, 2), 1, ADAM, None, {}),
     "moe-e6-tp4": ("granite-moe-3b-a800m", {"n_experts": 6}, (1, 4), 1,
-                   ADAM, None),
+                   ADAM, None, {}),
     "moe-global-dp2": ("granite-moe-3b-a800m", {"capacity_factor": 0.5},
-                       (2, 1), 2, ADAM, None),
-    "mamba-dp2tp2": ("mamba2-1.3b", {}, (2, 2), 1, ADAM, None),
-    "whisper-tp2": ("whisper-small", {}, (1, 2), 1, ADAM, None),
-    "llava-tp2": ("llava-next-34b", {}, (1, 2), 1, ADAM, None),
+                       (2, 1), 2, ADAM, None, {}),
+    "mamba-dp2tp2": ("mamba2-1.3b", {}, (2, 2), 1, ADAM, None, {}),
+    "whisper-tp2": ("whisper-small", {}, (1, 2), 1, ADAM, None, {}),
+    "llava-tp2": ("llava-next-34b", {}, (1, 2), 1, ADAM, None, {}),
+    "gpt-tp2-sp": ("gpt-117m", {}, (1, 2), 1, ADAM, None, SP),
+    "gpt-dp2tp2-sp": ("gpt-117m", {}, (2, 2), 1, ADAM, None, SP),
+    "gpt-tp2-s15": ("gpt-117m", {}, (1, 2), 1, ADAM, None, {}),
+    "gpt-tp2-sp-s15": ("gpt-117m", {}, (1, 2), 1, ADAM, None, SP),
+    "granite8b-tp4-sp": ("granite-8b", {}, (1, 4), 1, ADAM, None, SP),
+    "moe-ep-tp2-sp": ("granite-moe-3b-a800m", {}, (1, 2), 1, ADAM, None,
+                      SP),
+    "mamba-tp2-sp": ("mamba2-1.3b", {}, (1, 2), 1, ADAM, None, SP),
+    "moe-ep2-dshard": ("granite-moe-3b-a800m", {}, (1, 2), 1, ADAM, None,
+                       DSHARD),
+    "moe-dp2ep2-dshard-drops": ("granite-moe-3b-a800m",
+                                {"capacity_factor": 0.5}, (2, 2), 2, ADAM,
+                                None, DSHARD),
 }
+#: cases at another sequence length than ``S``
+SEQ = {"gpt-tp2-s15": 15, "gpt-tp2-sp-s15": 15}
 
 REF = """
-import pickle
+import contextlib, dataclasses, pickle
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import get_config
 from repro.configs.base import ShapeConfig
+from repro.launch.dryrun import _lower_ctx
 from repro.launch.mesh import make_mesh
 from repro.models import lm
 from repro.parallel import sharding as shd
@@ -84,16 +113,17 @@ from repro.train.step import StepConfig, make_loss_fn, make_train_step
 
 cases, batches = pickle.load(open(IN, "rb"))
 out = {}
-for name, (arch, kw, (dp, tp), k, opt, fsdp) in cases.items():
+for name, (arch, kw, (dp, tp), k, opt, fsdp, flags) in cases.items():
     c = get_config(arch).reduced(dtype="float32", param_dtype="float32",
                                  **kw)
     oc = OptConfig(warmup=2, total_steps=100, **opt)
     mesh = make_mesh((dp, tp), ("data", "model"))
     params = jax.jit(lm.init, static_argnums=1)(jax.random.key(0), c)
     bts = batches[name]
-    plan = shd.make_plan(c, mesh, ShapeConfig("t", bts[0]["tokens"].shape[1],
-                                              bts[0]["tokens"].shape[0],
-                                              "train"), force_fsdp=fsdp)
+    shape = ShapeConfig("t", bts[0]["tokens"].shape[1],
+                        bts[0]["tokens"].shape[0], "train")
+    plan = dataclasses.replace(shd.make_plan(c, mesh, shape,
+                                             force_fsdp=fsdp), **flags)
     rec = {"params": jax.tree.map(np.asarray, params)}
     p, o, psh, osh, gsh = shd.shard_train_state(plan, params,
                                                 opt_init(oc, params), c)
@@ -108,7 +138,10 @@ for name, (arch, kw, (dp, tp), k, opt, fsdp) in cases.items():
     put = lambda bt: jax.device_put(
         {key: jnp.asarray(v) for key, v in bt.items()},
         {key: shd.batch_sharding(plan, v.shape) for key, v in bt.items()})
-    with mesh:
+    # the plan variants as the dry run lowers them (resid_spec, buf_spec)
+    lower = (_lower_ctx(c, plan, shape, shape.global_batch // k) if flags
+             else contextlib.nullcontext())
+    with mesh, lower:
         if k == 1:
             vg = jax.jit(jax.value_and_grad(make_loss_fn(c, StepConfig()),
                                             has_aux=True))
@@ -130,10 +163,11 @@ pickle.dump(out, open(OUT, "wb"))
 def _batches(name: str) -> list:
     arch, kw, *_ = CASES[name]
     c = ranks.sharded_config(arch, kw)
-    rng = np.random.default_rng(sum(map(ord, name)))
+    # the s15 pair shares its batches (the plain run is the SP run's twin)
+    rng = np.random.default_rng(sum(map(ord, name.replace("-sp", ""))))
     out = []
     for _ in range(STEPS):
-        t = rng.integers(0, c.vocab, (B, S)).astype(np.int32)
+        t = rng.integers(0, c.vocab, (B, SEQ.get(name, S))).astype(np.int32)
         bt = {"tokens": t, "labels": np.roll(t, -1, 1)}
         if c.family == "encdec":
             bt["enc_frames"] = rng.standard_normal(
@@ -159,10 +193,10 @@ def runs(tmp_path_factory):
     with open(d / "out.pkl", "rb") as f:
         ref = pickle.load(f)
     by_mesh: dict = {}
-    for name, (arch, kw, mesh, k, opt, fsdp) in CASES.items():
+    for name, (arch, kw, mesh, k, opt, fsdp, flags) in CASES.items():
         by_mesh.setdefault(mesh, []).append(
             (name, arch, kw, f"dp{mesh[0]}tp{mesh[1]}", ref[name]["params"],
-             batches[name], opt, k, fsdp))
+             batches[name], opt, k, fsdp, flags))
     got = {}
     for (dp, tp), cases in by_mesh.items():
         per_rank = mesh_mod.spawn(ranks.sharded_cases, dp * tp,
@@ -171,7 +205,7 @@ def runs(tmp_path_factory):
             got[name] = [r[name] for r in per_rank]
     one = {name: ranks.one_process_steps(arch, kw, ref[name]["params"],
                                          batches[name], opt, k)
-           for name, (arch, kw, _m, k, opt, _f) in CASES.items()}
+           for name, (arch, kw, _m, k, opt, _f, _p) in CASES.items()}
     return ref, got, one, batches
 
 
@@ -206,23 +240,26 @@ def test_sharded_step_matches_one_process_and_the_reference(name, runs):
 
 
 def test_moe_case_drops_pairs_over_the_global_microbatch(runs):
-    """The global-semantics MoE case routes more pairs to some expert
-    than the capacity of the global microbatch holds (layer 0,
-    microbatch 0), so drops are in play, and its dp2 losses and aux are
-    the reference's (above)."""
+    """The global-semantics MoE cases (dp2, and dp2 with the buffer's D
+    over ``model``) route more pairs to some expert than the capacity of
+    the global microbatch holds (layer 0, microbatch 0), so drops are in
+    play, and their losses and aux are the reference's (above)."""
     ref, _got, _one, batches = runs
-    arch, kw, _m, k, _o, _f = CASES["moe-global-dp2"]
-    c = ranks.sharded_config(arch, kw)
     from repro_torch import bridge
-    p = bridge.params_from_numpy(ref["moe-global-dp2"]["params"], "cpu")
-    toks = torch.from_numpy(batches["moe-global-dp2"][0]["tokens"][:B // k])
-    x = embed_tokens(c, p["embed"], toks)
-    lp = {n: t[0] for n, t in p["layers"]["slot0"]["norm2"].items()}
-    x2d = apply_norm(c, lp, x).reshape(-1, c.d_model)
-    _w, idx, _aux = moe_mod.router_topk(
-        c, {"router": p["layers"]["slot0"]["moe"]["router"][0]}, x2d)
-    counts = np.bincount(idx.reshape(-1).numpy(), minlength=c.n_experts)
-    assert counts.max() > moe_mod.expert_capacity(c, x2d.shape[0])
+    for name in ("moe-global-dp2", "moe-dp2ep2-dshard-drops"):
+        arch, kw, _m, k, _o, _f, _p = CASES[name]
+        c = ranks.sharded_config(arch, kw)
+        p = bridge.params_from_numpy(ref[name]["params"], "cpu")
+        toks = torch.from_numpy(batches[name][0]["tokens"][:B // k])
+        x = embed_tokens(c, p["embed"], toks)
+        lp = {n: t[0] for n, t in p["layers"]["slot0"]["norm2"].items()}
+        x2d = apply_norm(c, lp, x).reshape(-1, c.d_model)
+        _w, idx, _aux = moe_mod.router_topk(
+            c, {"router": p["layers"]["slot0"]["moe"]["router"][0]}, x2d)
+        counts = np.bincount(idx.reshape(-1).numpy(),
+                             minlength=c.n_experts)
+        assert counts.max() > moe_mod.expert_capacity(c, x2d.shape[0]), \
+            name
 
 
 def test_vocab_parallel_loss_equals_the_whole_vocabulary_loss():
@@ -260,14 +297,55 @@ def test_train_cli_trains_dp2tp2_on_cpu_ranks(capfd):
     assert "placement=dp2tp2" in out and "[train] done" in out
 
 
-def test_seq_parallel_and_moe_dshard_still_raise():
-    from repro_torch.configs import SHAPES
+def test_seq_parallel_at_an_undivided_sequence_is_plain_tp(runs):
+    """SP asked for at S = 15 on tp2 runs plain tp (the reference's
+    ``sp_ax`` is None): its steps equal the plain tp2 run's bit for bit."""
+    _ref, got, _one, _b = runs
+    for a, b in zip(got["gpt-tp2-sp-s15"], got["gpt-tp2-s15"], strict=True):
+        assert a["metrics"] == b["metrics"]
+        assert all(np.array_equal(x, y) for x, y in
+                   zip(a["params"], b["params"], strict=True))
+
+
+def test_seq_parallel_and_moe_dshard_execute():
+    """Both plan variants build a rank's layout (no flag raises) and
+    change what the counting mesh counts of the tp2 step: sequence
+    parallelism reduce-scatters and all-gathers the sequence where plain
+    tp all-reduces activations, and counts what plain tp counts at a
+    sequence that tp does not divide; ``moe_dshard`` all-to-alls an
+    expert-parallel MoE's dispatch buffer and changes nothing of a dense
+    arch."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
+    from repro_torch.models import lm
     from repro_torch.parallel import sharding as shd
     import dataclasses
-    plan = shd.make_plan(get_config("gpt-117m").reduced(),
-                         dryrun.make_production_mesh(), SHAPES["train_4k"])
-    shd.check_executable(plan)
-    for flag in ("seq_parallel", "moe_dshard"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            shd.check_executable(dataclasses.replace(plan, **{flag: True}))
+    mesh = mesh_mod.MeshShape((1, 2), ("data", "model"))
+
+    def counted(arch, seq, **flags):
+        c = ranks.sharded_config(arch, {})
+        got = dryrun.sharded_counts(c, ShapeConfig("t", seq, B, "train"),
+                                    mesh, plan_overrides=flags or None)
+        return got[2].to_dict(), got[3]
+
+    for arch, flags in (("gpt-117m", SP), ("granite-moe-3b-a800m", DSHARD)):
+        c = ranks.sharded_config(arch, {})
+        plan = dataclasses.replace(shd.make_plan(
+            c, mesh, ShapeConfig("t", S, B, "train")), **flags)
+        lay = shd.Zero1(plan, lm.init_abstract(c), c).layout()
+        assert (lay.seq_parallel, lay.moe_dshard) == (
+            "seq_parallel" in flags, "moe_dshard" in flags)
+    plain, _ = counted("gpt-117m", S)
+    sp, plan = counted("gpt-117m", S, **SP)
+    assert plan.seq_parallel
+    assert sp["counts"]["reduce-scatter"] > plain["counts"]["reduce-scatter"]
+    assert sp["counts"]["all-gather"] > plain["counts"]["all-gather"]
+    # what stays all-reduced over model under SP: the embedding, the loss,
+    # the unembedding's input gradient and the norms' gradients
+    assert sp["result_bytes"]["all-reduce"] < \
+        plain["result_bytes"]["all-reduce"] / 2
+    assert counted("gpt-117m", 15, **SP)[0] == counted("gpt-117m", 15)[0]
+    moe, _ = counted("granite-moe-3b-a800m", S)
+    dsh, _ = counted("granite-moe-3b-a800m", S, **DSHARD)
+    assert "all-to-all" not in moe["counts"] and dsh["counts"]["all-to-all"]
+    assert counted("gpt-117m", S, **DSHARD)[0] == plain
