@@ -3,14 +3,15 @@
 
   python3 chip_smoke.py [--profile | --times | --train [--profile] |
                          --families [--profile] | --generate [--profile] |
-                         --harness | --dryrun | --parallel | --sharded]
+                         --harness | --dryrun | --parallel | --sharded |
+                         --launch]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a) and checks that the bf16 tensor-core kernels (flash attention
 and paged prefill on ``csrc/attention_mma.cuh``) issue
 ``HMMA.16816.F32.BF16`` in the library's SASS and that they, the paged
 decode kernel and both RMSNorm kernels spill no register in any
-instance, then runs fifteen phases, any failure of which exits non-zero:
+instance, then runs sixteen phases, any failure of which exits non-zero:
 
   1. kernels — each hand-written kernel against its plain PyTorch
      version on the card: paged decode and paged prefill (each on fp and
@@ -321,6 +322,25 @@ instance, then runs fifteen phases, any failure of which exits non-zero:
      ``moe_dshard``: losses, ms a step, the peak per rank and each
      rank's shards equal to its cut of the gathered whole. Every number
      it prints carries ``PAR_NOTE`` and the card's name and power limit.
+  15. launch — the training launcher (``launch.train.run``) in rank
+     worlds sharing the one card over gloo, on full-width gpt-117m
+     (``--preset full``: bf16 compute, fp32 master weights) at
+     ``LAUNCH_SEQ`` x ``LAUNCH_BATCH``, ``LAUNCH_STEPS`` steps a run:
+     (a) ``--placement dp2`` and ``pp2`` (a pipeline placement trains as
+     data parallelism over ``stage``, as the reference's launcher trains
+     it), losses at rtol ``LAUNCH_PP_RTOL`` (ZeRO-1 slices dp2's AdamW
+     state, not pp2's, so the clip's global norm is summed in another
+     order) and printed whether bit-equal; (b) ``LAUNCH_FAULTS`` at dp2
+     with a checkpoint every ``LAUNCH_CKPT_EVERY`` against (a)'s dp2
+     run: every step finishes, at least one restart
+     (and a checkpoint fallback under ``ckpt_corrupt``), every rank
+     resumes from the same step, the final attempt's losses equal the
+     fault-free dp2 run's at the same steps (``loss_bitmatch``), and
+     every checkpoint holds the whole train state's leaves at their
+     whole shapes; (c) the port's ``quickstart`` example (tiny, NVML's
+     energy counter) and ``serve_decode`` example on the card. It
+     prints losses, ms a step, restarts and ``recovery_s`` with
+     ``PAR_NOTE`` and the card's name and power limit.
 
 ``--train`` runs phases 7 and 8 alone (no kernel is built: the training
 paths launch none) and prints no result line. ``--families`` builds the
@@ -330,8 +350,9 @@ kernel is built) and prints no result line.
 ``--dryrun`` runs the grouped-decode check and phase 12 alone (no
 kernel is built) and prints no result line. ``--parallel`` runs phase
 13 alone (no kernel is built: no kernel is on the data-parallel or
-pipeline path) and prints no result line, and ``--sharded`` phase 14
-(no kernel on the sharded training path either).
+pipeline path) and prints no result line, ``--sharded`` phase 14
+(no kernel on the sharded training path either) and ``--launch`` phase
+15 (none on the launcher's training path).
 ``--times`` builds and runs phase 5 alone and prints its rows as a
 ``{"times": [...]}`` line, without ``launches`` and ``max_abs_err``
 (neither is measured there), and no result line: for timing another
@@ -423,15 +444,15 @@ INT8_POOL_BLOCKS = 129
 SERVE_POINTS = "cache=slotted,cache=paged,policy=continuous"
 SLO_POINTS = ("trace=long_prefill,cache=paged,kv_dtype=fp32",
               "trace=shared_prefix,kv_dtype=fp32,sched=phased")
-#: phase 6's depth (``bench run --layers``): llama3.2-3b's first 4 of
-#: its 28 layers at full width. The cells are host-bound, so their wall
+#: phase 6's depth (``bench run --layers``): llama3.2-3b's first layers
+#: of its 28 at full width. The cells are host-bound, so their wall
 #: scales with the layers' launches: at full depth phase 6 took 558-815
 #: s of the script's 732-1087 s on the card machine's hosts, at 14
 #: layers 311.5-376.3 s of 763.0-926.7 s (the latter with phase 13), at
 #: 12 the script 897.2 s; with phase 14's ranks 949.0 s at 8 and
-#: 893.2-1159.4 s at 6 (hosts differ by ~30 %, gloo's ranks by ~80 %), so
-#: 4
-SERVE_LAYERS = 4
+#: 893.2-1159.4 s at 6 (hosts differ by ~30 %, gloo's ranks by ~80 %),
+#: 783.8-850.8 s at 4; phase 15's launcher ranks take ~150 s more, so 2
+SERVE_LAYERS = 2
 #: phase 7's measured steps per llm_train cell: two windows of two
 #: ~0.9 s steps, many times the NVML energy counter's ~100 ms update
 #: interval
@@ -3773,6 +3794,157 @@ def phase_sharded(dev) -> None:
         f"{t_ranks:.1f} s)")
 
 
+#: phase 15: full-width gpt-117m through the training launcher: the
+#: sequence, global batch and steps of every run (15a's dp2 run is 15b's
+#: fault-free twin, so both take the same learning-rate schedule)
+LAUNCH_SEQ, LAUNCH_BATCH, LAUNCH_STEPS = 128, 8, 4
+#: 15b: the faulted dp2 runs' presets and checkpoint cadence (at 4
+#: steps crash_mid crashes after step 2's checkpoint, ckpt_corrupt
+#: corrupts step 4's and falls back to step 2's); a full-width
+#: checkpoint (params and AdamW state, ~1.7 GB) took ~7 s a save over
+#: gloo and the disk on the card machine
+LAUNCH_FAULTS = ("crash_mid", "ckpt_corrupt")
+LAUNCH_CKPT_EVERY = 2
+#: 15a: pp2 against dp2. dp2 slices AdamW's state over ``data`` (ZeRO-1)
+#: and sums the clip's global norm over the slices; pp2 keeps it whole
+#: on each ``stage`` rank (the reference's ``zero1_spec`` names data,
+#: model and pod, not stage), so where the clip acts the norm's last
+#: bits, and the steps after, may differ on the card
+LAUNCH_PP_RTOL = 1e-4
+
+
+def _launch_argv(placement: str, steps: int, *extra) -> list:
+    return ["--arch", "gpt-117m", "--preset", "full", "--device", "cuda",
+            "--placement", placement, "--steps", str(steps), "--seq-len",
+            str(LAUNCH_SEQ), "--global-batch", str(LAUNCH_BATCH), *extra]
+
+
+def launch_rank(world, ckpt_root: str) -> dict:
+    """Phase 15a and 15b, one rank of two on one card: each run through
+    ``launch.train.run`` in this world."""
+    import os
+    from repro_torch.launch import train
+    runs = [("dp2", _launch_argv("dp2", LAUNCH_STEPS)),
+            ("pp2", _launch_argv("pp2", LAUNCH_STEPS))]
+    runs += [(p, _launch_argv("dp2", LAUNCH_STEPS, "--ckpt-dir",
+                              os.path.join(ckpt_root, p), "--ckpt-every",
+                              str(LAUNCH_CKPT_EVERY), "--fault-preset", p))
+             for p in LAUNCH_FAULTS]
+    out = {"rank": world.rank}
+    for key, argv in runs:
+        t0 = time.perf_counter()
+        res = train.run(train.parse_args(argv), world)
+        _ranks_wait(world)
+        sup = res.supervisor
+        out[key] = {
+            "losses": res.losses, "wall_s": time.perf_counter() - t0,
+            # the loop's wall over its steps, checkpoint saves included
+            "ms": 1e3 * LAUNCH_BATCH * LAUNCH_SEQ / res.tokens_per_s,
+            "resumed_from": res.resumed_from, "final_step": res.final_step,
+            "restarts": sup.restarts if sup else 0,
+            "ckpt_fallbacks": sup.ckpt_fallbacks if sup else 0,
+            "resume_steps": sup.resume_steps if sup else [],
+            "recovery_s": sup.recovery_s if sup else 0.0}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _whole_state_shapes() -> dict:
+    """Checkpoint key -> shape of full gpt-117m's whole ``(params,
+    opt_state)``, on ``meta``."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    p = lm.init_abstract(get_config("gpt-117m"))
+    return {ckpt._key(path): list(leaf.shape)
+            for path, leaf in tree.paths((p, opt_init(OptConfig(), p)))}
+
+
+def phase_launch(dev) -> None:
+    """Phase 15: ``launch.train`` on a pipeline placement and under fault
+    schedules across two ranks sharing the card over gloo, then the
+    port's quickstart and serve_decode examples on the card."""
+    import shutil
+    from repro_torch.examples import quickstart, serve_decode
+    from repro_torch.launch.mesh import spawn
+    t_start = time.perf_counter()
+    torch.empty(1, device=dev)
+    card = card_line()
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        t0 = time.perf_counter()
+        pair = spawn(launch_rank, 2, args=(ckpt_root,), device=dev,
+                     backend="gloo")
+        t_ranks = time.perf_counter() - t0
+        whole = _whole_state_shapes()
+        ckpts = {}
+        for p in LAUNCH_FAULTS:
+            d = Path(ckpt_root) / p
+            ckpts[p] = {q.name: {k: v["shape"] for k, v in json.loads(
+                (q / "manifest.json").read_text())["leaves"].items()}
+                for q in sorted(d.iterdir())}
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def tag(msg: str, ranks: bool = True) -> None:
+        log(f"[launch] {msg} ({card}" + (f"; {PAR_NOTE})" if ranks else ")"))
+
+    for r in pair:
+        for key in ("dp2", "pp2"):
+            g = r[key]
+            tag(f"15a gpt-117m full width --placement {key} rank "
+                f"{r['rank']}: seq {LAUNCH_SEQ}, global batch "
+                f"{LAUNCH_BATCH}: losses {g['losses']}, ms a step "
+                f"{g['ms']:.1f}, run {g['wall_s']:.1f} s")
+        pp, dp = np.array(r["pp2"]["losses"]), np.array(r["dp2"]["losses"])
+        tag(f"15a rank {r['rank']}: pp2 vs dp2 bit for bit "
+            f"{bool((pp == dp).all())}, max relative difference "
+            f"{float(np.max(np.abs(pp - dp) / np.abs(dp))):.3e} (gate "
+            f"{LAUNCH_PP_RTOL})")
+        assert len(pp) == LAUNCH_STEPS and np.isfinite(pp).all(), r
+        np.testing.assert_allclose(pp, dp, rtol=LAUNCH_PP_RTOL)
+        assert r["pp2"]["losses"] == pair[0]["pp2"]["losses"], pair
+    twin = pair[0]["dp2"]["losses"]
+    assert pair[1]["dp2"]["losses"] == twin, pair
+    for p in LAUNCH_FAULTS:
+        got = [r[p] for r in pair]
+        for r, g in zip(pair, got):
+            tail = twin[LAUNCH_STEPS - len(g["losses"]):]
+            bitmatch = float(bool(g["losses"]) and g["losses"] == tail)
+            tag(f"15b {p} dp2 rank {r['rank']}, checkpoint every "
+                f"{LAUNCH_CKPT_EVERY}: final step {g['final_step']}, "
+                f"restarts {g['restarts']}, resume steps "
+                f"{g['resume_steps']}, resumed_from {g['resumed_from']}, "
+                f"ckpt_fallbacks {g['ckpt_fallbacks']}, recovery_s "
+                f"{g['recovery_s']:.3f}, final attempt's losses "
+                f"{g['losses']}, loss_bitmatch {bitmatch}, ms a step "
+                f"{g['ms']:.1f}, run {g['wall_s']:.1f} s")
+            assert g["final_step"] == LAUNCH_STEPS, g
+            assert g["restarts"] >= 1 and bitmatch == 1.0, g
+            assert g["resumed_from"] == got[0]["resumed_from"], got
+            assert g["resume_steps"] == got[0]["resume_steps"], got
+            if p == "ckpt_corrupt":
+                assert g["ckpt_fallbacks"] >= 1, g
+        names = sorted(ckpts[p])
+        tag(f"15b {p}: checkpoints {names}, each {len(whole)} whole "
+            f"leaves of the train state")
+        assert names and all(m == whole for m in ckpts[p].values()), p
+    t_ex = time.perf_counter()
+    res = quickstart.main(["--device", "cuda"])
+    tag(f"15c quickstart (tiny) on the card: {res.steps_run} steps, loss "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}, "
+        f"{res.tokens_per_s:,.1f} tokens/s", ranks=False)
+    served = serve_decode.main(["--device", "cuda"])
+    for arch, g in served.items():
+        tag(f"15c serve_decode {arch}: tokens {tuple(g.tokens.shape)}, "
+            f"decode {g.decode_tokens_per_s:,.1f} tokens/s", ranks=False)
+    log(f"[wall] phase 15 {time.perf_counter() - t_start:.1f} s (ranks "
+        f"{t_ranks:.1f} s, examples {time.perf_counter() - t_ex:.1f} s)")
+
+
 def _row(name, module, counts, errs, ms, plain, lib, nbytes, flops,
          peak_dtype, shape, dev_t, source=None):
     """One JSON row; the bound is the larger of the bytes over HBM rate
@@ -3856,6 +4028,11 @@ def main() -> int:
         log(f"[wall] phase 14 alone {time.perf_counter() - t_start:.1f} s")
         print(card_line(), flush=True)
         return 0
+    if "--launch" in sys.argv[1:]:
+        phase_launch(dev)
+        log(f"[wall] phase 15 alone {time.perf_counter() - t_start:.1f} s")
+        print(card_line(), flush=True)
+        return 0
     if "--train" in sys.argv[1:]:
         phase_train(dev, profile="--profile" in sys.argv[1:])
         phase_resnet(dev, profile="--profile" in sys.argv[1:])
@@ -3899,6 +4076,7 @@ def main() -> int:
     phase_dryrun(dev)
     phase_parallel(dev)
     phase_sharded(dev)
+    phase_launch(dev)
     for row in rows:               # the worst over phases 1, 9 and 10
         row["max_abs_err"] = max(row["max_abs_err"],
                                  family_errs.get(row["name"], 0.0),

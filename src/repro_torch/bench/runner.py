@@ -50,6 +50,7 @@ from repro_torch.bench.records import (
 )
 from repro_torch.bench.spec import Placement, WorkloadSpec, get_workload
 from repro_torch.core.manifest import git_sha, write_manifest
+from repro_torch.core.results import table
 from repro_torch.core.runner import (
     AttemptInfo, StragglerWatchdog, run_attempts,
 )
@@ -227,6 +228,12 @@ class WorkloadRunner:
             if writer:
                 save_records(self.records, self.out)
         return self.records
+
+    def result_table(self) -> str:
+        """The last run's records as a markdown table of the spec's
+        result columns (the reference's ``result_table``)."""
+        return table([r.flat() for r in self.records],
+                     self.spec.result_columns)
 
     def _power_for(self, n_devices: int) -> list:
         """Power methods sized to one point's mesh: a dpN cell is billed

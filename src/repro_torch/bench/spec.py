@@ -174,7 +174,7 @@ class WorkloadSpec:
     primary_metric: Optional[str] = None  # headline column for emit lines
     heatmap_keys: Optional[tuple] = None  # (row, col, val) -> render heatmap
     #: per-metric relative tolerances for the records' compare gate
-    #: (kept for the compare command, ROADMAP Queue 1 item 2)
+    #: (``python -m repro_torch.bench compare``)
     compare_tols: Optional[dict] = None
     description: str = ""
 

@@ -1,4 +1,5 @@
-"""Checkpoints (port of ``src/repro/ckpt``; ``elastic.py`` has no port)."""
+"""Checkpoints (port of ``src/repro/ckpt``: ``checkpoint.py`` and
+``elastic.py``)."""
 from repro_torch.ckpt.checkpoint import (
     CheckpointManager, latest_step, restore, save,
 )

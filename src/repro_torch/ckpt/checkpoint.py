@@ -12,7 +12,9 @@ package restores the other's checkpoints:
     ``os.replace`` publishes ``step_N/`` (atomicity) and the parent
     directory is fsynced;
   - ``verify_step`` / ``latest_valid_step`` / ``restore_resilient`` skip
-    a step whose files fail their digests;
+    a step whose files fail their digests (in a rank world the writer
+    alone reads the directory and broadcasts the step, so every rank
+    resumes at the same one: ``resume_point``);
   - ``CheckpointManager.save_async`` snapshots the tree to host memory
     before it returns, and writes in a background thread.
 
@@ -165,22 +167,45 @@ def latest_valid_step(out_dir) -> Optional[int]:
     return None
 
 
+def _shared(dp, read):
+    """``read()`` on this process, or, in a rank world (``dp``: a
+    ``writer`` flag and a ``broadcast`` of the writer's object), the
+    writer's ``read()`` on every rank: all ranks resume at one step."""
+    if dp is None:
+        return read()
+    return dp.broadcast(read() if dp.writer else None)
+
+
+def resume_point(out_dir, dp=None) -> tuple:
+    """``(latest_step, latest_valid_step)`` of ``out_dir``, read by the
+    writer alone in a rank world (see :func:`_shared`)."""
+    return _shared(dp, lambda: (latest_step(out_dir),
+                                latest_valid_step(out_dir)))
+
+
 def restore_resilient(template, out_dir, dp=None):
     """Restore the newest *valid* checkpoint, skipping corrupted or
     partial steps (falls back to the previous atomic step).
 
     Returns ``(tree, manifest, skipped)`` where ``skipped`` lists the
-    step numbers that failed verification, newest first.
+    step numbers that failed verification, newest first. In a rank world
+    the writer verifies and every rank restores the step it names.
     """
-    skipped: list[int] = []
-    for s in reversed(_all_steps(out_dir)):
-        if verify_step(out_dir, s):
-            tree, manifest = restore(template, out_dir, step=s, dp=dp)
-            return tree, manifest, skipped
-        skipped.append(s)
-    raise FileNotFoundError(
-        f"no valid checkpoints in {out_dir}"
-        + (f" (corrupted: {skipped})" if skipped else ""))
+    def newest_valid():
+        skipped: list[int] = []
+        for s in reversed(_all_steps(out_dir)):
+            if verify_step(out_dir, s):
+                return s, skipped
+            skipped.append(s)
+        return None, skipped
+
+    step, skipped = _shared(dp, newest_valid)
+    if step is None:
+        raise FileNotFoundError(
+            f"no valid checkpoints in {out_dir}"
+            + (f" (corrupted: {skipped})" if skipped else ""))
+    tree, manifest = restore(template, out_dir, step=step, dp=dp)
+    return tree, manifest, skipped
 
 
 def _load(path: pathlib.Path, logical: str) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Supervised auto-resume: bounded restarts around the training loop.
 
 Copy of ``src/repro/faults/supervisor.py``, imports rewritten to the
-port's ``ckpt`` and ``faults.schedule``.
+port's ``ckpt`` and ``faults.schedule``, with a rank world (below).
 
 ``run_supervised`` drives a ``run_once(hook)`` callable (build fresh
 state, call ``train_loop`` with auto-resume pointed at a shared
@@ -13,6 +13,13 @@ the caller's ``on_device_loss`` hook. The supervisor prices what resilience
 costs: restarts, wasted (recomputed) steps, backoff seconds, and
 ``recovery_s`` — wall clock from the crash to the first completed step
 of the resumed attempt.
+
+In a rank world (``world``: ``barrier``, ``broadcast`` and ``writer``,
+as ``parallel.sharding.DpCheckpoint`` has them) every rank runs the
+supervisor around its own attempt. After a crash the ranks meet, so the
+writer's last save and any corruption are on disk, and the writer
+resolves the resume step for all of them: every rank counts fallbacks
+and wasted steps from the same numbers and resumes at the same step.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
-from repro_torch.ckpt.checkpoint import latest_step, latest_valid_step
+from repro_torch.ckpt.checkpoint import resume_point
 from repro_torch.faults.schedule import DeviceLoss
 
 
@@ -49,6 +56,7 @@ def run_supervised(run_once: Callable[[Callable], Any], *,
                    sleep_fn: Callable[[float], None] = time.sleep,
                    clock: Callable[[], float] = time.monotonic,
                    on_device_loss: Optional[Callable] = None,
+                   world=None,
                    ) -> SupervisorResult:
     """Run ``run_once(step_hook)`` to completion, restarting on crashes.
 
@@ -88,8 +96,11 @@ def run_supervised(run_once: Callable[[Callable], Any], *,
             if isinstance(e, DeviceLoss) and on_device_loss is not None:
                 on_device_loss(e)
                 out.rescales += 1
-            newest = latest_step(ckpt_dir) if ckpt_dir else None
-            resume = (latest_valid_step(ckpt_dir) or 0) if ckpt_dir else 0
+            if world is not None:
+                world.barrier()
+            newest, valid = resume_point(ckpt_dir, world) if ckpt_dir \
+                else (None, None)
+            resume = valid or 0
             out.resume_steps.append(resume)
             if newest is not None and resume != newest:
                 out.ckpt_fallbacks += 1

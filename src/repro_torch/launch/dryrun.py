@@ -60,9 +60,12 @@ nodes). The microbatch rule is the reference's for a mesh (the paper's
 step of k > 2 microbatches is counted from traces of one and two and
 extrapolated (every count is affine in k), its peak from two. The
 multi pass, as in the reference, is memory only: one trace of at most
-two microbatches, its counts scaled by k over their number. The
-collective term takes each group's link bandwidth
-(``roofline.analysis``).
+two microbatches, its counts scaled by k over their number;
+``--no-metrics`` takes that pass on every mesh (on ``1xh100`` a train
+step's bytes are then its trace's scaled by k over its microbatches,
+without the gradient buffers' own traces), and each record says which
+pass it took (``metrics_pass``). The collective term takes each group's
+link bandwidth (``roofline.analysis``).
 
 Not carried over: the XLA compile and its ``memory_analysis``, the
 collective parse of the compiled HLO (``roofline.hlo``), and the XLA:CPU
@@ -264,7 +267,8 @@ def _nbytes(tensors) -> int:
 
 
 def _train_counts(c: ModelConfig, shape: ShapeConfig, k: int, mb: int,
-                  oc: OptConfig, step_overrides: Optional[dict]) -> Counts:
+                  oc: OptConfig, step_overrides: Optional[dict],
+                  metrics: bool = True) -> Counts:
     """The train step over ``k`` microbatches of ``mb`` rows at ``c``'s
     depth, from one trace on meta of the step over ``kt = min(k, 2)``
     microbatches (``oc`` is the full model's optimizer: a cut depth must
@@ -275,7 +279,8 @@ def _train_counts(c: ModelConfig, shape: ShapeConfig, k: int, mb: int,
     are the trace's with ``k - kt`` microbatches more, a microbatch's
     being what is left of the trace once the gradient buffers' traffic
     and the optimizer update (:func:`_grad_buffer_counts`) are taken
-    out, and one more accumulation each."""
+    out, and one more accumulation each. ``metrics=False`` (the memory
+    pass) scales the trace's bytes by ``k / kt`` instead."""
     sc = StepConfig(microbatches=min(k, 2), remat="full",
                     impl=IMPL["train"], **(step_overrides or {}))
     kt = sc.microbatches
@@ -287,7 +292,9 @@ def _train_counts(c: ModelConfig, shape: ShapeConfig, k: int, mb: int,
     with _program_ctx(c):
         s = count(lambda: step(params, state, batch), (params, state, batch))
     total = s.bytes
-    if k > kt:   # the buffers' traffic is affine in k from 2 on
+    if k > kt and not metrics:   # the memory pass, as on a mesh
+        total *= k / kt
+    elif k > kt:   # the buffers' traffic is affine in k from 2 on
         g2, g3 = (_grad_buffer_counts(c, oc, sc, n).bytes for n in (2, 3))
         total += (k - kt) * ((s.bytes - g2) / kt + g3 - g2)
     return Counts(s.flops * k / kt, total, s.peak)
@@ -340,7 +347,8 @@ def _serve_counts(c: ModelConfig, shape: ShapeConfig) -> Counts:
 
 def cell_counts(c: ModelConfig, shape: ShapeConfig, *,
                 microbatch_size: int = 4, step_overrides: Optional[dict] = None,
-                full_depth: bool = True) -> tuple[Counts, int]:
+                full_depth: bool = True,
+                metrics: bool = True) -> tuple[Counts, int]:
     """(Counts of the cell's step, microbatches k) for one device.
 
     Train: the step over k microbatches (:func:`_train_counts`), its
@@ -348,7 +356,9 @@ def cell_counts(c: ModelConfig, shape: ShapeConfig, *,
     depth by default; ``full_depth=False`` counts a model of more than
     ``EXTRAPOLATE_FROM + 1`` periods at that many periods and one more
     (and, for an encdec model, as many encoder layers and one more) and
-    extrapolates, as the reference's metrics pass does.
+    extrapolates, as the reference's metrics pass does. ``metrics=False``
+    is the memory pass: the peak is the same, a train step's bytes are
+    scaled from its trace (:func:`_train_counts`).
     """
     k, mb = microbatching(c, shape, microbatch_size)
     oc = _pick_opt(c)
@@ -356,7 +366,8 @@ def cell_counts(c: ModelConfig, shape: ShapeConfig, *,
     def at(cfg: ModelConfig) -> Counts:
         if shape.kind != "train":
             return _serve_counts(cfg, shape)
-        return _train_counts(cfg, shape, k, mb, oc, step_overrides)
+        return _train_counts(cfg, shape, k, mb, oc, step_overrides,
+                             metrics)
 
     n = c.n_layers // period_of(c)
     ne = c.n_enc_layers
@@ -385,10 +396,13 @@ def cell_counts(c: ModelConfig, shape: ShapeConfig, *,
 def lower_cell(c: ModelConfig, shape: ShapeConfig, mesh_name: str = MESH, *,
                microbatch_size: int = 4,
                step_overrides: Optional[dict] = None,
-               plan_overrides: Optional[dict] = None) -> dict:
+               plan_overrides: Optional[dict] = None,
+               metrics: bool = True) -> dict:
     """Count one cell on ``meta``; return its record (the reference's
     schema, see the module docstring): on one H100, or rank 0 of a
-    production mesh (``single``, ``multi``)."""
+    production mesh (``single``, ``multi``). ``metrics=False`` is the
+    reference's ``--no-metrics``: the memory pass, which ``multi``
+    always takes (``metrics_pass`` in the record)."""
     if mesh_name in PRODUCTION:
         return sharded_record(c, shape, mesh_name,
                               make_production_mesh(
@@ -396,14 +410,14 @@ def lower_cell(c: ModelConfig, shape: ShapeConfig, mesh_name: str = MESH, *,
                               microbatch_size=microbatch_size,
                               step_overrides=step_overrides,
                               plan_overrides=plan_overrides,
-                              metrics=mesh_name == "single")
+                              metrics=metrics and mesh_name == "single")
     if mesh_name != MESH or plan_overrides:
         raise ValueError(f"mesh {mesh_name!r} (plan {plan_overrides}): "
                          f"one of {[MESH, *PRODUCTION]}; a plan override "
                          f"needs a production mesh")
     t0 = time.time()
     got, k = cell_counts(c, shape, microbatch_size=microbatch_size,
-                         step_overrides=step_overrides)
+                         step_overrides=step_overrides, metrics=metrics)
     colls = CollectiveStats()
     r = roof.analyze(c, shape, mesh_name=mesh_name, n_devices=N_DEV,
                      flops_per_device=got.flops,
@@ -417,6 +431,7 @@ def lower_cell(c: ModelConfig, shape: ShapeConfig, mesh_name: str = MESH, *,
         "plan": {"tp_heads": False, "fsdp": False, "ep": False,
                  "attn_impl": IMPL[shape.kind], "seq_axis": None},
         "metrics_s": round(time.time() - t0, 2),
+        "metrics_pass": metrics,
         "bytes_per_device": peak,
         "fits_hbm_80g": peak < HBM_BYTES,
         "cost_analysis": {"flops": got.flops, "bytes_accessed": got.bytes},
@@ -663,12 +678,12 @@ def sharded_record(c: ModelConfig, shape: ShapeConfig, mesh_name: str,
 
 
 def _cell_record(mesh_name: str, arch: str, sname: str,
-                 microbatch_size: int) -> dict:
+                 microbatch_size: int, metrics: bool = True) -> dict:
     """One cell's record, or its error record (failures are bugs to fix,
     recorded, as the reference records them)."""
     try:
         return lower_cell(get_config(arch), SHAPES[sname], mesh_name,
-                          microbatch_size=microbatch_size)
+                          microbatch_size=microbatch_size, metrics=metrics)
     except Exception as e:  # noqa: BLE001 - a cell's failure is its record
         return {"arch": arch, "shape": sname, "mesh": mesh_name,
                 "error": f"{type(e).__name__}: {e}",
@@ -684,9 +699,10 @@ def _trace_cost(c: ModelConfig, sname: str) -> float:
 
 def run_cells(archs, shapes, meshes, out_dir: pathlib.Path,
               microbatch_size: int = 4, tag: str = "",
-              workers: int = 1) -> list[dict]:
+              workers: int = 1, metrics_pass: bool = True) -> list[dict]:
     """Count every cell, ``workers`` cells at a time (spawned processes;
-    a cell is independent of the others), and write one record each."""
+    a cell is independent of the others), and write one record each
+    (``metrics_pass=False``: the memory pass, ``lower_cell``)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     todo, results = [], []
     for mesh_name in meshes:
@@ -710,11 +726,13 @@ def run_cells(archs, shapes, meshes, out_dir: pathlib.Path,
         if workers > 1:
             pool = st.enter_context(ProcessPoolExecutor(
                 workers, mp_context=multiprocessing.get_context("spawn")))
-            futs = {i: pool.submit(_cell_record, *todo[i], microbatch_size)
+            futs = {i: pool.submit(_cell_record, *todo[i], microbatch_size,
+                                   metrics_pass)
                     for i in order}
             recs = (futs[i].result() for i in range(len(todo)))
         else:
-            recs = (_cell_record(*cell, microbatch_size) for cell in todo)
+            recs = (_cell_record(*cell, microbatch_size, metrics_pass)
+                    for cell in todo)
         for (mesh_name, arch, sname), rec in zip(todo, recs):
             fn = out_dir / f"{mesh_name}__{arch}__{sname}{tag}.json"
             line = f"[dryrun] {mesh_name:6s} {arch:28s} {sname:12s} ... "
@@ -854,6 +872,10 @@ def main(argv=None):
                     default="1xh100")
     ap.add_argument("--out", default=str(ART))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--no-metrics", action="store_true",
+                    help="the memory pass only (the multi mesh always "
+                         "takes it): a train step's bytes scaled from its "
+                         "trace of at most two microbatches")
     ap.add_argument("--workers", type=int, default=1,
                     help="cells counted at once, each in its own process")
     ap.add_argument("--real", action="append", default=None,
@@ -876,7 +898,8 @@ def main(argv=None):
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     t0 = time.time()
     results = run_cells(archs, shapes, meshes, pathlib.Path(args.out),
-                        tag=args.tag, workers=args.workers)
+                        tag=args.tag, workers=args.workers,
+                        metrics_pass=not args.no_metrics)
     n_ok = sum(1 for r in results if "roofline" in r)
     n_skip = sum(1 for r in results if "skipped" in r)
     n_fail = sum(1 for r in results if "error" in r)

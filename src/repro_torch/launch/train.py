@@ -9,24 +9,38 @@ give the same batches, for every model family, with a vlm's patch and
 an encdec's frame inputs; and ``main`` with its flags). ``--device``
 defaults to the CUDA card and raises without one; ``--preset full``
 trains the full-width config (on the card: bf16 compute, fp32 master
-weights). A multi-device ``--placement`` (``dp2``, ``tp2``,
-``dp2tp2``, ...) trains in that many ranks (``launch.mesh``): joined
-from the environment when a launcher started them (``WORLD_SIZE`` set,
-as ``launch/slurm.py``'s scripts do), else spawned here (gloo processes
-on the CPU; NCCL ranks, one a card, on cards). Each rank holds its
-shards of the params under the placement's plan (the reference's rule
-table: heads, FFN columns, experts and vocabulary over ``tp``, FSDP for
-the largest archs) and the ZeRO-1 slices of their optimizer state, and
+weights). A multi-device ``--placement`` (``dp2``, ``tp2``, ``dp2tp2``,
+``pp2``, ...) trains in that many ranks (``launch.mesh``): joined from
+the environment when a launcher started them (``WORLD_SIZE`` set, as
+``launch/slurm.py``'s scripts do), else spawned here (gloo processes on
+the CPU; NCCL ranks, one a card, on cards). Each rank holds its shards
+of the params under the placement's plan (the reference's rule table:
+heads, FFN columns, experts and vocabulary over ``tp``, FSDP for the
+largest archs) and the ZeRO-1 slices of their optimizer state, and
 trains its part of the global step (``train.step``); rank 0 prints and
 writes the checkpoints, whole leaves gathered from every rank
-(``CheckpointManager(dp=...)``). A pipeline placement (``pp``) exits: it
-runs in the ``pipeline_gpt`` workload; a fault schedule runs on one rank
-only.
+(``CheckpointManager(dp=...)``).
+
+A pipeline placement (``pp2``, ``dp2pp2``, ``pp2tp2``) trains as the
+reference's launcher trains it: as data parallelism over the ``stage``
+axis (``launch.mesh.dp_axes`` counts every axis but ``model``), each
+rank holding whole layers, its rows of the global batch cut over
+``data`` and ``stage`` together, gradients all-reduced over the group of
+those axes. The pipeline schedule itself runs in the ``pipeline_gpt``
+workload (``parallel.pipeline``); this launcher has none.
+
+A fault schedule (``--fault-preset``) runs through the bounded-restart
+supervisor on every rank of the world: each rank raises at the same
+scheduled step, the ranks meet, rank 0 resolves the resume step from
+the checkpoint directory and every rank resumes there. A device loss
+restarts at the same world size, as the reference's launcher does (it
+passes no elastic ``on_device_loss``).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 
 import numpy as np
@@ -152,22 +166,15 @@ def _train_rank(world, argv):
 def main(argv=None):
     args = parse_args(argv)
     placement = Placement.of(args.placement)
-    sizes = placement.dict()
-    if sizes.get("pp", 1) > 1:
-        raise SystemExit(f"error: placement {placement.label}: the "
-                         f"pipeline runs in the pipeline_gpt workload")
     n = placement.n_devices
     if n == 1:
         return run(args)
-    if args.fault_preset and args.fault_preset != "none":
-        raise SystemExit(f"error: placement {placement.label}: a fault "
-                         f"schedule runs on one rank (--placement dp1)")
-    if mesh_mod.env_world_size() > 1:
-        world = mesh_mod.init_world(args.device)
-        if world.world_size != n:
+    env_n = mesh_mod.env_world_size()
+    if env_n > 1:
+        if env_n != n:
             raise SystemExit(f"error: placement {placement.label} needs {n} "
-                             f"ranks, the world has {world.world_size}")
-        return run(args, world)
+                             f"ranks, the world has {env_n}")
+        return run(args, mesh_mod.init_world(args.device))
     return mesh_mod.spawn(_train_rank, n, args=(argv,),
                           device=args.device)[0]
 
@@ -233,12 +240,12 @@ def _train(args, c, placement, dev, step, params, opt_state, init_state,
         def run_once(hook):
             p, o = init_state()
             return train_loop(step, p, o, data, cfg, hooks=[hook],
-                              faults=faults)
+                              faults=faults, dp=dp)
 
         sup = run_supervised(run_once, ckpt_dir=args.ckpt_dir,
                              max_restarts=args.max_restarts,
-                             seed=args.fault_seed)
-        res = sup.result
+                             seed=args.fault_seed, world=dp)
+        res = dataclasses.replace(sup.result, supervisor=sup)
         print(f"[train] supervised: restarts={sup.restarts} "
               f"wasted_steps={sup.wasted_steps} "
               f"recovery_s={sup.recovery_s:.3f} "

@@ -587,11 +587,6 @@ class Zero1:
         """Leaf ``i``'s ZeRO slice of its shard ``t`` (a view)."""
         return _narrow(t, self.cuts[i], self.mesh)
 
-    def slice_tree(self, full: Params) -> Params:
-        return tree.unflatten(full, [
-            self.local(i, t).clone()
-            for i, t in enumerate(tree.leaves(full))])
-
     def gather(self, i: int, part: torch.Tensor) -> torch.Tensor:
         """Leaf ``i``'s shard from every rank's ZeRO slice ``part``."""
         return _gather(part, self.cuts[i], self.mesh)
@@ -698,7 +693,10 @@ class DpCheckpoint:
     state: every rank gathers the whole leaves (:meth:`whole`,
     collective), rank 0 alone writes them (the reference's whole-leaf
     layout), and a restore cuts the whole leaves into each rank's part
-    again (:meth:`local`), for whatever plan restores."""
+    again (:meth:`local`), for whatever plan restores. It is also the
+    rank world that a resume agrees in (:meth:`barrier`,
+    :meth:`broadcast`): the writer reads the checkpoint directory and
+    every rank takes its answer."""
 
     zero: Zero1
 
@@ -718,3 +716,11 @@ class DpCheckpoint:
     def barrier(self) -> None:
         if dist.is_initialized():
             dist.barrier()
+
+    def broadcast(self, obj):
+        """The writer's ``obj`` on every rank (a picklable object)."""
+        if not dist.is_initialized():
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]

@@ -11,9 +11,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
-from repro_torch.ckpt.checkpoint import (CheckpointManager, latest_step,
-                                         latest_valid_step,
-                                         restore_resilient)
+from repro_torch.ckpt.checkpoint import (CheckpointManager, restore_resilient,
+                                         resume_point)
 from repro_torch.core.metrics import tokens_per_s
 from repro_torch.core.runner import StragglerWatchdog
 from repro_torch.faults.schedule import (DeviceLoss, FaultSchedule,
@@ -42,6 +41,9 @@ class LoopResult:
     straggler_events: list
     resumed_from: Optional[int]
     ckpt_skipped: list = field(default_factory=list)  # corrupt steps skipped
+    #: the launcher's ``faults.supervisor.SupervisorResult`` of a
+    #: supervised run (restarts, recovery_s, ckpt_fallbacks)
+    supervisor: Any = None
 
 
 def train_loop(train_step: Callable, params: Params, opt_state: Params,
@@ -70,15 +72,21 @@ def train_loop(train_step: Callable, params: Params, opt_state: Params,
 
     ``dp`` (``parallel.sharding.DpCheckpoint``) is a dp world's
     checkpoint rule: ZeRO-1 slices gathered on save, rank 0 writing, and
-    cut again on restore, at whatever dp size resumes.
+    cut again on restore, at whatever dp size resumes. Rank 0 alone
+    reads the directory for the resume step and every rank takes its
+    answer; rank 0 alone corrupts a checkpoint (``ckpt_corrupt``), then
+    the ranks meet; the schedule is the same on every rank, so every
+    rank raises at the same step.
     """
     mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts, dp=dp) \
         if cfg.ckpt_dir else None
     start_step = 0
     resumed_from = None
     ckpt_skipped: list = []
-    if mgr is not None and latest_step(cfg.ckpt_dir) is not None:
-        if latest_valid_step(cfg.ckpt_dir) is not None:
+    newest, valid = resume_point(cfg.ckpt_dir, dp) if mgr is not None \
+        else (None, None)
+    if newest is not None:
+        if valid is not None:
             (params, opt_state), manifest, ckpt_skipped = restore_resilient(
                 (params, opt_state), cfg.ckpt_dir, dp=dp)
             start_step = manifest["step"]
@@ -124,7 +132,10 @@ def train_loop(train_step: Callable, params: Params, opt_state: Params,
                 if mgr is not None:
                     mgr.wait()  # the crash lands after any in-flight save
                 if ev.kind == "ckpt_corrupt" and cfg.ckpt_dir:
-                    corrupt_checkpoint(cfg.ckpt_dir)
+                    if dp is None or dp.writer:
+                        corrupt_checkpoint(cfg.ckpt_dir)
+                    if dp is not None:
+                        dp.barrier()
                 if ev.kind == "device_loss":
                     raise DeviceLoss(step + 1, ev.n)
                 raise InjectedCrash(step + 1)

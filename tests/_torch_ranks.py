@@ -583,3 +583,33 @@ def layout_collectives(world) -> dict:
     out["a2a_grad"] = gy.numpy()
     out["a2a_in"] = t.detach().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The training launcher's rank worlds
+# ---------------------------------------------------------------------------
+
+
+def launcher_runs(world, runs: list) -> dict:
+    """``launch.train.run`` of each ``(key, argv)`` in turn in one world:
+    each run's losses, resume step, final step and, under a fault
+    schedule, the supervisor's restarts, fallbacks, wasted steps and
+    resume steps."""
+    from repro_torch.launch import train as train_cli
+    out = {}
+    for key, argv in runs:
+        res = train_cli.run(train_cli.parse_args(argv), world)
+        sup = res.supervisor
+        out[key] = {"losses": res.losses, "resumed_from": res.resumed_from,
+                    "final_step": res.final_step,
+                    "restarts": sup.restarts if sup else 0,
+                    "ckpt_fallbacks": sup.ckpt_fallbacks if sup else 0,
+                    "wasted_steps": sup.wasted_steps if sup else 0,
+                    "resume_steps": sup.resume_steps if sup else []}
+    return out
+
+
+def launcher_and_plan(world, runs: list, cases: list) -> dict:
+    """:func:`launcher_runs` and :func:`sharded_cases` in one world."""
+    return {"runs": launcher_runs(world, runs),
+            "plan": sharded_cases(world, cases)}

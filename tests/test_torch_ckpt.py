@@ -13,9 +13,9 @@ against ``repro``'s where both have them, on the CPU.
     reference's restarts, wasted steps, resume steps and backoff sleeps;
   * ``train_loop`` resumes from its checkpoints (a resumed loss trace
     equals an uninterrupted one, element for element), and the training
-    CLI completes a ``crash_mid`` run on the CPU, refuses a placement of
-    more than one device and, left at its default device, a machine
-    without a card.
+    CLI completes a ``crash_mid`` run on the CPU, refuses a launcher's
+    world whose size is not the placement's and, left at its default
+    device, a machine without a card.
 """
 import threading
 
@@ -316,8 +316,12 @@ def test_train_cli_crash_mid_on_cpu(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_it_cannot_run(monkeypatch):
-    with pytest.raises(SystemExit, match="pipeline_gpt"):
-        train_cli.main(["--device", "cpu", "--placement", "pp4"])
+    # a launcher's world (WORLD_SIZE set) of another size than the
+    # placement's: refused before the rank joins it
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="needs 4 ranks, the world has 2"):
+        train_cli.main(["--device", "cpu", "--placement", "dp2pp2"])
+    monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--steps", "1"])

@@ -72,7 +72,7 @@ REF_KEYS = {"arch", "shape", "mesh", "n_devices", "kind", "microbatches",
 XLA_KEYS = {"lower_s", "compile_s", "memory_analysis",
             "cpu_f32_param_dupe_bytes", "bytes_per_device_tpu",
             "fits_hbm_16g", "fits_hbm_16g_raw_cpu"}
-PORT_KEYS = {"fits_hbm_80g", "bytes_accessed_bound"}
+PORT_KEYS = {"fits_hbm_80g", "bytes_accessed_bound", "metrics_pass"}
 #: the train step's FLOP gap to the reference's contracting dots in the
 #: families with broadcasting products (see the test below)
 TRAIN_FAMILY_GAP = 0.06
