@@ -1,0 +1,8 @@
+"""Device idle milliseconds a step charged to the program's ``forward``
+range: the gaps that end at an operation launched inside it
+(``cbench.ranges``)."""
+from cbench.ranges import idle_ms
+
+
+def read(ctx):
+    return idle_ms(ctx, "forward")

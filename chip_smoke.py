@@ -461,8 +461,11 @@ TRAIN_ITERS = 4
 #: master, write m, v and master (fp32) and the bf16 param
 ADAMW_BYTES_PER_PARAM = 4 * 4 + 3 * 4 + 2
 #: phase 7's and 8's profiler ranges (train/step.py, grad_sync.py,
-#: optimizer.py)
-TRAIN_RANGES = ("forward_backward", "grad_sync", "optimizer")
+#: optimizer.py; ``backward`` on the thread autograd runs it on)
+TRAIN_RANGES = ("forward", "backward", "grad_sync", "optimizer")
+#: every range the port opens (``repro_torch.core.ranges``): the
+#: profiler mirrors each on the device, and those copies are no kernels
+PORT_RANGES = TRAIN_RANGES + ("batchnorm",)
 #: phase 8's measured steps per resnet50 cell: two windows of ten
 #: ~75 ms steps, each window several times the NVML energy counter's
 #: ~100 ms update interval
@@ -1457,8 +1460,8 @@ def profile_step(tag: str, one_step, kind_of, kinds: tuple) -> dict:
     up first): its wall, the device-busy ms and launches, the device ms
     by kind (``kind_of(kernel name)`` in ``kinds``; kernels launched
     inside the ``optimizer`` range count as ``optimizer``) and by range
-    (``TRAIN_RANGES``); logs the 15 kernels that took the most device
-    time."""
+    (``TRAIN_RANGES``: ms, and kernels in ``range_kernels``); logs the
+    15 kernels that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1470,30 +1473,38 @@ def profile_step(tag: str, one_step, kind_of, kinds: tuple) -> dict:
         wall = time.perf_counter() - t0
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.name not in TRAIN_RANGES]
+               and e.name not in PORT_RANGES]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_kind = dict.fromkeys(kinds, 0.0)
     for e in kernels:
         by_kind[kind_of(e.name)] += e.time_range.elapsed_us() / 1e3
-    ranges = {}
+    ranges, range_kernels = {}, {}
     for name in TRAIN_RANGES:
         ks = [k for e in events if e.name == name
               and e.device_type == DeviceType.CPU
               for k in _subtree_kernels(e)]
         ranges[name] = sum(k.duration for k in ks) / 1e3
+        range_kernels[name] = len(ks)
         if name == "optimizer":
             for k in ks:                      # optimizer counts apart
                 by_kind[kind_of(k.name)] -= k.duration / 1e3
     by_kind["optimizer"] = ranges["optimizer"]
     rows = prof.key_averages()
     rows = sorted((e for e in rows if e.device_type == DeviceType.CUDA
-                   and e.key not in TRAIN_RANGES),
+                   and e.key not in PORT_RANGES),
                   key=lambda e: -e.self_device_time_total)
     for e in rows[:15]:
         log(f"[{tag}] {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d}x  {e.key[:100]}")
     return {"wall": wall, "busy": busy, "launches": len(kernels),
-            "by_kind": by_kind, "ranges": ranges}
+            "by_kind": by_kind, "ranges": ranges,
+            "range_kernels": range_kernels}
+
+
+def range_line(r: dict) -> str:
+    """``profile_step``'s ranges as ``name ms (kernels)``."""
+    return ", ".join(f"{k} {v:.2f} ({r['range_kernels'][k]})"
+                     for k, v in r["ranges"].items())
 
 
 def profile_train_step(dev) -> None:
@@ -1537,8 +1548,8 @@ def profile_train_step(dev) -> None:
         f"{model_flop_share(n_params, gb * seq, wall):.4f}")
     log("[profile train] device ms by kind: " + ", ".join(
         f"{k} {v:.2f} ({v / busy:.3f})" for k, v in by_kind.items()))
-    log("[profile train] device ms by range: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in r["ranges"].items())
+    log("[profile train] device ms (kernels) by range: "
+        + range_line(r)
         + f"; optimizer bound from its bytes "
           f"({ADAMW_BYTES_PER_PARAM} B x {n_params / 1e6:.1f}M params) "
           f"{opt_bound:.2f} ms")
@@ -1703,8 +1714,8 @@ def profile_resnet_step(dev) -> None:
         f"the profiled wall {share:.4f}")
     log("[profile resnet] device ms by kind: " + ", ".join(
         f"{k} {v:.2f} ({v / busy:.3f})" for k, v in by_kind.items()))
-    log("[profile resnet] device ms by range: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in r["ranges"].items())
+    log("[profile resnet] device ms (kernels) by range: "
+        + range_line(r)
         + f"; optimizer bound from its bytes "
           f"({ADAMW_BYTES_PER_PARAM} B x {n_params / 1e6:.2f}M params) "
           f"{opt_bound:.3f} ms")
@@ -3041,8 +3052,8 @@ def profile_heatmap_step(dev) -> None:
         f"{6 * n_params * gb * seq / wall / PEAK_FLOPS[torch.bfloat16]:.5f}")
     log("[profile heatmap] device ms by kind: " + ", ".join(
         f"{k} {v:.2f} ({v / busy:.3f})" for k, v in r["by_kind"].items()))
-    log("[profile heatmap] device ms by range: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in r["ranges"].items()))
+    log("[profile heatmap] device ms (kernels) by range: "
+        + range_line(r))
     del state
     gc.collect()
     torch.cuda.empty_cache()

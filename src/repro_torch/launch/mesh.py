@@ -63,9 +63,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from repro_torch.core import tree
+from repro_torch.core.ranges import span
 from repro_torch.device import DeviceLike, resolve_device
 
 #: the longest a process group waits on a peer, seconds
@@ -258,7 +258,7 @@ def dp_mean(grads, scalars: list, group) -> tuple:
     ``group`` of every gradient leaf (one all-reduce a leaf, what GSPMD
     inserts for a replicated gradient) and of the 0-d ``scalars`` (one
     all-reduce). Returns ``(grads, scalars)``."""
-    with record_function("grad_sync"):
+    with span("grad_sync"):
         grads = tree.tree_map(lambda g: all_mean(g.float(), group), grads)
     return grads, pmean(scalars, group)
 

@@ -45,6 +45,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.resnet50 import ResNetConfig
+from repro_torch.core.ranges import bracket, span
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import group_size
 
@@ -115,10 +116,18 @@ def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-5,
               group=None) -> torch.Tensor:
     """Batch-statistics BatchNorm over (N, H, W) of ``x`` (N, C, H, W),
     in fp32, cast back to ``x.dtype``; with ``group`` the statistics are
-    over every rank's rows (equal row counts)."""
+    over every rank's rows (equal row counts). Under a profiler the call
+    and its backward (the casts' too) are each a range ``batchnorm``."""
+    with span("batchnorm"):
+        return bracket("batchnorm",
+                       lambda s, b, v: _batchnorm(s, b, v, eps, group),
+                       p["scale"], p["bias"], x)
+
+
+def _batchnorm(scale, bias, x, eps, group):
     if group is None:
-        y = F.batch_norm(x.float(), None, None, p["scale"].float(),
-                         p["bias"].float(), training=True, eps=eps)
+        y = F.batch_norm(x.float(), None, None, scale.float(), bias.float(),
+                         training=True, eps=eps)
         return y.to(x.dtype)
     xf = x.float()
     n = xf.numel() // xf.shape[1] * group_size(group)
@@ -126,8 +135,7 @@ def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-5,
     xc = xf - mean[:, None, None]
     var = AllReduceSum.apply((xc * xc).sum((0, 2, 3)), group) / n
     y = xc * torch.rsqrt(var + eps)[:, None, None]
-    y = y * p["scale"].float()[:, None, None] + p["bias"].float()[:, None,
-                                                                   None]
+    y = y * scale.float()[:, None, None] + bias.float()[:, None, None]
     return y.to(x.dtype)
 
 

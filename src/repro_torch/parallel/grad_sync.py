@@ -31,10 +31,10 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
+from repro_torch.core.ranges import span
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import dp_mean, group_size, pmean
 from repro_torch.parallel import sharding as shd
@@ -139,7 +139,7 @@ def reduce_buckets(buckets: torch.Tensor, mode: str, errors=None,
 def sync_grads(grads, sync: GradSyncConfig, errors=None, group=None):
     """Tree-level bucketed gradient mean over ``group``. Returns
     ``(synced_grads, new_errors)``."""
-    with record_function("grad_sync"):
+    with span("grad_sync"):
         buckets, meta = flatten_buckets(grads, sync.bucket_elems)
         red, new_e = reduce_buckets(buckets, sync.mode, errors, group)
         return unflatten_buckets(red, meta), new_e
@@ -183,7 +183,7 @@ def _overlapped_grads(vg, params, batch: dict, k: int, gdt,
     pending = None
 
     def land(buckets, meta, handles):
-        with record_function("grad_sync"):
+        with span("grad_sync"):
             for h in handles:
                 h.wait()
             if handles:
@@ -201,7 +201,7 @@ def _overlapped_grads(vg, params, batch: dict, k: int, gdt,
                                               for key, x in mbs.items()})
         if pending is not None:
             land(*pending)
-        with record_function("grad_sync"):
+        with span("grad_sync"):
             buckets, meta = flatten_buckets(g, sync.bucket_elems)
             del g
             if sync.mode == "int8" or group is None:

@@ -37,9 +37,9 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import tree
+from repro_torch.core.ranges import span
 
 Params = Any
 
@@ -253,7 +253,7 @@ def opt_update(oc: OptConfig, grads, state, params, zero=None,
     ``sharded``: the gradients are this rank's parts (AdamW: its ZeRO
     slices; Adafactor: its shards), reduced across the ranks as
     :func:`global_norm` and the factored statistics need."""
-    with record_function("optimizer"):
+    with span("optimizer"):
         if oc.name == "adamw":
             return adamw_update(oc, grads, state, params, zero, sharded)
         return adafactor_update(oc, grads, state, params,

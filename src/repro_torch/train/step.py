@@ -41,11 +41,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.resnet50 import ResNetConfig
 from repro_torch.core import tree
+from repro_torch.core.ranges import bracket, span
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import dp_mean
 from repro_torch.models import lm, resnet
@@ -74,12 +74,18 @@ def _split_mb(x: torch.Tensor, k: int) -> torch.Tensor:
 def value_and_grad(loss_fn: Callable) -> Callable:
     """``vg(params, batch) -> ((loss, aux), grads)`` for a ``loss_fn``
     returning ``(loss, aux)``, as ``jax.value_and_grad(..., has_aux=True)``;
-    grads have the params' tree and dtypes, values are detached."""
+    grads have the params' tree and dtypes, values are detached. Under a
+    profiler the call of ``loss_fn`` is the range ``forward`` and every
+    backward node of it the range ``backward`` (``core.ranges``)."""
     def vg(params, batch):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree.leaves(params)]
-        with torch.enable_grad(), record_function("forward_backward"):
-            loss, aux = loss_fn(tree.unflatten(params, leaves), batch)
+        with torch.enable_grad():
+            with span("forward"):
+                loss, aux = bracket(
+                    "backward",
+                    lambda *xs: loss_fn(tree.unflatten(params, xs), batch),
+                    *leaves)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
@@ -237,7 +243,7 @@ def make_train_step(c: ModelConfig, oc: OptConfig,
             mb = dict(mb, token_denom=n.clamp_min(1.0))
             with layout_mod.use(memo[axes]):
                 (_l, (ce_i, aux_i)), g = vg(params, mb)
-            with record_function("grad_sync"):
+            with span("grad_sync"):
                 g = [z.reduce_grad(i, x.to(gdt), axes, zero=sliced)
                      for i, x in enumerate(tree.leaves(g))]
             if acc is None:
