@@ -5,6 +5,9 @@
   prefill_attention.py wrapper of csrc/paged_prefill_attention.cu
   flash_attention.py   wrapper of csrc/flash_attention.cu
   rmsnorm.py           wrapper of csrc/rmsnorm.cu
+  adamw.py             wrapper of csrc/adamw.cu (multi-tensor AdamW; its
+                       plain version is train/optimizer.py::adamw_leaves_ref,
+                       whose pieces the optimizer's UPDATE_PIECE sizes)
   ops.py               dispatch by device: CPU -> plain, CUDA -> kernel
   _build.py            nvcc build (sm_90a) + ctypes loading, on first use
 """

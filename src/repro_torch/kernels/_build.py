@@ -59,6 +59,15 @@ SIGNATURES = {
     # x, scale, out, rows, d, grid, eps, dtype, scale_dtype, vector,
     # stream
     "repro_rmsnorm": [_P] * 3 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # out: chunk, table sizes, struct sizes
+    "repro_adamw_layout": [_P],
+    # leaves, n_leaves, n_items, partials, stream
+    "repro_adamw_norm": [_P, _I, _I, _P, _P],
+    # partials, n, clip, stats, stream
+    "repro_adamw_finalize": [_P, _I, _F, _P, _P],
+    # leaves, n_leaves, n_items, stats, lr, bc1, bc2, b1, b2, 1 - b1,
+    # 1 - b2, eps, weight decay, stream
+    "repro_adamw_update": [_P, _I, _I] + [_P] * 4 + [_F] * 6 + [_P],
     "repro_cuda_error_string": [_I],
 }
 

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import prefill_attention as _prefill
@@ -30,6 +31,7 @@ KERNELS = {
     "paged_prefill_attention": _prefill.paged_prefill_attention,
     "flash_attention": _flash.flash_attention,
     "rmsnorm": _rmsnorm.rmsnorm,
+    "adamw": _adamw.adamw,
 }
 
 

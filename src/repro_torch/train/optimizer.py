@@ -10,13 +10,17 @@ norm scales and biases (the reference's choice, kept); new params are
 the master weights cast to the params' dtype.
 
 The reference returns new trees; the port updates ``params`` and the
-optimizer state in place under ``torch.no_grad()``, one leaf at a time
-(the PyTorch idiom: no second copy of the state), and returns the same
-objects. A caller that must keep a state across a step (a checkpoint
-snapshot, a test) copies it first. AdamW updates a leaf larger than
-``UPDATE_PIECE`` elements in pieces along its first axis: its
-arithmetic is elementwise, so the result is the same to the bit, and
-its fp32 temporaries stay a piece's size however large the stacked
+optimizer state in place under ``torch.no_grad()`` (the PyTorch idiom:
+no second copy of the state), and returns the same objects. A caller
+that must keep a state across a step (a checkpoint snapshot, a test)
+copies it first. On the card AdamW updates every leaf in one
+hand-written multi-tensor pass (``kernels/adamw.py``: a norm, a
+finalize and an update launch, no temporaries, no host synchronise);
+elsewhere its plain version :func:`adamw_leaves_ref` goes one leaf at a
+time, the same arithmetic op for op. The plain loop updates a leaf
+larger than ``UPDATE_PIECE`` elements in pieces along its first axis:
+its arithmetic is elementwise, so the result is the same to the bit,
+and its fp32 temporaries stay a piece's size however large the stacked
 leaf (a layer-stacked expert weight of granite-moe-3b-a800m is 8 GB in
 fp32, and each of its half-dozen temporaries would be as large). Under a
 plan AdamW's state holds this rank's ZeRO-1 slices of its param shards
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.core.ranges import span
+from repro_torch.kernels.adamw import adamw as adamw_kernel
 
 Params = Any
 
@@ -131,33 +136,45 @@ def adamw_init(oc: OptConfig, params: Params) -> Params:
     }
 
 
-@torch.no_grad()
-def adamw_update(oc: OptConfig, grads: Params, state: Params,
-                 params: Params, zero=None, sharded: bool = False):
-    """One AdamW step in place. With ``zero`` (a
-    ``parallel.sharding.Zero1``) ``m`` / ``v`` / ``master`` hold this
-    rank's ZeRO-1 slices: the rank updates its slice of each parameter
-    from the synced gradient (whole, or its slice with ``sharded``), and
-    the slices are gathered into the rank's parameter shard. The clip's
-    global norm is the whole gradient's."""
-    gs = tree.leaves(grads)
+def _zero_leaves(gs: list, masters: list, ps: list, zero,
+                 sharded: bool) -> tuple:
+    """The update's gradients and params under a ZeRO layout ``zero``: a
+    leaf it cuts takes this rank's slice of its gradient (the gradient
+    is that slice already with ``sharded``) and a new buffer of the
+    param's type in the slice's shape, which :func:`_zero_gather` puts
+    back into the param. Without ``zero``, the leaves as they are."""
+    if zero is None or not any(zero.cuts):
+        return gs, ps
+    cut = zero.cuts
+    ug = [zero.local(i, g) if cut[i] and not sharded else g
+          for i, g in enumerate(gs)]
+    up = [torch.empty(w.shape, dtype=p.dtype, device=p.device) if cut[i]
+          else p for i, (w, p) in enumerate(zip(masters, ps))]
+    return ug, up
+
+
+def _zero_gather(ps: list, up: list, zero) -> None:
+    """Each updated slice of :func:`_zero_leaves` gathered into its
+    param."""
+    if up is not ps:
+        for i, cut in enumerate(zero.cuts):
+            if cut:
+                ps[i].copy_(zero.gather(i, up[i]))
+
+
+def adamw_leaves_ref(oc: OptConfig, gs: list, ms: list, vs: list,
+                     masters: list, ps: list, lr: torch.Tensor,
+                     bc1: torch.Tensor, bc2: torch.Tensor, zero=None,
+                     sharded: bool = False) -> torch.Tensor:
+    """The plain version of the AdamW kernel (``kernels/adamw.py``): the
+    clip's global norm, then each leaf in turn (in pieces of at most
+    ``UPDATE_PIECE`` elements), in place; returns the norm. The leaves
+    are :func:`adamw_update`'s, flattened."""
     gnorm = global_norm(gs, zero if sharded else None)
     scale = _clip_scale(gnorm, oc.grad_clip)
-    step = state["step"] + 1
-    lr = lr_at(oc, step)
     b1, b2 = oc.b1, oc.b2
-    bc1 = 1 - b1 ** step.float()
-    bc2 = 1 - b2 ** step.float()
-    for i, (g, m, v, master, p) in enumerate(zip(
-            gs, tree.leaves(state["m"]), tree.leaves(state["v"]),
-            tree.leaves(state["master"]), tree.leaves(params), strict=True)):
-        sliced = zero is not None and zero.cuts[i]
-        if sliced:
-            full = p
-            if not sharded:
-                g = zero.local(i, g)
-            p = torch.empty(master.shape, dtype=full.dtype,
-                            device=full.device)
+    ug, up = _zero_leaves(gs, masters, ps, zero, sharded)
+    for g, m, v, master, p in zip(ug, ms, vs, masters, up, strict=True):
         for gp, mp, vp, masterp, pp in _pieces(g, m, v, master, p):
             gp = gp.float() * scale
             mp.mul_(b1).add_((1 - b1) * gp)
@@ -167,8 +184,51 @@ def adamw_update(oc: OptConfig, grads: Params, state: Params,
                 delta.add_(oc.weight_decay * masterp)
             masterp.sub_(lr * delta)
             pp.copy_(masterp)
-        if sliced:
-            full.copy_(zero.gather(i, p))
+    _zero_gather(ps, up, zero)
+    return gnorm
+
+
+def _adamw_card(oc: OptConfig, gs: list, ms: list, vs: list, masters: list,
+                ps: list, lr: torch.Tensor, bc1: torch.Tensor,
+                bc2: torch.Tensor, zero=None,
+                sharded: bool = False) -> torch.Tensor:
+    """:func:`adamw_leaves_ref` on the card: every leaf in one call of
+    the multi-tensor kernel, the ZeRO slices written into buffers of the
+    params' type and gathered after it."""
+    ug, up = _zero_leaves(gs, masters, ps, zero, sharded)
+    divisors = reduce = None
+    if zero is not None and sharded:
+        divisors = [zero.replicas(i) for i in range(len(gs))]
+        reduce = lambda sq: zero.mesh.all_reduce(  # noqa: E731
+            sq, zero.mesh.axis_names)
+    gnorm = adamw_kernel(gs, ug, ms, vs, masters, up, lr=lr, bc1=bc1,
+                         bc2=bc2, b1=oc.b1, b2=oc.b2, eps=oc.eps,
+                         weight_decay=oc.weight_decay, clip=oc.grad_clip,
+                         norm_divisors=divisors, reduce=reduce)
+    _zero_gather(ps, up, zero)
+    return gnorm
+
+
+@torch.no_grad()
+def adamw_update(oc: OptConfig, grads: Params, state: Params,
+                 params: Params, zero=None, sharded: bool = False):
+    """One AdamW step in place: on the card the multi-tensor kernel,
+    elsewhere (CPU, meta) the plain per-leaf loop. With ``zero`` (a
+    ``parallel.sharding.Zero1``) ``m`` / ``v`` / ``master`` hold this
+    rank's ZeRO-1 slices: the rank updates its slice of each parameter
+    from the synced gradient (whole, or its slice with ``sharded``), and
+    the slices are gathered into the rank's parameter shard. The clip's
+    global norm is the whole gradient's."""
+    gs = tree.leaves(grads)
+    step = state["step"] + 1
+    lr = lr_at(oc, step)
+    bc1 = 1 - oc.b1 ** step.float()
+    bc2 = 1 - oc.b2 ** step.float()
+    update = _adamw_card if gs[0].device.type == "cuda" \
+        else adamw_leaves_ref
+    gnorm = update(oc, gs, tree.leaves(state["m"]), tree.leaves(state["v"]),
+                   tree.leaves(state["master"]), tree.leaves(params), lr,
+                   bc1, bc2, zero, sharded)
     state["step"] = step
     return params, state, {"gnorm": gnorm, "lr": lr}
 

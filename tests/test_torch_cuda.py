@@ -62,6 +62,7 @@ of the output: the kernels compute in fp32 and round once) and 1e-3 in
 fp32 (summation order); in bf16 at most 1 % of the outputs may differ
 at all (a wrong conversion moves about half of them).
 """
+import functools
 import itertools
 import sys
 import time
@@ -78,6 +79,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.resnet50 import CONFIG as RESNET50
 from repro_torch.core import tree
 from repro_torch.kernels import _build, decode_attention, ops, ref
+from repro_torch.kernels import adamw as fused_adamw
 from repro_torch.kernels.decode_attention import decode_splits, \
     paged_decode_attention
 from repro_torch.kernels.prefill_attention import paged_prefill_attention
@@ -89,6 +91,7 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.requests import Request
 from repro_torch.launch.train import make_data_fn, make_data_iter
 from repro_torch.parallel import grad_sync as gs
+from repro_torch.train import optimizer
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.data.synthetic import synthetic_images
 from repro_torch.train.step import (StepConfig, init_train_state,
@@ -1169,6 +1172,278 @@ def test_checkpoint_round_trip_of_a_resnet_train_state(card, tmp_path):
     for a, b in zip(tree.leaves(got), tree.leaves((p, o))):
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The multi-tensor AdamW kernel (csrc/adamw.cu) against the plain loop
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _adamw_shapes(kind: str) -> tuple:
+    """ResNet50's 161 leaf shapes, or gpt-117m's layer-stacked leaves."""
+    if kind == "resnet50":
+        from repro_torch.models import resnet
+        p = resnet.init(RESNET50, torch.Generator(), "cpu")
+    else:
+        p = lm.init_abstract(get_config("gpt-117m"))
+    return tuple(tuple(t.shape) for t in tree.leaves(p))
+
+
+def _adamw_state(card, shapes, pdtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    params = [torch.randn(s, generator=g, device=card).to(pdtype)
+              for s in shapes]
+    return params, optimizer.adamw_init(OptConfig(), params)
+
+
+def _adamw_grads(card, shapes, step):
+    g = torch.Generator(device=card).manual_seed(1000 + step)
+    return [torch.randn(s, generator=g, device=card) for s in shapes]
+
+
+def _plain_adamw(oc, grads, state, params, gnorm, zero=None):
+    """``optimizer.adamw_update`` with the plain per-leaf loop on the
+    card's tensors, given the kernel's global norm ``gnorm``: the plain
+    loop's own norm sums in another order (compared on its own), and
+    the clip's scale would carry that rounding into every element."""
+    step = state["step"] + 1
+    lr = optimizer.lr_at(oc, step)
+    own = optimizer.global_norm
+    optimizer.global_norm = lambda *a, **k: gnorm
+    try:
+        optimizer.adamw_leaves_ref(
+            oc, grads, state["m"], state["v"], state["master"], params, lr,
+            1 - oc.b1 ** step.float(), 1 - oc.b2 ** step.float(), zero)
+    finally:
+        optimizer.global_norm = own
+    state["step"] = step
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    a = x.float().abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
+                       torch.full_like(a, 2.0 ** -133))
+
+
+def _assert_adamw_close(got, want, what):
+    """The kernel's state against the plain loop's, both from the same
+    norm (``_plain_adamw``). m, v and master at rtol 1e-6, atol 1e-6 of
+    the leaf's largest magnitude (an element of m near zero after
+    cancelling terms keeps any rounding in absolute terms): both compute
+    every element's ops in fp32, each rounded once, in the same order,
+    so they should agree to the bit, and the count of elements that
+    differ at all is returned. bf16 params within one bf16 ulp: a master
+    that differed in its last bit could round to either neighbour."""
+    differ = 0
+    for k in ("m", "v", "master"):
+        for a, b in zip(got[1][k], want[1][k], strict=True):
+            differ += int((a != b).sum())
+            torch.testing.assert_close(
+                a, b, rtol=1e-6,
+                atol=1e-6 * float(b.abs().max()) if b.numel() else 0,
+                msg=lambda m: f"{what} {k}: {m}")
+    for a, b in zip(got[0], want[0], strict=True):
+        differ += int((a != b).sum())
+        if a.dtype == torch.bfloat16:
+            assert bool(((a.float() - b.float()).abs()
+                         <= _bf16_ulp(b)).all()), what
+        else:
+            torch.testing.assert_close(
+                a, b, rtol=1e-6,
+                atol=1e-6 * float(b.abs().max()) if b.numel() else 0)
+    return differ
+
+
+@pytest.mark.parametrize("clip", [1.0, 1e9])
+@pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["resnet50", "gpt-117m"])
+def test_adamw_kernel_matches_the_plain_loop(card, kind, pdtype, clip):
+    """Three AdamW steps over ResNet50's 161 leaves or gpt-117m's stacked
+    ones, fp32 or bf16 params, fp32 gradients, the clip engaged (unit
+    normal gradients, a norm in the thousands, against 1.0) or not:
+    ``adamw_update`` on the card (the kernel, three launches a step)
+    against the plain loop on the same tensors. gnorm at rtol 1e-6 (only
+    the summation order differs); the state, from the kernel's norm on
+    both sides, as ``_assert_adamw_close`` says."""
+    shapes = _adamw_shapes(kind)
+    oc = OptConfig(warmup=1, grad_clip=clip)
+    got = _adamw_state(card, shapes, pdtype)
+    want = tree.tree_map(torch.clone, got)
+    ops.reset_launch_counts()
+    for i in range(3):
+        grads = _adamw_grads(card, shapes, i)
+        _, _, info = optimizer.adamw_update(oc, grads, got[1], got[0])
+        gn = optimizer.global_norm(grads)
+        torch.testing.assert_close(info["gnorm"], gn, rtol=1e-6, atol=0)
+        _plain_adamw(oc, grads, want[1], want[0], info["gnorm"])
+        if clip < 10:
+            assert float(gn) > 10 * clip        # the clip is engaged
+    assert ops.launch_counts()["adamw"] == 9
+    differ = _assert_adamw_close(got, want, f"{kind} {pdtype} {clip}")
+    print(f"\nadamw {kind} params {pdtype} clip {clip}: "
+          f"{differ} elements differ from the plain loop after 3 steps")
+
+
+class _HalfZero:
+    """A ZeRO-1 layout of one rank: the leaves listed in ``cut`` hold
+    rank 1's slice of two along dim 0 (``Zero1.local``'s narrow: rows
+    ``[r, 2r)`` of ``2r`` or ``2r + 1``), and the gather puts it back
+    beside the other rows, which stay as they were."""
+
+    axis_names = ("data",)
+
+    def __init__(self, params, cut):
+        self.cuts = [[(0, ("data",))] if i in cut else []
+                     for i in range(len(params))]
+        self.mesh = self
+        self.full = {i: params[i].clone() for i in cut}
+
+    def local(self, i, t):
+        rows = t.shape[0] // 2
+        return t.narrow(0, rows, rows)
+
+    def gather(self, i, part):
+        out = self.full[i].clone()
+        rows = out.shape[0] // 2
+        out.narrow(0, rows, rows).copy_(part)
+        return out
+
+    def replicas(self, i, zero=True):
+        return 2 if self.cuts[i] else 1
+
+    def all_reduce(self, t, axes):
+        return t
+
+
+def test_adamw_kernel_on_a_zero1_slice_list(card):
+    """ZeRO-1 on one rank: the norm over the whole gradients, the update
+    over rank 1's slices (offsets that leave 16-byte alignment, so the
+    scalar path runs), the params' slices written into buffers and
+    gathered; against the plain loop on the same layout."""
+    shapes = [(7, 3, 5), (64,), (9, 2 * 4096 + 3), (3,), (), (2, 8)]
+    cut = {0, 2, 5}
+    oc = OptConfig(warmup=1, grad_clip=1.0)
+    params, _ = _adamw_state(card, shapes, torch.bfloat16)
+    zero = _HalfZero(params, cut)
+    state = optimizer.adamw_init(oc, params)
+    for k in ("m", "v", "master"):
+        state[k] = [zero.local(i, t).clone() if i in cut else t
+                    for i, t in enumerate(state[k])]
+    got = (params, state)
+    want = tree.tree_map(torch.clone, got)
+    for i in range(3):
+        grads = _adamw_grads(card, shapes, i)
+        _, _, info = optimizer.adamw_update(oc, grads, got[1], got[0], zero)
+        torch.testing.assert_close(info["gnorm"], optimizer.global_norm(
+            grads), rtol=1e-6, atol=0)
+        _plain_adamw(oc, grads, want[1], want[0], info["gnorm"], zero)
+    _assert_adamw_close(got, want, "zero1 slices")
+
+
+def test_adamw_kernel_gives_equal_bits_on_two_identical_calls(card):
+    shapes = _adamw_shapes("resnet50")
+    oc = OptConfig(warmup=1, grad_clip=1.0)
+    runs = [_adamw_state(card, shapes, torch.bfloat16) for _ in range(2)]
+    for i in range(2):
+        grads = _adamw_grads(card, shapes, i)
+        gns = [optimizer.adamw_update(oc, grads, o, p)[2]["gnorm"]
+               for p, o in runs]
+        assert torch.equal(gns[0], gns[1])
+    for a, b in zip(tree.leaves(runs[0]), tree.leaves(runs[1]), strict=True):
+        assert torch.equal(a, b)
+
+
+def test_adamw_kernel_over_more_leaves_than_one_table(card):
+    """1,201 leaves take two norm launches and three update launches (a
+    table holds 1,000 and 560), one finalize: six a step."""
+    shapes = [(37,), (3, 5), ()] * 400 + [(fused_adamw.CHUNK + 7,)]
+    oc = OptConfig(warmup=1, grad_clip=1.0)
+    got = _adamw_state(card, shapes, torch.bfloat16)
+    want = tree.tree_map(torch.clone, got)
+    ops.reset_launch_counts()
+    for i in range(2):
+        grads = _adamw_grads(card, shapes, i)
+        gn = optimizer.adamw_update(oc, grads, got[1], got[0])[2]["gnorm"]
+        torch.testing.assert_close(gn, optimizer.global_norm(grads),
+                                   rtol=1e-6, atol=0)
+        _plain_adamw(oc, grads, want[1], want[0], gn)
+    assert ops.launch_counts()["adamw"] == 12
+    _assert_adamw_close(got, want, "1201 leaves")
+
+
+def test_adamw_kernel_on_a_leaf_past_two_to_the_31(card):
+    """One leaf of 2**31 + 40 elements (38.7 GB of state with its
+    gradient): the items past element 2**31 are found by 64-bit offsets.
+    With the clip off the scale is exactly 1, so the plain loop's ops
+    on the first and last 2**20 elements (any norm below the clip) give
+    the kernel's bits."""
+    n, edge = 2 ** 31 + 40, 2 ** 20
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=card).manual_seed(0)
+    p = torch.randn(n, generator=gen, device=card).to(torch.bfloat16)
+    state = optimizer.adamw_init(OptConfig(), [p])
+    g = torch.randn(n, generator=gen, device=card)
+    oc = OptConfig(warmup=1, grad_clip=1e30)
+    ends = [slice(0, edge), slice(n - edge, n)]
+    want = [([p[s].clone()], {"step": state["step"].clone(),
+                               **{k: [state[k][0][s].clone()]
+                                  for k in ("m", "v", "master")}})
+            for s in ends]
+    try:
+        optimizer.adamw_update(oc, [g], state, [p])
+        for s, (wp, wo) in zip(ends, want):
+            _plain_adamw(oc, [g[s]], wo, wp, torch.ones((), device=card))
+            assert torch.equal(p[s], wp[0])
+            for k in ("m", "v", "master"):
+                assert torch.equal(state[k][0][s], wo[k][0]), k
+    finally:
+        del p, g, state
+        torch.cuda.empty_cache()
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(card):
+    """No fallback: a param view that is not contiguous, an fp16 param,
+    a bf16 gradient (the callers cast gradients to fp32 before the
+    optimizer) or a bias correction on the CPU raises."""
+    oc = OptConfig()
+    params, state = _adamw_state(card, [(4, 6)], torch.float32)
+    grads = _adamw_grads(card, [(4, 6)], 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        optimizer.adamw_update(oc, [grads[0].t()], state, [params[0].t()])
+    with pytest.raises(TypeError, match="params"):
+        optimizer.adamw_update(oc, grads, state, [params[0].half()])
+    with pytest.raises(TypeError, match="gradients must be float32"):
+        optimizer.adamw_update(oc, [grads[0].bfloat16()], state, params)
+    one = torch.ones((), device=card)
+    with pytest.raises(ValueError, match="one card"):
+        fused_adamw.adamw(grads, grads, state["m"], state["v"],
+                          state["master"], params, lr=one, bc1=one.cpu(),
+                          bc2=one, b1=0.9, b2=0.95, eps=1e-8,
+                          weight_decay=0.1, clip=1.0)
+
+
+def test_train_steps_on_card_launch_the_adamw_kernel(card):
+    """The training entry points take the kernel on the card: three
+    launches a step for a reduced ResNet and a reduced gpt-800m (their
+    leaves fit one table), and no per-leaf loop."""
+    oc = OptConfig(warmup=2, total_steps=100)
+    c = RESNET50.reduced()
+    p, o = init_train_state(c, oc, torch.Generator(device=card)
+                            .manual_seed(0), card)
+    step = make_resnet_train_step(c, oc)
+    ops.reset_launch_counts()
+    for _ in range(2):
+        p, o, _m = step(p, o, _images(c, 4, card))
+    assert ops.launch_counts()["adamw"] == 6
+    lc = get_config("gpt-800m").reduced()
+    p, o = init_train_state(lc, oc, torch.Generator(device=card)
+                            .manual_seed(0), card)
+    lstep = make_train_step(lc, oc, StepConfig(microbatches=2))
+    data = make_data_fn(lc, 4, 32, seed=0, device=card)
+    ops.reset_launch_counts()
+    p, o, _m = lstep(p, o, data(0))
+    assert ops.launch_counts()["adamw"] == 3
 
 
 def test_heatmap_dp1_cell_on_the_energy_counter(card, tmp_path):
