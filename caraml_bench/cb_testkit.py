@@ -1,5 +1,5 @@
-"""Helpers of the benchmark's CPU tests: each cell cut to a size the CPU
-runs in a second, and an energy counter that needs no card."""
+"""Helpers of the benchmark's CPU tests: each cell cut to its model
+kind's CPU size, and an energy counter that needs no card."""
 from __future__ import annotations
 
 import sys
@@ -21,17 +21,13 @@ CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 STAGED = {"gpt800m-s2048-gb16": ("gpt-800m", "lm-s2048-gb16"),
           "gpt800m-s512-gb128": ("gpt-800m", "lm-s512-gb128")}
 
-TINY_LM = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_head=16,
-               d_ff=128, vocab=500)
-TINY_LM_TRAFFIC = dict(seq_len=32, global_batch=4, microbatches=2)
-TINY_RESNET = dict(stage_sizes=[1, 1, 1, 1], width=8, n_classes=16,
-                   img_size=32)
-TINY_RESNET_TRAFFIC = dict(global_batch=8)
-
 
 def tiny(name: str, dtype: str = "float32") -> spec.Cell:
     """Cell ``name`` (of BENCHMARK.json or staged) at a CPU size, its
-    weights and compute in ``dtype``, with its own limits."""
+    weights and compute in ``dtype``, with its own limits. The size is
+    its model kind's: ``TINY`` (configuration keys) and ``TINY_TRAFFIC``
+    (traffic keys) of ``cbench.models.<arch>``; a kind without them is
+    refused, never run at its full size."""
     if name in STAGED:
         conf, traffic = STAGED[name]
         cell = spec.Cell(name=name, chips=1, config=spec._json(
@@ -39,11 +35,14 @@ def tiny(name: str, dtype: str = "float32") -> spec.Cell:
             traffic=spec._json(spec.traffic_file(traffic)))
     else:
         cell = spec.find_cell(spec.load_benchmark(), name)
-    lm = cell.arch == "lm"
-    cell.config = dict(cell.config, **(TINY_LM if lm else TINY_RESNET),
-                       dtype=dtype, param_dtype=dtype)
-    cell.traffic = dict(cell.traffic,
-                        **(TINY_LM_TRAFFIC if lm else TINY_RESNET_TRAFFIC))
+    models = spec.arch_module("models", cell.arch)
+    missing = [k for k in ("TINY", "TINY_TRAFFIC") if not hasattr(models, k)]
+    if missing:
+        raise ValueError(f"{models.__name__} gives no {' or '.join(missing)}"
+                         ": no CPU size for its cells")
+    cell.config = dict(cell.config, **models.TINY, dtype=dtype,
+                       param_dtype=dtype)
+    cell.traffic = dict(cell.traffic, **models.TINY_TRAFFIC)
     return cell
 
 

@@ -17,6 +17,11 @@ import torch
 from cbench import weights
 
 ITEMS = "tokens"
+#: the configuration and traffic keys a CPU test overrides: a size at
+#: which a step runs in a second there
+TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_head=16,
+            d_ff=128, vocab=500)
+TINY_TRAFFIC = dict(seq_len=32, global_batch=4, microbatches=2)
 
 
 def padded_vocab(cfg: dict, multiple: int = 256) -> int:

@@ -12,6 +12,10 @@ import dataclasses
 from cbench import weights
 
 ITEMS = "images"
+#: the configuration and traffic keys a CPU test overrides: a size at
+#: which a step runs in a second there
+TINY = dict(stage_sizes=[1, 1, 1, 1], width=8, n_classes=16, img_size=32)
+TINY_TRAFFIC = dict(global_batch=8)
 
 
 def blocks(cfg: dict):

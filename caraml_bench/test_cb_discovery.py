@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from cb_testkit import CELLS, HERE, STAGED
+from cb_testkit import CELLS, HERE, STAGED, tiny
 from cbench import check, spec
 
 BENCH = spec.load_benchmark()
@@ -64,16 +64,37 @@ def test_cell_resolves(name):
     assert cell.traffic["kind"] in ("lm_tokens", "images")
 
 
+@pytest.mark.parametrize("name", CELLS + sorted(STAGED))
+def test_cpu_size_is_the_kinds_own(name):
+    """The CPU tests run a cell at its model kind's ``TINY`` and
+    ``TINY_TRAFFIC``, whatever the kind."""
+    cell = tiny(name)
+    models = spec.arch_module("models", cell.arch)
+    assert {k: cell.config[k] for k in models.TINY} == models.TINY
+    assert {k: cell.traffic[k] for k in models.TINY_TRAFFIC} \
+        == models.TINY_TRAFFIC
+
+
 @pytest.mark.parametrize("name", sorted(
     p.stem for p in (HERE / "configs").glob("*.json")))
 def test_config_file_holds_what_runs(name):
+    """A configuration cut to fit the card lists each key it cut in
+    ``reduced`` and gives the key's published value in its file's
+    ``published``; one that runs whole has neither. ``params`` counts
+    the leaves of the file as it runs, cut or not."""
     cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
     assert cfg["name"] == name
+    published = cfg.get("published", {})
+    assert isinstance(published, dict)
+    for key, value in published.items():
+        assert key in cfg and cfg[key] != value, key
     entry = next((c for c in BENCH["configs"] if c["name"] == name), None)
     if entry is not None:
         assert entry["file"] == f"caraml_bench/configs/{name}.json"
         assert cfg["source"].startswith(entry["source"].split(" ")[0])
-        assert entry["reduced"] == []
+        assert len(entry["reduced"]) <= 16
+        assert all(NAME.match(k) for k in entry["reduced"])
+        assert sorted(entry["reduced"]) == sorted(published)
     models = spec.arch_module("models", cfg["arch"])
     n = sum(math.prod(s) for _n, s, *_ in models.leaf_specs(cfg))
     assert n == cfg["params"]

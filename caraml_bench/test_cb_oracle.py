@@ -37,19 +37,26 @@ def test_reference_follows_the_port_in_fp32(name, seed):
 
 @pytest.mark.parametrize("name", CELLS + list(STAGED))
 def test_leaves_are_the_ports_tree(name):
+    """The benchmark's leaves are the tree the program trains: the
+    port's own initializer's, for a kind on one of the port's models
+    (its module gives ``port_configs``), and for every kind the tree of
+    the optimizer state that the program's first step leaves."""
     cell = tiny(name)
     models = spec.arch_module("models", cell.arch)
-    if cell.arch == "lm":
-        from repro_torch.models import lm
-        c, _oc, _sc = models.port_configs(cell.config, cell.traffic)
-        abstract = lm.init_abstract(c)
-    else:
-        from repro_torch.models import resnet
-        c, _oc = models.port_configs(cell.config, cell.traffic)
-        abstract = resnet.init(c, torch.Generator().manual_seed(0), "cpu")
-    want = {n: tuple(t.shape) for n, t in weights.flat(abstract).items()}
-    got = {n: tuple(s) for n, s, *_ in models.leaf_specs(cell.config)}
-    assert got == want
+    specs = models.leaf_specs(cell.config)
+    got = {n: tuple(s) for n, s, *_ in specs}
+    if hasattr(models, "port_configs"):
+        from repro_torch.train.step import init_train_state
+        c, oc = models.port_configs(cell.config, cell.traffic)[:2]
+        params, _ = init_train_state(c, oc, torch.Generator().manual_seed(0),
+                                     "cpu")
+        assert {n: tuple(t.shape) for n, t in
+                weights.flat(params).items()} == got
+    named = weights.make(specs, 0, "cpu", torch.float32)
+    prog = models.Program(cell.config, cell.traffic, named, "cpu")
+    prog.step(Feed(cell.traffic, cell.config, 0, "cpu").next())
+    for state in (prog.first_moments(), prog.masters()):
+        assert {n: tuple(t.shape) for n, t in state.items()} == got
 
 
 def test_weights_repeat_from_the_seed_and_differ_between_seeds():
