@@ -106,7 +106,27 @@ instance, then runs sixteen phases, any failure of which exits non-zero:
      loop's own at rtol 1e-5; the row's error is the largest
      |kernel - plain| of master. The gpt-800m row's launches are the
      llm_train Space's in phase 7, the ResNet row's the resnet50
-     Space's in phase 8;
+     Space's in phase 8. The BatchNorm kernel pair (``csrc/batchnorm.cu``,
+     which replaces no TPU kernel either: the reference's BatchNorm is
+     XLA array code) gets one row over ResNet50's 53 calls at global
+     batch ``BN_BATCH`` (bf16 activations and params), the calls recorded
+     from the model's own forward (``resnet_bn_calls``). Every distinct
+     (M, C, epilogue) among them runs forward and backward, and y, dx,
+     d_sc, dscale and dbias must agree with the plain version through
+     autograd on the same inputs (``bn_agreement``: one bf16 ulp); the
+     row's error is the largest |kernel - plain| of the five. The three
+     largest calls are timed forward and backward by device ms warm and
+     cold, through autograd by events (``ms``), beside the plain
+     version's ms and ``F.batch_norm`` on bf16 with fp32 scale and bias
+     (``library_ms``, a yardstick the port never calls); then the 53
+     calls' forward and backward in one CUDA graph (``device_ms``),
+     beside the bound from the least bytes (each input read once, each
+     output written once: ``BN_LEAST_BYTES``; the log line adds the
+     bytes of the kernels' two passes each way), the whole step's calls
+     by events through the kernel, the plain version and the library,
+     and the host time of a small call and its backward through autograd
+     as the model makes it (``host_us``; the plain version's
+     ``plain_host_us``); its launches are the resnet50 Space's in phase 8;
   6. serve workloads — the port's ``serve`` and ``serve_slo`` workloads,
      ``python -m repro_torch.bench run --suite serve`` (then
      ``serve_slo``, twice) ``--smoke --power auto --layers SERVE_LAYERS``
@@ -166,7 +186,11 @@ instance, then runs sixteen phases, any failure of which exits non-zero:
      one line per cell with images/s, ms/step, Wh/step, images/Wh, mean
      W, peak GB and the model-FLOP share (three times the forward
      convolutions' and head's operations over the step time against the
-     card's dense bf16 peak); (b) a reduced fp32 ResNet (width 16, 64 x
+     card's dense bf16 peak), and the AdamW and BatchNorm kernels'
+     launches over the Space; one more full-width step at global batch
+     16 must launch the BatchNorm kernel pair 212 times (53 calls, four
+     launches each with the backward) and AdamW three times;
+     (b) a reduced fp32 ResNet (width 16, 64 x
      64 images) trains three AdamW steps on the card and on the CPU from
      the same weights and batches, with TF32 off for the card's
      convolutions (cuDNN takes TF32 for fp32 convolutions by default):
@@ -441,7 +465,9 @@ HMMA = "HMMA.16816.F32.BF16"
 #: (names as mangled: length, then the name)
 NO_SPILL_KERNELS = ("paged_decode_kernel", "rmsnorm_vec_kernel",
                     "rmsnorm_kernel", "adamw_norm_kernel",
-                    "adamw_finalize_kernel", "adamw_update_kernel")
+                    "adamw_finalize_kernel", "adamw_update_kernel",
+                    "batchnorm_stats_kernel", "batchnorm_apply_kernel",
+                    "batchnorm_grad_stats_kernel", "batchnorm_grad_kernel")
 #: the port's kernels in a profiler table
 PORT_KERNELS = ("paged_decode_kernel", "paged_prefill", "flash_",
                 "rmsnorm")
@@ -1593,10 +1619,11 @@ def profile_train_step(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_resnet(dev, profile: bool = False) -> int:
+def phase_resnet(dev, profile: bool = False) -> dict:
     """ResNet50 training at full width (see the module docstring);
-    returns the AdamW kernel's launches in the resnet50 Space's run,
-    read before the phase's agreement check."""
+    returns the AdamW and BatchNorm kernels' launches in the resnet50
+    Space's run, read before the phase's other checks, by phase 5's row
+    name."""
     from repro_torch.bench import cli
     from repro_torch.bench.records import load_records
     from repro_torch.kernels import ops
@@ -1607,7 +1634,8 @@ def phase_resnet(dev, profile: bool = False) -> int:
                        "--power", "auto", "--iters", str(RESNET_ITERS),
                        "--out", out, "--quiet"])
         records = load_records(f"{out}/resnet50/results.json")
-    launches = ops.launch_counts()["adamw"]
+    launches = {"adamw[resnet50]": ops.launch_counts()["adamw"],
+                "batchnorm": ops.launch_counts()["batchnorm"]}
     log(f"[resnet] resnet50 Space: rc {rc}, {len(records)} records in "
         f"{time.perf_counter() - t_phase:.1f} s")
     assert rc == 0, rc
@@ -1643,17 +1671,55 @@ def phase_resnet(dev, profile: bool = False) -> int:
     assert all(r.status == "deferred" for r in deferred), deferred
     log(f"[resnet] dp2 and dp4: {len(deferred)} records deferred "
         f"({deferred[0].error})")
-    log(f"[resnet] resnet50 Space: {launches} AdamW kernel launches "
-        f"(norm, finalize, update: three a step)")
-    assert launches > 0
+    log(f"[resnet] resnet50 Space: {launches['adamw[resnet50]']} AdamW "
+        f"kernel launches (norm, finalize, update: three a step), "
+        f"{launches['batchnorm']} BatchNorm kernel launches")
+    assert launches["adamw[resnet50]"] > 0 and launches["batchnorm"] > 0
     del records
     gc.collect()
     torch.cuda.empty_cache()
+    resnet_step_launches(dev)
     resnet_agreement(dev)
     log(f"[wall] phase 8 {time.perf_counter() - t_phase:.1f} s")
     if profile:
         profile_resnet_step(dev)
     return launches
+
+
+def resnet_step_launches(dev) -> None:
+    """One full-width bf16 ResNet50 step at global batch 16 after two
+    warm ones: every BatchNorm call of the step goes through the kernel
+    pair (53 calls x 4 launches) and the optimizer through AdamW's three
+    launches."""
+    from repro_torch.configs.resnet50 import CONFIG as c
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.kernels import batchnorm as bn, ops
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import init_train_state, make_resnet_train_step
+    oc = OptConfig(warmup=2, total_steps=1000)
+    p, o = init_train_state(c, oc, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    step = make_resnet_train_step(c, oc)
+    imgs, labels = synthetic_images(16, c.img_size, c.n_classes)
+    batch = {"images": torch.from_numpy(imgs).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    for _ in range(2):
+        p, o, _m = step(p, o, batch)
+    ops.reset_launch_counts()
+    p, o, _m = step(p, o, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    calls = len(resnet_bn_calls(c, 16, dev))
+    per_call = 4                    # statistics, apply; gradient sums, dx
+    log(f"[resnet] one ResNet50 step: {counts['batchnorm']} BatchNorm "
+        f"kernel launches ({calls} calls x {per_call}), {counts['adamw']} "
+        f"AdamW launches")
+    assert counts["batchnorm"] == calls * per_call == 212, counts
+    assert bn.batchnorm.launches == counts["batchnorm"]
+    assert counts["adamw"] == 3, counts
+    del p, o, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def resnet_agreement(dev) -> None:
@@ -1985,11 +2051,253 @@ def phase_times(dev, counts: dict, int8_counts: dict, bench_counts: dict,
     rows.append(_row("rmsnorm", "rmsnorm", bench_counts, errs, ms, plain,
                      lib, nbytes, 4 * rn * d, torch.float32,
                      f"rows={rn} d={d}", dev_t))
-    return rows + [adamw_row(dev, model) for model in ADAMW_MODELS]
+    return rows + [adamw_row(dev, model) for model in ADAMW_MODELS] + [
+        batchnorm_row(dev)]
 
 
 #: phase 5's AdamW rows: the models whose leaves the kernel is timed on
 ADAMW_MODELS = ("resnet50", "gpt-800m")
+#: phase 5's BatchNorm row: the global batch of the ResNet50 step whose
+#: BatchNorm calls it times (the benchmark cell's), and the bytes an
+#: element of each epilogue moves in bf16, by the kernels' two passes
+#: each way (``csrc/batchnorm.cu``) and at least (each input read once,
+#: each output written once)
+BN_BATCH = 256
+BN_DESIGN_BYTES = {"none": 16, "relu": 16, "add_relu": 24}
+BN_LEAST_BYTES = {"none": 10, "relu": 10, "add_relu": 16}
+
+
+def resnet_bn_calls(c, gb: int, dev) -> list:
+    """``(M, C, act)`` of the BatchNorm calls of one ``c`` forward at
+    global batch ``gb``, in the model's order: recorded from the model's
+    own forward of one image on ``dev`` (M grows with the batch), each
+    call given the plain version, so no kernel launch is counted."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import resnet
+    calls = []
+
+    def record(x, scale, bias, *, act="none", residual=None, eps=1e-5):
+        calls.append((x.numel() // x.shape[1] * gb, x.shape[1], act))
+        return ref.batchnorm_ref(x, scale, bias, act=act, residual=residual,
+                                 eps=eps)
+
+    p = resnet.init(c, torch.Generator(device=dev).manual_seed(0), dev)
+    images = torch.zeros(1, c.img_size, c.img_size, 3, device=dev)
+    kernel, ops.batchnorm = ops.batchnorm, record
+    try:
+        with torch.no_grad():
+            resnet.forward(c, p, images)
+    finally:
+        ops.batchnorm = kernel
+    return calls
+
+
+def bn_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |v| (fp32 in, fp32 out)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
+
+
+def bn_close(got, want, dtype, what: str, bound=None) -> float:
+    """The largest |got - want|, asserted: in bf16 within one ulp of the
+    plain value, taken at least at 1e-3 of its RMS (a value that small
+    is the difference of terms a thousand times its size and carries
+    their rounding), plus ``bound`` where an earlier rounding is
+    carried; in fp32 at TOL (the statistics' summation order
+    differs)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        lim = TOL[dtype] * (1 + want.abs())
+    else:
+        lim = bn_ulp(torch.maximum(want.abs(),
+                                   1e-3 * want.square().mean().sqrt()))
+        if bound is not None:
+            lim = lim + bound
+    bad = diff > lim
+    assert not bad.any(), (f"{what}: {int(bad.sum())} of {diff.numel()} "
+                           f"beyond the bound, worst {diff.max().item()}")
+    return diff.max().item()
+
+
+def bn_agreement(x, scale, bias, sc, dy, act: str, y, grads) -> float:
+    """One call of the BatchNorm kernel pair, its output ``y`` and
+    ``grads`` (dx, d_sc, dscale, dbias), against the plain version
+    through autograd on the same inputs (fp32 on the inputs upcast, its
+    results cast to the kernel's type). y and dx within one ulp
+    (``bn_close``; with the shortcut, the normalised output's ulp carried
+    into the sum as well); d_sc equal to the masked dy. The plain
+    backward is given the kernel's own ReLU mask, which must equal the
+    plain output's sign wherever the forward's bound leaves it certain.
+    dscale and dbias within 1e-5 of the sum of their terms' magnitudes
+    (fp32 sums of up to 3.2M terms in another order) plus one ulp of the
+    params' type. Returns the largest |kernel - plain| of the five."""
+    from repro_torch.kernels import ref
+    dtype = x.dtype
+    dx, dsc, dscale, dbias = grads
+    leaves = [t.detach().float().requires_grad_(True)
+              for t in (x, scale, bias)]
+    pre = ref.batchnorm_ref(*leaves)
+    pre_d = pre.detach()
+    carried = bn_ulp(pre_d) if act == "add_relu" \
+        and dtype == torch.bfloat16 else None
+    err = bn_close(y, ref.bn_epilogue(pre_d.to(dtype), act, sc), dtype,
+                   f"y {act}", carried)
+    g = dy.float()
+    if act != "none":
+        pre_act = pre_d.to(dtype).float() + sc.float() \
+            if act == "add_relu" else pre_d
+        mask = y.float() > 0
+        doubt = pre_d.abs() * 2.0 ** -7 + 1e-5 if dtype == torch.bfloat16 \
+            else TOL[dtype] * (1 + pre_d.abs())
+        sure = pre_act.abs() > doubt
+        assert torch.equal(mask[sure], (pre_act > 0)[sure]), f"mask {act}"
+        g = g * mask
+        del pre_act, doubt, sure
+    want = torch.autograd.grad(pre, leaves, g)
+    err = max(err, bn_close(dx, want[0].to(dtype), dtype, f"dx {act}"))
+    if act == "add_relu":
+        assert torch.equal(dsc, g.to(dtype)), f"d_sc {act}"
+    else:
+        assert dsc is None
+    xf = leaves[0].detach()
+    xhat = (xf - xf.mean((0, 2, 3), keepdim=True)) * torch.rsqrt(
+        xf.var((0, 2, 3), unbiased=False, keepdim=True) + 1e-5)
+    for got, plain, terms, what in (
+            (dscale, want[1], g * xhat, "dscale"),
+            (dbias, want[2], g, "dbias")):
+        lim = 1e-5 * terms.abs().sum((0, 2, 3))
+        if got.dtype == torch.bfloat16:
+            lim = lim + bn_ulp(plain)
+        diff = (got.float() - plain).abs()
+        assert bool((diff <= lim).all()), \
+            f"{what} {act}: worst {diff.max().item()}"
+        err = max(err, diff.max().item())
+    return err
+
+
+def batchnorm_row(dev) -> dict:
+    """Phase 5's row of the BatchNorm kernel pair (``csrc/batchnorm.cu``,
+    bf16 activations and params) at ResNet50's calls at ``BN_BATCH``:
+    see the module docstring."""
+    import torch.nn.functional as F
+    from repro_torch.configs.resnet50 import CONFIG as c
+    from repro_torch.kernels import batchnorm as bn, ops, ref
+    dt = torch.bfloat16
+    calls = resnet_bn_calls(c, BN_BATCH, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bufs = {}
+
+    def inputs(m, ch, act):
+        """x, scale, bias, the shortcut and dy of an [m, ch] call as
+        channels_last (m, ch, 1, 1), one set a shape."""
+        key = (m, ch, act == "add_relu")
+        if key not in bufs:
+            def t(mu=0.0):
+                return (torch.randn(m, ch, generator=gen, device=dev)
+                        + mu).to(dt).view(m, 1, 1, ch).permute(0, 3, 1, 2)
+            bufs[key] = (t(0.5), (torch.rand(ch, generator=gen, device=dev)
+                                  + 0.5).to(dt),
+                         (torch.randn(ch, generator=gen, device=dev)
+                          * 0.1).to(dt), t() if key[2] else None, t())
+        return bufs[key]
+
+    def pair(x, scale, bias, sc, dy, act):
+        y, st = bn.forward(x, scale, bias, act=act, residual=sc)
+        return y, bn.backward(dy, x, scale, bias, st, act=act,
+                              out=y if act == "add_relu" else None)
+
+    def through_autograd(fn, x, scale, bias, sc, dy, act):
+        """As the model calls it: x, scale, bias and the shortcut are
+        leaves, and the call's backward gives their gradients (the
+        library's call, which takes no shortcut, gives it none)."""
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, scale, bias, sc) if t is not None]
+        y = fn(*leaves[:3], act, leaves[3] if sc is not None else None)
+        return torch.autograd.grad(y, leaves, dy, allow_unused=True)
+
+    def kernel(x, scale, bias, act, sc):
+        return ops.batchnorm(x, scale, bias, act=act, residual=sc)
+
+    def plain(x, scale, bias, act, sc):
+        return ref.batchnorm_ref(x, scale, bias, act=act, residual=sc)
+
+    def library(x, scale, bias, act, sc):
+        return F.batch_norm(x, None, None, scale.float(), bias.float(),
+                            training=True, eps=1e-5)
+
+    def events(fn, group, iters):
+        def run():
+            for m, ch, act in group:
+                through_autograd(fn, *inputs(m, ch, act), act)
+        return time_ms(run, iters=iters, warmup=1)
+
+    def nbytes(group, table):
+        return sum(m * ch * table[act] for m, ch, act in group)
+
+    err = 0.0
+    for m, ch, act in sorted(set(calls)):
+        x, scale, bias, sc, dy = inputs(m, ch, act)
+        y, grads = pair(x, scale, bias, sc, dy, act)
+        err = max(err, bn_agreement(x, scale, bias, sc, dy, act, y, grads))
+        del y, grads
+        gc.collect()
+    shapes = sorted(set(calls), key=lambda k: -nbytes([k], BN_LEAST_BYTES))
+    rows = []
+    for m, ch, act in shapes[:3]:
+        x, scale, bias, sc, dy = inputs(m, ch, act)
+        warm, cold = device_times(pair, (x, scale, bias, sc, dy, act), {},
+                                  nbytes([(m, ch, act)], BN_LEAST_BYTES) // 2)
+        group = [(m, ch, act)]
+        rows.append({
+            "m": m, "c": ch, "act": act, "device_ms": warm,
+            "device_ms_cold": cold,
+            "ms": events(kernel, group, 20), "plain_ms": events(plain, group, 5),
+            "library_ms": events(library, group, 20),
+            "bound_ms": nbytes(group, BN_LEAST_BYTES) / HBM_BYTES_PER_S * 1e3})
+    small = inputs(256, 64, "add_relu")
+    host = host_us(lambda: through_autograd(kernel, *small, "add_relu"),
+                   calls=200)
+    host_plain = host_us(lambda: through_autograd(plain, *small, "add_relu"),
+                         calls=200)
+    fns = [functools.partial(pair, *inputs(*k), k[2]) for k in calls]
+    step = graph_ms(fns, len(fns), replays=3) * len(fns)
+    row = {"name": "batchnorm", "route": "cuda",
+           "source": "src/repro_torch/csrc/batchnorm.cu",
+           "replaces": "none: the reference's BatchNorm is XLA array code "
+                       "(src/repro/models/resnet.py::batchnorm)",
+           "launches": 0, "max_abs_err": err, "calls": len(calls),
+           "elements": sum(m * ch for m, ch, _ in calls),
+           "device_ms": step, "ms": events(kernel, calls, 3),
+           "plain_ms": events(plain, calls, 2),
+           "library_ms": events(library, calls, 3),
+           "bound_ms": nbytes(calls, BN_LEAST_BYTES) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "host_us": host,
+           "plain_host_us": host_plain, "shapes": rows}
+    design = lambda group: nbytes(group, BN_DESIGN_BYTES) \
+        / HBM_BYTES_PER_S * 1e3
+    for r in rows:
+        log(f"[times] batchnorm (batchnorm.py) at [{r['m']}, {r['c']}] "
+            f"{r['act']}, forward and backward: device {r['device_ms']:.4f} "
+            f"ms warm, {r['device_ms_cold']:.4f} ms cold (bound "
+            f"{r['bound_ms']:.4f} ms, design bytes "
+            f"{design([(r['m'], r['c'], r['act'])]):.4f} ms); through "
+            f"autograd {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"F.batch_norm on bf16 {r['library_ms']:.4f} ms (events)")
+    log(f"[times] batchnorm over ResNet50's {len(calls)} calls at gb "
+        f"{BN_BATCH} ({row['elements']:,} elements), forward and backward: "
+        f"device {step:.4f} ms (one CUDA graph), bound {row['bound_ms']:.4f}"
+        f" ms (least bytes), design bytes {design(calls):.4f} ms (device / "
+        f"design {step / design(calls):.3f}); through autograd "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, F.batch_norm "
+        f"on bf16 with fp32 scale and bias {row['library_ms']:.4f} ms "
+        f"(events); {len(set(calls))} distinct calls, y, dx, d_sc, dscale "
+        f"and dbias max |kernel - plain| {err:.3e}; a call and its backward "
+        f"through autograd take {host:.1f} us of host time, the plain "
+        f"version's {host_plain:.1f} us")
+    del bufs, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def adamw_agrees(what: str, got, want, master0) -> float:
@@ -4255,8 +4563,7 @@ def main() -> int:
     adamw_launches = {
         "adamw[gpt-800m]": phase_train(dev,
                                        profile="--profile" in sys.argv[1:]),
-        "adamw[resnet50]": phase_resnet(dev,
-                                        profile="--profile" in sys.argv[1:])}
+        **phase_resnet(dev, profile="--profile" in sys.argv[1:])}
     family_errs = phase_families(dev, profile="--profile" in sys.argv[1:])
     gen_counts, gen_errs = phase_generate(dev,
                                           profile="--profile" in sys.argv[1:])
@@ -4270,7 +4577,8 @@ def main() -> int:
                                  family_errs.get(row["name"], 0.0),
                                  gen_errs.get(row["name"], 0.0))
         # the main path's launches: phases 2, 2b, 4 and 10d; AdamW's in
-        # the llm_train (gpt-800m) and resnet50 Spaces of phases 7 and 8
+        # the llm_train (gpt-800m) and resnet50 Spaces of phases 7 and 8,
+        # BatchNorm's in the resnet50 Space of phase 8
         row["launches"] += gen_counts.get(row["name"], 0)
         row["launches"] += adamw_launches.get(row["name"], 0)
     log(f"[wall] chip_smoke {time.perf_counter() - t_start:.1f} s, the "

@@ -11,6 +11,9 @@ into an exception.
 
 Nothing is built at import time: :func:`load_library` builds on first
 use. A file lock serialises concurrent builds.
+
+:class:`StreamState` is what a wrapper keeps per (card, stream) for
+kernels that merge partials across blocks: ticket counters and scratch.
 """
 from __future__ import annotations
 
@@ -68,6 +71,16 @@ SIGNATURES = {
     # leaves, n_leaves, n_items, stats, lr, bc1, bc2, b1, b2, 1 - b1,
     # 1 - b2, eps, weight decay, stream
     "repro_adamw_update": [_P, _I, _I] + [_P] * 4 + [_F] * 6 + [_P],
+    # act, dtype, param dtype, out: resident blocks an SM of each kernel
+    "repro_batchnorm_occupancy": [_I, _I, _I, _P],
+    # x, sc, scale, bias, y, stats, part, tickets, M, C, then chunks and
+    # rows a chunk of the statistics and of the apply, eps, act, dtype,
+    # param dtype, stream
+    "repro_batchnorm_forward": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    # dy, x, out, scale, bias, stats, dx, dsc, dparams, coef, part,
+    # tickets, M, C, the two plans as above, act, dtype, param dtype,
+    # stream
+    "repro_batchnorm_backward": [_P] * 12 + [_I] * 9 + [_P],
     "repro_cuda_error_string": [_I],
 }
 
@@ -157,3 +170,66 @@ def check(err: int, what: str) -> None:
     if err:
         msg = load_library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+class StreamState:
+    """What a kernel's wrapper keeps per (card, stream), so that a call
+    pays for none of it: the SM count, launch plans (``plans``, the
+    wrapper's to fill), the tickets (int32 counters that the kernels
+    leave at zero) and the partials' scratch (fp32, written before it is
+    read in every launch, so never cleared), both grown on demand.
+    Launches on one stream run one after another, so they may share
+    these; launches on two streams may run at once, so each stream has
+    its own. A graph captured on a stream uses that stream's buffers: do
+    not replay it beside calls on that stream. Buffers that were
+    outgrown stay allocated, since a captured graph may still name
+    them."""
+
+    def __init__(self, kernel: str, device: torch.device, tickets: int):
+        self.kernel = kernel
+        self.device = device
+        self.sms = sm_count(device.index)
+        self.plans: dict = {}
+        self.tickets = torch.zeros(tickets, dtype=torch.int32, device=device)
+        self.scratch = torch.empty(0, dtype=torch.float32, device=device)
+        self.outgrown: list = []
+
+    def tickets_ptr(self, n: int) -> int:
+        """The address of at least ``n`` zeroed tickets."""
+        if n > self.tickets.numel():
+            refuse_in_capture(self.kernel, f"{n} ticket counters (this "
+                              f"stream has {self.tickets.numel()})")
+            self.outgrown.append(self.tickets)
+            self.tickets = torch.zeros(2 * n, dtype=torch.int32,
+                                       device=self.device)
+        return self.tickets.data_ptr()
+
+    def scratch_ptr(self, n: int) -> int:
+        """The address of at least ``n`` floats of scratch."""
+        if n > self.scratch.numel():
+            self.outgrown.append(self.scratch)
+            self.scratch = torch.empty(2 * n, dtype=torch.float32,
+                                       device=self.device)
+        return self.scratch.data_ptr()
+
+
+def refuse_in_capture(kernel: str, what: str) -> None:
+    """Ticket counters must be zeroed outside a CUDA graph: zeroed inside
+    one they would hold garbage until its first replay."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{kernel} needs {what} while the stream is capturing a CUDA "
+            f"graph; call it once with these shapes on the capture stream "
+            f"before capturing")
+
+
+def stream_state(states: dict, kernel: str, device: torch.device,
+                 stream: int, tickets: int) -> StreamState:
+    """``kernel``'s state on (``device``, ``stream``) in ``states``, made
+    on the stream's first call with ``tickets`` counters."""
+    state = states.get((device.index, stream))
+    if state is None:
+        refuse_in_capture(kernel, "its first call on this stream")
+        state = states[device.index, stream] = StreamState(kernel, device,
+                                                           tickets)
+    return state

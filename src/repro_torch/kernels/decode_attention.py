@@ -68,78 +68,33 @@ def decode_splits(batch: int, kv_heads: int, nb: int, sms: int, *,
     return max(-(-nb // chunk), 1), chunk
 
 
-class _StreamState:
-    """What the wrapper keeps per (card, stream), so that a call pays for
-    none of it: the SM count, each shape's launch plan, the split tickets
-    (int32 counters that the kernel leaves at zero) and the partials'
-    scratch (written before it is read in every launch, so never
-    cleared), both grown on demand. Launches on one stream run one after
-    another, so they may share these; launches on two streams may run at
-    once, so each stream has its own. A graph captured on a stream uses
-    that stream's buffers: do not replay it beside calls on that stream.
-    Buffers that were outgrown stay allocated, since a captured graph may
-    still name them."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.sms = _build.sm_count(device.index)
-        self.plans: dict = {}
-        self.tickets = torch.zeros(1024, dtype=torch.int32, device=device)
-        self.scratch = torch.empty(0, dtype=torch.float32, device=device)
-        self.outgrown: list = []
-
-    def plan(self, b: int, kh: int, g: int, dh: int, nb: int, width: int,
-             splits: Optional[int]) -> tuple:
-        """(splits, chunk, scratch pointer, tickets pointer) of a call."""
-        key = (b, kh, g, dh, nb, width, splits)
-        plan = self.plans.get(key)
-        if plan is None:
-            if splits is None:
-                splits, chunk = decode_splits(b, kh, nb, self.sms, group=g,
-                                              width=width)
-            elif 1 <= splits <= MAX_SPLITS:
-                chunk = -(-nb // splits)
-            else:
-                raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got "
-                                 f"{splits}")
-            pairs = b * kh * -(-g // HEADS_PER_BLOCK)
-            if pairs > self.tickets.numel():
-                _refuse_in_capture(f"{pairs} ticket counters (this stream "
-                                   f"has {self.tickets.numel()})")
-                self.outgrown.append(self.tickets)
-                self.tickets = torch.zeros(2 * pairs, dtype=torch.int32,
-                                           device=self.device)
-            need = pairs * splits * HEADS_PER_BLOCK * (dh + 2) \
-                if splits > 1 else 0
-            if need > self.scratch.numel():
-                self.outgrown.append(self.scratch)
-                self.scratch = torch.empty(2 * need, dtype=torch.float32,
-                                           device=self.device)
-            plan = self.plans[key] = (splits, chunk,
-                                      self.scratch.data_ptr() if need
-                                      else None, self.tickets.data_ptr())
-        return plan
+def _plan(state: _build.StreamState, b: int, kh: int, g: int, dh: int,
+          nb: int, width: int, splits: Optional[int]) -> tuple:
+    """(splits, chunk, scratch pointer, tickets pointer) of a call, kept
+    in the stream's ``state``."""
+    key = (b, kh, g, dh, nb, width, splits)
+    plan = state.plans.get(key)
+    if plan is None:
+        if splits is None:
+            splits, chunk = decode_splits(b, kh, nb, state.sms, group=g,
+                                          width=width)
+        elif 1 <= splits <= MAX_SPLITS:
+            chunk = -(-nb // splits)
+        else:
+            raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got "
+                             f"{splits}")
+        pairs = b * kh * -(-g // HEADS_PER_BLOCK)
+        tickets = state.tickets_ptr(pairs)
+        need = pairs * splits * HEADS_PER_BLOCK * (dh + 2) \
+            if splits > 1 else 0
+        plan = state.plans[key] = (
+            splits, chunk, state.scratch_ptr(need) if need else None,
+            tickets)
+    return plan
 
 
-def _refuse_in_capture(what: str) -> None:
-    """Ticket counters must be zeroed outside a CUDA graph: zeroed inside
-    one they would hold garbage until its first replay."""
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            f"paged_decode_attention needs {what} while the stream is "
-            f"capturing a CUDA graph; call it once with these shapes on "
-            f"the capture stream before capturing")
-
-
-_STATES: dict[tuple[int, int], _StreamState] = {}
-
-
-def _stream_state(q: torch.Tensor, stream: int) -> _StreamState:
-    state = _STATES.get((q.get_device(), stream))
-    if state is None:
-        _refuse_in_capture("its first call on this stream")
-        state = _STATES[q.get_device(), stream] = _StreamState(q.device)
-    return state
+#: each (card, stream)'s tickets, scratch and plans (``_build.StreamState``)
+_STATES: dict = {}
 
 
 def check_kv_inputs(q: torch.Tensor, pools, index_tensors) -> None:
@@ -246,8 +201,10 @@ def _paged_decode_attention(q, k_pool, v_pool, tables, lengths, window,
     g, nb = h // kh, tables.shape[1]
     stream = torch.cuda.current_stream(q.get_device()).cuda_stream
     # a column slice of a wider table: its row stride is the full width
-    splits, chunk, scratch, tickets = _stream_state(q, stream).plan(
-        b, kh, g, dh, nb, tables.stride(0), splits)
+    state = _build.stream_state(_STATES, "paged_decode_attention",
+                                q.device, stream, 1024)
+    splits, chunk, scratch, tickets = _plan(state, b, kh, g, dh, nb,
+                                            tables.stride(0), splits)
     err = _build.load_library().repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import adamw as _adamw
+from repro_torch.kernels import batchnorm as _batchnorm
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import prefill_attention as _prefill
@@ -32,6 +33,7 @@ KERNELS = {
     "flash_attention": _flash.flash_attention,
     "rmsnorm": _rmsnorm.rmsnorm,
     "adamw": _adamw.adamw,
+    "batchnorm": _batchnorm.batchnorm,
 }
 
 
@@ -101,3 +103,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps=eps)
     return _rmsnorm.rmsnorm(x, scale, eps=eps)
+
+
+def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              act: str = "none", residual: Optional[torch.Tensor] = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Training-mode BatchNorm of ``x`` (N, C, H, W; channels_last on the
+    card) from the batch's statistics, then the epilogue ``act``: none,
+    ``"relu"``, or ``"add_relu"``, which adds ``residual`` to the output
+    rounded to x's type before the ReLU. Differentiable."""
+    if x.device.type == "cpu":
+        return ref.batchnorm_ref(x, scale, bias, act=act, residual=residual,
+                                 eps=eps)
+    return _batchnorm.batchnorm(x, scale, bias, act=act, residual=residual,
+                                eps=eps)

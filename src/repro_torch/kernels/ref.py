@@ -3,9 +3,11 @@
 Port of ``src/repro/kernels/ref.py``: ``flash_attention_ref``,
 ``rmsnorm_ref``, ``dequantize_pool`` (with the int8 pool's scales) and
 the two paged attention oracles, each on fp pools and on int8 pools with
-their (n_blocks, Kh) scales. These define what the CUDA kernels compute:
-the CPU path of ``kernels.ops`` runs them, and the card-side checks
-compare each kernel with them on the same inputs. ``ssd_chunk_ref`` is
+their (n_blocks, Kh) scales; besides, ``batchnorm_ref`` with its
+epilogues (the reference's BatchNorm is array code, with no kernel).
+These define what the CUDA kernels compute: the CPU path of
+``kernels.ops`` runs them, and the card-side checks compare each kernel
+with them on the same inputs. ``ssd_chunk_ref`` is
 the oracle of the SSD scan (``models.ssm.ssd_chunked``), which has no
 kernel, in the reference as here.
 """
@@ -15,6 +17,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -50,6 +53,37 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+#: BatchNorm's epilogues: none, ReLU, and the shortcut added before ReLU
+BN_ACTS = ("none", "relu", "add_relu")
+
+
+def bn_epilogue(y: torch.Tensor, act: str,
+                residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """``y``, ``relu(y)`` or ``relu(y + residual)`` in y's type; the
+    shortcut goes with ``add_relu`` alone."""
+    if act not in BN_ACTS:
+        raise ValueError(f"act must be one of {BN_ACTS}, got {act!r}")
+    if (act == "add_relu") != (residual is not None):
+        raise ValueError(f"act {act!r} with residual "
+                         f"{'given' if residual is not None else 'None'}: "
+                         f"the shortcut goes with add_relu alone")
+    if residual is not None:
+        y = y + residual
+    return y if act == "none" else F.relu(y)
+
+
+def batchnorm_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  *, act: str = "none",
+                  residual: Optional[torch.Tensor] = None,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Batch-statistics BatchNorm of ``x`` (N, C, H, W) over (N, H, W) in
+    fp32 with the biased variance, cast to x.dtype, then the epilogue
+    ``act`` (:func:`bn_epilogue`)."""
+    y = F.batch_norm(x.float(), None, None, scale.float(), bias.float(),
+                     training=True, eps=eps).to(x.dtype)
+    return bn_epilogue(y, act, residual)
 
 
 def dequantize_pool(pool: torch.Tensor, tables: torch.Tensor,

@@ -21,12 +21,19 @@ What the port does differently, and why the numbers do not move:
     pad goes through ``F.pad`` first; the max-pool pads with ``-inf`` the
     same way (the reference's ``reduce_window`` initial value).
   * **BatchNorm** computes in fp32 from the batch's statistics over
-    (N, H, W) with the biased variance, and casts back to the input's
-    dtype, as the reference does; ``F.batch_norm`` in training mode with
-    no running buffers computes exactly that. The reference returns the
-    batch statistics beside the output and every caller discards them
-    (its running-stats state ``_bn_state`` is never updated), so the
-    port returns the output alone and keeps no running statistics.
+    (N, H, W) with the biased variance, and rounds the output once to
+    the input's dtype, as the reference does. The ReLU after it, or the
+    block's shortcut add and ReLU after its last one, are the call's
+    epilogue (``act``, ``residual``), so that on the card one
+    hand-written kernel pair (``kernels/batchnorm.py``) reads and writes
+    the activations' own dtype and fuses them: the output is rounded
+    before the shortcut is added, as the reference's separate add does.
+    On the CPU the plain version (``kernels.ref.batchnorm_ref``:
+    ``F.batch_norm`` in fp32, the cast, then the ReLU or the add) runs.
+    The reference returns the batch statistics beside the output and
+    every caller discards them (its running-stats state ``_bn_state`` is
+    never updated), so the port returns the output alone and keeps no
+    running statistics.
   * **Data parallelism.** The reference runs the data-parallel step
     under GSPMD, so its batch statistics are over the whole global
     batch. Given a process group (``forward(..., stats_group=)``), the
@@ -47,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch.configs.resnet50 import ResNetConfig
 from repro_torch.core.ranges import bracket, span
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import group_size
 
 Params = Any
@@ -112,23 +120,26 @@ class AllReduceSum(torch.autograd.Function):
         return g, None
 
 
-def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-5,
-              group=None) -> torch.Tensor:
+def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-5, group=None,
+              act: str = "none",
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batch-statistics BatchNorm over (N, H, W) of ``x`` (N, C, H, W),
-    in fp32, cast back to ``x.dtype``; with ``group`` the statistics are
-    over every rank's rows (equal row counts). Under a profiler the call
-    and its backward (the casts' too) are each a range ``batchnorm``."""
+    in fp32, rounded to ``x.dtype``, then the epilogue ``act``:
+    ``"none"``, ``"relu"``, or ``"add_relu"``, ``relu(y + residual)``.
+    With ``group`` the statistics are over every rank's rows (equal row
+    counts). Under a profiler the call and its backward, the epilogue's
+    included, are each a range ``batchnorm``."""
     with span("batchnorm"):
         return bracket("batchnorm",
-                       lambda s, b, v: _batchnorm(s, b, v, eps, group),
+                       lambda s, b, v: _batchnorm(s, b, v, eps, group, act,
+                                                  residual),
                        p["scale"], p["bias"], x)
 
 
-def _batchnorm(scale, bias, x, eps, group):
+def _batchnorm(scale, bias, x, eps, group, act, residual):
     if group is None:
-        y = F.batch_norm(x.float(), None, None, scale.float(), bias.float(),
-                         training=True, eps=eps)
-        return y.to(x.dtype)
+        return ops.batchnorm(x, scale, bias, act=act, residual=residual,
+                             eps=eps)
     xf = x.float()
     n = xf.numel() // xf.shape[1] * group_size(group)
     mean = AllReduceSum.apply(xf.sum((0, 2, 3)), group) / n
@@ -136,7 +147,7 @@ def _batchnorm(scale, bias, x, eps, group):
     var = AllReduceSum.apply((xc * xc).sum((0, 2, 3)), group) / n
     y = xc * torch.rsqrt(var + eps)[:, None, None]
     y = y * scale.float()[:, None, None] + bias.float()[:, None, None]
-    return y.to(x.dtype)
+    return ref.bn_epilogue(y.to(x.dtype), act, residual)
 
 
 def bottleneck_init(gen, cin, width, stride, dtype):
@@ -155,13 +166,17 @@ def bottleneck_init(gen, cin, width, stride, dtype):
 
 def bottleneck(p: Params, x: torch.Tensor, stride: int,
                group=None) -> torch.Tensor:
-    h = F.relu(batchnorm(p["bn1"], conv(x, p["conv1"]), group=group))
-    h = F.relu(batchnorm(p["bn2"], conv(h, p["conv2"], stride), group=group))
-    h = batchnorm(p["bn3"], conv(h, p["conv3"]), group=group)
+    """``relu(bn3(conv3(h)) + shortcut)``; the shortcut is made first, so
+    that the backward of its BatchNorm runs after the block's other
+    BatchNorm backwards and no two ``batchnorm`` ranges nest."""
     sc = x
     if "proj" in p:
         sc = batchnorm(p["bn_proj"], conv(x, p["proj"], stride), group=group)
-    return F.relu(h + sc)
+    h = batchnorm(p["bn1"], conv(x, p["conv1"]), group=group, act="relu")
+    h = batchnorm(p["bn2"], conv(h, p["conv2"], stride), group=group,
+                  act="relu")
+    return batchnorm(p["bn3"], conv(h, p["conv3"]), group=group,
+                     act="add_relu", residual=sc)
 
 
 def _strides(c: ResNetConfig):
@@ -205,8 +220,8 @@ def forward(c: ResNetConfig, p: Params, images: torch.Tensor,
     """images: (B, H, W, 3) -> logits (B, n_classes); BatchNorm's
     statistics over ``stats_group``'s ranks when given."""
     x = images.to(getattr(torch, c.dtype)).permute(0, 3, 1, 2)
-    x = F.relu(batchnorm(p["bn_stem"], conv(x, p["stem"], stride=2),
-                         group=stats_group))
+    x = batchnorm(p["bn_stem"], conv(x, p["stem"], stride=2),
+                  group=stats_group, act="relu")
     x = max_pool(x)
     for s, b, stride in _strides(c):
         x = bottleneck(p["stages"][s][b], x, stride, stats_group)

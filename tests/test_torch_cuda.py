@@ -31,7 +31,12 @@ params (the ops torch's deterministic mode would flag are printed).
 ResNet on the card: five full-width bf16 ResNet50 steps with a finite,
 falling loss; three AdamW steps of a reduced fp32 ResNet against the CPU
 (TF32 off); a checkpoint round trip of a ResNet train state (its
-list-shaped ``stages`` keys). The moe, ssm and hybrid families: the
+list-shaped ``stages`` keys). The BatchNorm kernel pair against its
+plain version at ResNet50's shapes at batch 256 and a ragged one, with
+each epilogue (none, ReLU, shortcut add and ReLU) in both types, its
+statistics and parameter gradients against fp64, equal bits on two
+calls, fp32 params under bf16 activations through autograd, and the
+inputs it refuses. The moe, ssm and hybrid families: the
 paged decode at granite-moe's and jamba's head shapes (fp and int8
 pools), the reduced families' engines (paged and slotted) on the card
 against the CPU with the decode kernel's launches counted per attention
@@ -98,7 +103,7 @@ from repro_torch.train.step import (StepConfig, init_train_state,
                                     make_resnet_train_step, make_train_step)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  phase 9's card-vs-CPU family checks
+import chip_smoke  # noqa: E402  phases 5 and 9's card-vs-plain checks
 
 pytestmark = pytest.mark.cuda
 
@@ -1172,6 +1177,196 @@ def test_checkpoint_round_trip_of_a_resnet_train_state(card, tmp_path):
     for a, b in zip(tree.leaves(got), tree.leaves((p, o))):
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The BatchNorm kernel pair (csrc/batchnorm.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+#: ((N, H, W), C) of the BatchNorm cases: ResNet50's at batch 256 (the
+#: stem, one call of each stage, stage 4's the widest) and a ragged M
+#: (105 rows, not whole block passes) over a part-filled channel tile
+BN_SHAPES = [((256, 112, 112), 64), ((256, 56, 56), 256),
+             ((256, 28, 28), 512), ((256, 14, 14), 1024),
+             ((256, 7, 7), 2048), ((3, 5, 7), 40)]
+BN_ACTS = ["none", "relu", "add_relu"]
+
+
+def _bn_inputs(card, nhw, c, dtype, act, seed=0):
+    """x (per-channel mean in [-2, 2], spread in [0.5, 2]), scale, bias,
+    the shortcut (add_relu) and dy, channels_last on the card."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def nhwc(mu=0.0, sd=1.0):
+        t = torch.randn((*nhw, c), generator=g, device=card) * sd + mu
+        return t.to(dtype).permute(0, 3, 1, 2)
+
+    mu = torch.rand(c, generator=g, device=card) * 4 - 2
+    sd = torch.rand(c, generator=g, device=card) * 1.5 + 0.5
+    x = nhwc(mu, sd)
+    scale = (torch.randn(c, generator=g, device=card) * 0.5 + 1).to(dtype)
+    bias = (torch.randn(c, generator=g, device=card) * 0.5).to(dtype)
+    sc = nhwc(sd=2.0) if act == "add_relu" else None
+    return x, scale, bias, sc, nhwc()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", BN_ACTS)
+@pytest.mark.parametrize("nhw,c", BN_SHAPES)
+def test_batchnorm_kernel_matches_plain(card, nhw, c, act, dtype):
+    """Forward and backward of the kernel pair against the plain version
+    through autograd on the same inputs (``chip_smoke.bn_agreement``,
+    phase 5's check): y and dx within one ulp in bf16 (with the
+    shortcut, y's ulp carried into the sum as well), d_sc equal to the
+    masked dy, the kernel's ReLU mask the plain output's wherever the
+    forward's bound leaves the sign certain, dscale and dbias within
+    1e-5 of their terms' magnitudes plus one ulp of the params' type.
+    mean and rstd against an fp64 computation: mean within
+    1e-5 (|mean| + std), rstd at rtol 1e-5 (fp32 Welford and Chan merges
+    in another order than an fp64 sum; a float32 model of the kernel's
+    merges errs by a few 1e-7). dscale and dbias against fp64 sums of
+    the same masked gradient too: within 1e-5 of the sum of the terms'
+    magnitudes (fp32 sums of up to 3.2M terms in another order) plus one
+    ulp of the params' type. Two calls give equal bits, and a call and
+    its backward are four launches."""
+    from repro_torch.kernels import batchnorm as bn
+    x, scale, bias, sc, dy = _bn_inputs(card, nhw, c, dtype, act)
+    ops.reset_launch_counts()
+    y, stats = bn.forward(x, scale, bias, act=act, residual=sc)
+    out = y if act == "add_relu" else None
+    grads = bn.backward(dy, x, scale, bias, stats, act=act, out=out)
+    dx, dsc, dscale, dbias = grads
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["batchnorm"] == 4
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert y.dtype == dx.dtype == dtype and dscale.dtype == scale.dtype
+    chip_smoke.bn_agreement(x, scale, bias, sc, dy, act, y, grads)
+
+    # statistics against fp64
+    x64 = x.double()
+    mean64 = x64.mean((0, 2, 3))
+    var64 = x64.var((0, 2, 3), unbiased=False)
+    rstd64 = 1 / torch.sqrt(var64 + 1e-5)
+    assert ((stats[0].double() - mean64).abs()
+            <= 1e-5 * (mean64.abs() + var64.sqrt())).all(), "mean"
+    torch.testing.assert_close(stats[1].double(), rstd64, rtol=1e-5, atol=0)
+
+    # the parameters' gradients against fp64 sums of the masked gradient
+    g64 = dy.double() * (y.double() > 0 if act != "none" else 1)
+    xhat64 = (x64 - mean64[:, None, None]) * rstd64[:, None, None]
+    for got, terms, what in ((dbias, g64, "dbias"),
+                             (dscale, g64 * xhat64, "dscale")):
+        want = terms.sum((0, 2, 3))
+        lim = 1e-5 * terms.abs().sum((0, 2, 3))
+        if scale.dtype == torch.bfloat16:
+            lim = lim + chip_smoke.bn_ulp(want.float()).double()
+        assert ((got.double() - want).abs() <= lim).all(), what
+
+    # equal bits on a second call
+    y2, stats2 = bn.forward(x, scale, bias, act=act, residual=sc)
+    again = bn.backward(dy, x, scale, bias, stats2, act=act,
+                        out=y2 if act == "add_relu" else None)
+    assert torch.equal(y2, y) and torch.equal(stats2, stats)
+    for a, b in zip(again, grads):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_batchnorm_kernel_on_two_streams_and_in_a_graph(card, monkeypatch):
+    """Each stream has its own tickets and partials: calls on two streams
+    at once give the bits of the same calls on one stream. A graph
+    captured on a stream after a call there replays to the same bits; a
+    stream's first call inside a capture raises (its tickets would be
+    zeroed inside the graph)."""
+    from repro_torch.kernels import batchnorm as bn
+    monkeypatch.setattr(bn, "_STATES", {})
+    cases = [_bn_inputs(card, nhw, c, torch.bfloat16, act, seed=i)
+             for i, (nhw, c, act) in enumerate((((64, 28, 28), 512, "relu"),
+                                                ((64, 14, 14), 1024,
+                                                 "add_relu")))]
+
+    def call(x, scale, bias, sc, dy):
+        act = "relu" if sc is None else "add_relu"
+        y, stats = bn.forward(x, scale, bias, act=act, residual=sc)
+        return (y, stats) + bn.backward(
+            dy, x, scale, bias, stats, act=act,
+            out=y if act == "add_relu" else None)
+
+    want = [call(*case) for case in cases]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(10):
+        for i, (case, s) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(s):
+                got[i].append(call(*case))
+    torch.cuda.synchronize()
+    same = lambda a, b: all((u is None and v is None) or torch.equal(u, v)
+                            for u, v in zip(a, b))
+    for i in range(2):
+        assert all(same(o, want[i]) for o in got[i])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=streams[0]):
+        out = call(*cases[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert same(out, want[0])
+    monkeypatch.setattr(bn, "_STATES", {})
+    with pytest.raises(RuntimeError, match="capturing"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(),
+                              stream=torch.cuda.Stream()):
+            call(*cases[0])
+    torch.cuda.synchronize()
+
+
+def test_batchnorm_kernel_through_autograd_with_fp32_params(card):
+    """bf16 activations with fp32 scale and bias (the library yardstick's
+    mix): the autograd function gives the plain version's output and
+    gradients (bf16 within one ulp, the params' at the fp32 sums'
+    tolerance), and its gradient for the shortcut."""
+    x, scale, bias, sc, dy = _bn_inputs(card, (8, 14, 14), 256,
+                                        torch.bfloat16, "add_relu", seed=1)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x, scale.float(), bias.float(), sc)]
+    y = ops.batchnorm(*leaves[:3], act="add_relu", residual=leaves[3])
+    got = torch.autograd.grad(y, leaves, dy)
+    plain = [t.detach().float().requires_grad_(True) for t in leaves]
+    pre = ref.batchnorm_ref(*plain[:3])
+    want_y = ref.bn_epilogue(pre.to(torch.bfloat16), "add_relu",
+                             leaves[3].detach())
+    chip_smoke.bn_close(y, want_y, torch.bfloat16, "y",
+                        chip_smoke.bn_ulp(pre.detach()))
+    g = dy.float() * (y.detach().float() > 0)
+    want = torch.autograd.grad(pre, plain[:3], g)
+    chip_smoke.bn_close(got[0], want[0].to(torch.bfloat16), torch.bfloat16,
+                        "dx")
+    for a, b in zip(got[1:3], want[1:3]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    assert torch.equal(got[3], g.to(torch.bfloat16))
+
+
+def test_batchnorm_kernel_raises_on_what_it_does_not_take(card):
+    from repro_torch.kernels import batchnorm as bn
+    x, scale, bias, sc, _ = _bn_inputs(card, (2, 4, 4), 64, torch.bfloat16,
+                                       "add_relu")
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.batchnorm(x.contiguous(), scale, bias)
+    with pytest.raises(TypeError):
+        ops.batchnorm(x.half(), scale.half(), bias.half())
+    with pytest.raises(TypeError):
+        ops.batchnorm(x, scale.float(), bias)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.batchnorm(torch.ones(2, 12, 3, 3, device=card,
+                                 dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last), scale[:12], bias[:12])
+    with pytest.raises(ValueError):
+        ops.batchnorm(x, scale, bias, act="relu", residual=sc)
+    with pytest.raises(ValueError):
+        bn.forward(x, scale, bias, act="add_relu")
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.batchnorm(x, scale, bias, act="add_relu",
+                      residual=sc.contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -140,4 +140,4 @@ def test_ops_on_cpu_run_the_plain_version_and_count_no_launch():
     assert ops.launch_counts() == {"paged_decode_attention": 0,
                                    "paged_prefill_attention": 0,
                                    "flash_attention": 0, "rmsnorm": 0,
-                                   "adamw": 0}
+                                   "adamw": 0, "batchnorm": 0}

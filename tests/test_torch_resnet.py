@@ -8,9 +8,13 @@ both packages, on fp32 reduced configs:
     1 and 2, against ``jax.lax.conv_general_dilated``: atol 1e-5 and
     rtol 1e-5 (summation order); the "SAME" max-pool against
     ``reduce_window``: equal (a max rounds nothing);
-  * ``batchnorm`` against the reference's: fp32 at atol 1e-5, bf16
-    within one bf16 ulp of the output (both compute in fp32 and round
-    once);
+  * ``batchnorm`` with each epilogue (none, ReLU, the shortcut added
+    before the ReLU) against the reference's ``batchnorm`` followed by
+    ``jax.nn.relu`` and the add: fp32 at atol 1e-5 (and its gradients
+    against ``jax.vjp`` at atol 1e-5, rtol 1e-4), bf16 within one bf16
+    ulp of the output (both compute in fp32 and round once; with the
+    shortcut, that ulp carried into the sum plus the sum's rounding);
+    an epilogue it does not have raises;
   * ``forward`` logits at atol 1e-5, rtol 1e-4;
   * the loss at rtol 1e-6 and every gradient leaf at atol 1e-5, rtol
     1e-4 against ``jax.value_and_grad``;
@@ -152,27 +156,72 @@ def test_same_pads_are_xlas(n, k, stride, pads):
     assert resnet.same_pads(n, k, stride) == pads
 
 
+@pytest.mark.parametrize("act", ["none", "relu", "add_relu"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_batchnorm_matches_reference(dtype):
+def test_batchnorm_matches_reference(dtype, act):
+    """The call with its epilogue against the reference's ``batchnorm``
+    followed by ``jax.nn.relu`` (and the shortcut's add before it); in
+    fp32 the gradients too, against ``jax.vjp``."""
     rng = np.random.default_rng(3)
     x = (rng.standard_normal((4, 6, 5, 8)) * 3 + 1).astype(np.float32)
     p = {"scale": rng.standard_normal(8).astype(np.float32),
          "bias": rng.standard_normal(8).astype(np.float32)}
+    sc = (rng.standard_normal(x.shape) * 2).astype(np.float32) \
+        if act == "add_relu" else None
     jdt = jnp.dtype(dtype)
-    want, _ = ref_resnet.batchnorm(
-        {k: jnp.asarray(v, jdt) for k, v in p.items()},
-        jnp.asarray(x, jdt))
+
+    def ref_fn(q, xx, ss):
+        y, _ = ref_resnet.batchnorm(q, xx)
+        if ss is not None:
+            y = y + ss
+        return y if act == "none" else jax.nn.relu(y)
+
+    jp = {k: jnp.asarray(v, jdt) for k, v in p.items()}
+    jsc = None if sc is None else jnp.asarray(sc, jdt)
+    want, vjp = jax.vjp(ref_fn, jp, jnp.asarray(x, jdt), jsc)
     tdt = getattr(torch, dtype)
-    got = resnet.batchnorm({k: torch.from_numpy(v).to(tdt)
-                            for k, v in p.items()},
-                           _nchw(x).to(tdt))
+    tp = {k: torch.from_numpy(v).to(tdt).requires_grad_(True)
+          for k, v in p.items()}
+    tx = _nchw(x).to(tdt).requires_grad_(True)
+    tsc = None if sc is None else _nchw(sc).to(tdt).requires_grad_(True)
+    got = resnet.batchnorm(tp, tx, act=act, residual=tsc)
     assert got.dtype == tdt
     want = np.asarray(want, np.float32)
-    if dtype == "float32":
-        np.testing.assert_allclose(_nhwc(got), want, atol=1e-5, rtol=1e-5)
-    else:        # one bf16 ulp of the output (2**-8 relative)
-        np.testing.assert_allclose(_nhwc(got), want, atol=1e-6,
-                                   rtol=2.0 ** -8)
+    if dtype == "bfloat16":
+        if act == "add_relu":
+            # one bf16 ulp of the normalised output (2**-8 relative),
+            # carried into the sum, and one of the sum's own rounding
+            y, _ = ref_resnet.batchnorm(jp, jnp.asarray(x, jdt))
+            bound = 2.0 ** -8 * (np.abs(np.asarray(y, np.float32))
+                                 + np.abs(want)) + 1e-6
+            assert (np.abs(_nhwc(got) - want) <= bound).all()
+        else:    # one bf16 ulp of the output (2**-8 relative)
+            np.testing.assert_allclose(_nhwc(got), want, atol=1e-6,
+                                       rtol=2.0 ** -8)
+        return
+    np.testing.assert_allclose(_nhwc(got), want, atol=1e-5, rtol=1e-5)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    wp, wx, wsc = vjp(jnp.asarray(dy))
+    torch.autograd.backward(got, _nchw(dy))
+    np.testing.assert_allclose(_nhwc(tx.grad), np.asarray(wx), atol=1e-5,
+                               rtol=1e-4)
+    for k in p:
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(wp[k]),
+                                   atol=1e-5, rtol=1e-4, err_msg=k)
+    if sc is not None:
+        np.testing.assert_allclose(_nhwc(tsc.grad), np.asarray(wsc),
+                                   atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("act,residual", [("none", True), ("relu", True),
+                                          ("add_relu", False),
+                                          ("gelu", False)])
+def test_batchnorm_refuses_an_epilogue_it_does_not_have(act, residual):
+    x = torch.ones(2, 4, 3, 3)
+    p = {"scale": torch.ones(4), "bias": torch.zeros(4)}
+    with pytest.raises(ValueError):
+        resnet.batchnorm(p, x, act=act,
+                         residual=torch.ones_like(x) if residual else None)
 
 
 # ---------------------------------------------------------------------------
